@@ -1,0 +1,70 @@
+"""Box operations with the legacy Detectron "+1" convention (counterpart of
+`mqdet_tpu/core/boxes.py`; reference structures/bounding_box.py and the
+BoxCoder of modeling/rpn/vldyhead.py). Boxes are xyxy float32."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+TO_REMOVE = 1.0
+BBOX_XFORM_CLIP = math.log(1000.0 / 16)
+BOX_CODER_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
+
+
+def box_area(boxes: torch.Tensor) -> torch.Tensor:
+    return (boxes[..., 2] - boxes[..., 0] + TO_REMOVE) * (boxes[..., 3] - boxes[..., 1] + TO_REMOVE)
+
+
+def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of (..., N, 4) and (..., M, 4) -> (..., N, M)."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = (rb - lt + TO_REMOVE).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (box_area(a)[..., :, None] + box_area(b)[..., None, :] - inter)
+
+
+def decode(preds: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """BoxCoder.decode: (dx, dy, dw, dh) deltas + anchors -> xyxy."""
+    wx, wy, ww, wh = BOX_CODER_WEIGHTS
+    widths = anchors[..., 2] - anchors[..., 0] + TO_REMOVE
+    heights = anchors[..., 3] - anchors[..., 1] + TO_REMOVE
+    ctr_x = (anchors[..., 2] + anchors[..., 0]) * 0.5
+    ctr_y = (anchors[..., 3] + anchors[..., 1]) * 0.5
+    dx = preds[..., 0] / wx
+    dy = preds[..., 1] / wy
+    dw = (preds[..., 2] / ww).clamp(max=BBOX_XFORM_CLIP)
+    dh = (preds[..., 3] / wh).clamp(max=BBOX_XFORM_CLIP)
+    pred_cx = dx * widths + ctr_x
+    pred_cy = dy * heights + ctr_y
+    pred_w = torch.exp(dw) * widths
+    pred_h = torch.exp(dh) * heights
+    return torch.stack(
+        [
+            pred_cx - 0.5 * (pred_w - TO_REMOVE),
+            pred_cy - 0.5 * (pred_h - TO_REMOVE),
+            pred_cx + 0.5 * (pred_w - TO_REMOVE),
+            pred_cy + 0.5 * (pred_h - TO_REMOVE),
+        ],
+        dim=-1,
+    )
+
+
+def clip_to_image(boxes: torch.Tensor, height, width) -> torch.Tensor:
+    """Clamp to [0, size - 1]; height / width are scalars or (...,) tensors
+    broadcasting against the leading dims of boxes."""
+    height = torch.as_tensor(height, dtype=boxes.dtype, device=boxes.device)
+    width = torch.as_tensor(width, dtype=boxes.dtype, device=boxes.device)
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    x1 = torch.minimum(torch.maximum(boxes[..., 0], zero), width - TO_REMOVE)
+    y1 = torch.minimum(torch.maximum(boxes[..., 1], zero), height - TO_REMOVE)
+    x2 = torch.minimum(torch.maximum(boxes[..., 2], zero), width - TO_REMOVE)
+    y2 = torch.minimum(torch.maximum(boxes[..., 3], zero), height - TO_REMOVE)
+    return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def remove_small_boxes_mask(boxes: torch.Tensor, min_size: float) -> torch.Tensor:
+    ws = boxes[..., 2] - boxes[..., 0] + TO_REMOVE
+    hs = boxes[..., 3] - boxes[..., 1] + TO_REMOVE
+    return (ws >= min_size) & (hs >= min_size)
