@@ -71,4 +71,11 @@ def default_config() -> CfgNode:
             "NEW_MASK_TOKEN": False, "LEARNABLE_BANK": False, "ADD_VISION_LAYER": False,
             "QUERY_FUSION": False,
         },
+        # the evaluation keys of the JAX package's GroundingDINO block
+        "GROUNDINGDINO": {
+            "enabled": False, "hidden_dim": 256, "num_queries": 900, "nheads": 8,
+            "dim_feedforward": 2048, "enc_layers": 6, "dec_layers": 6, "num_feature_levels": 4,
+            "enc_n_points": 4, "dec_n_points": 4, "two_stage_type": "standard",
+            "max_text_len": 256, "box_threshold": 0.05, "dn_number": 0, "query_dim": 4,
+        },
     })

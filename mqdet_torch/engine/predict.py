@@ -1,7 +1,9 @@
 """Inference entry points for chunked evaluation (counterpart of
 `mqdet_tpu/engine/predict.py`): the image tower runs once per image, then the
-text-conditioned head (GCP-BERT + VLDyHead + ATSS decoding + class-aware
-NMS) runs once per group of CP prompt chunks.
+text-conditioned head runs once per group of CP prompt chunks. For MQ-GLIP
+the head is GCP-BERT + VLDyHead + ATSS decoding + class-aware NMS; for
+MQ-GroundingDINO it is GCP-BERT + the deformable encoder and decoder +
+`gdino_postprocess`, behind the same signatures.
 
 PyTorch runs eagerly, so the JAX package's single jitted dispatch becomes a
 Python loop over the groups under `torch.inference_mode()`.
@@ -13,17 +15,48 @@ from typing import Tuple
 import torch
 
 from mqdet_torch.core.detections import Detections
+from mqdet_torch.models.gdino import MQGroundingDINO, gdino_postprocess
 from mqdet_torch.models.postprocess import PostprocessParams, atss_postprocess
 from mqdet_torch.ops.anchors import anchors_for_fpn
 
 
+def _make_gdino_split_fns(model, cfg):
+    """MQ-GroundingDINO's (encode_fn, head_fn): encode_fn gives the 4
+    input_proj levels; head_fn runs `forward_head` and `gdino_postprocess`
+    (one detection slot per query)."""
+    dev = next(model.parameters()).device
+    box_threshold = cfg.GROUNDINGDINO.box_threshold
+    use_queries = cfg.VISION_QUERY.ENABLED
+
+    @torch.inference_mode()
+    def encode_fn(images):
+        return model.encode_image(images.to(dev))
+
+    @torch.inference_mode()
+    def head_fn(srcs, input_ids, attention_mask, queries, query_mask, agg_map, image_sizes):
+        out = model.forward_head(
+            srcs,
+            input_ids.to(dev),
+            attention_mask.to(dev),
+            queries.to(dev) if use_queries else None,
+            query_mask.to(dev) if use_queries else None,
+        )
+        return gdino_postprocess(out["pred_logits"], out["pred_boxes"], agg_map.to(dev),
+                                 image_sizes.to(dev), box_threshold)
+
+    return encode_fn, head_fn
+
+
 def make_split_predict_fns(model, image_hw: Tuple[int, int], cfg):
     """Returns (encode_fn, head_fn):
-      encode_fn(images (1, 3, H, W)) -> fpn_feats (list of 5 NCHW maps)
-      head_fn(fpn_feats, input_ids (CP, T), attention_mask (CP, T),
+      encode_fn(images (1, 3, H, W)) -> image features (list of NCHW maps:
+                5 FPN levels for MQ-GLIP, 4 levels for MQ-GroundingDINO)
+      head_fn(features, input_ids (CP, T), attention_mask (CP, T),
               queries (CP, V, C), query_mask (CP, V, T), agg_map (CP, Cls, T),
               image_sizes (CP, 2)) -> Detections with a leading CP dim
-    Inputs are moved to the model's device."""
+    Dispatches on the model family. Inputs are moved to the model's device."""
+    if isinstance(model, MQGroundingDINO):
+        return _make_gdino_split_fns(model, cfg)
     if cfg.MODEL.DYHEAD.SCORE_AGG != "MEAN":
         raise NotImplementedError("only MEAN score aggregation is ported")
     dev = next(model.parameters()).device

@@ -11,7 +11,7 @@ Eval only: dropout is the identity.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -167,12 +167,12 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(type_vocab, hidden)
         self.LayerNorm = LayerNorm(hidden, eps=1e-12)
 
-    def forward(self, input_ids):
-        t = input_ids.shape[1]
-        pos = torch.arange(t, device=input_ids.device)[None]
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1], device=input_ids.device)[None]
         x = (
             self.word_embeddings(input_ids)
-            + self.position_embeddings(pos)
+            + self.position_embeddings(position_ids)
             + self.token_type_embeddings(torch.zeros_like(input_ids))
         )
         return self.LayerNorm(x)
@@ -193,9 +193,11 @@ class _Encoder(nn.Module):
 
 class QVBertModel(nn.Module):
     """BERT with a GCP block before every layer >= start_qv_layer; the vision
-    queries are first conditioned on the image by the PreSelect module."""
+    queries are first conditioned on the image by the PreSelect module.
+    `vision_dim` is the width of the queries and image tokens
+    (MODEL.BACKBONE.OUT_CHANNELS unless given)."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, vision_dim: Optional[int] = None):
         super().__init__()
         lb = cfg.MODEL.LANGUAGE_BACKBONE
         vq = cfg.VISION_QUERY
@@ -203,14 +205,20 @@ class QVBertModel(nn.Module):
         self.embeddings = BertEmbeddings(lb.VOCAB_SIZE, lb.HIDDEN_SIZE)
         self.encoder = _Encoder(lb, lb.HIDDEN_LAYERS - vq.START_QV_LAYER, lb.HIDDEN_SIZE)
         self.pre_select = PreSelectModule(
-            cfg.MODEL.BACKBONE.OUT_CHANNELS, lb.HIDDEN_SIZE,
+            vision_dim or cfg.MODEL.BACKBONE.OUT_CHANNELS, lb.HIDDEN_SIZE,
             vq.NUM_PRE_SELECT_LAYERS, vq.VISION_SCALE,
         )
 
     def forward(self, input_ids, attention_mask, queries=None, query_mask=None,
-                image_tokens=None) -> Dict[str, torch.Tensor]:
-        x = self.embeddings(input_ids)
-        attn_bias = (1.0 - attention_mask[:, None, None, :].float()) * -10000.0
+                image_tokens=None, attention_matrix=None, position_ids=None) -> Dict[str, torch.Tensor]:
+        """attention_matrix (B, T, T) bool, GroundingDINO's sub-sentence
+        blocks, is then the attention mask ALONE (padding tokens are already
+        self-only blocks); position_ids (B, T) restart in each block."""
+        x = self.embeddings(input_ids, position_ids)
+        if attention_matrix is not None:
+            attn_bias = (1.0 - attention_matrix[:, None].float()) * -10000.0
+        else:
+            attn_bias = (1.0 - attention_mask[:, None, None, :].float()) * -10000.0
         vision = None
         if queries is not None:
             vision = (

@@ -26,8 +26,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -47,7 +48,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
@@ -56,23 +57,39 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the sources if no library of this hash exists; return its path.
-    The compiler's output (ptxas register and shared-memory report included)
-    is kept next to it as `<library>.log`."""
+    One nvcc per source, all started together, then one link. The compilers'
+    output (ptxas register and shared-memory report included) is kept next to
+    the library as `<library>.log`."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
-        capture_output=True, text=True,
-    )
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in sources()]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources(), objs)
+    ]
+    steps = []
+    for src, proc in zip(sources(), procs):
+        out, _ = proc.communicate()
+        steps.append((os.path.basename(src), proc.returncode, out))
+    if all(rc == 0 for _, rc, _ in steps):
+        tmp = f"{path}.{tag}"
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        steps.append(("link", link.returncode, link.stdout))
     with open(path + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+        f.write("".join(f"== {name} (rc {rc})\n{out}" for name, rc, out in steps))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    bad = [(name, rc, out) for name, rc, out in steps if rc != 0]
+    if bad:
+        name, rc, out = bad[0]
+        raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{out[-4000:]}")
     os.replace(tmp, path)
     return path
 
@@ -86,6 +103,8 @@ def lib() -> ctypes.CDLL:
         so.mqdet_dcn_forward.restype = i
         so.mqdet_bi_attention_forward.argtypes = [p] * 7 + [i] * 5 + [p]
         so.mqdet_bi_attention_forward.restype = i
+        so.mqdet_ms_deform_attn_forward.argtypes = [p] * 4 + [ctypes.POINTER(i)] + [i] * 7 + [p]
+        so.mqdet_ms_deform_attn_forward.restype = i
         _lib = so
     return _lib
 

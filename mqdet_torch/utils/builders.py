@@ -45,9 +45,39 @@ def tiny_test_config() -> CfgNode:
     return cfg
 
 
+def mq_groundingdino_t_config() -> CfgNode:
+    """MQ-GroundingDINO-T (configs/pretrain/mq-groundingdino-t.yaml): Swin-T,
+    hidden 256, 8 heads, FFN 2048, 6 + 6 layers, 900 queries, 4 levels x 4
+    points, BERT-base with GCP from layer 6, max_text_len 256."""
+    cfg = default_config()
+    cfg.GROUNDINGDINO.enabled = True
+    cfg.VISION_QUERY.ENABLED = True
+    return cfg
+
+
+def tiny_gdino_config() -> CfgNode:
+    """Miniature MQ-GroundingDINO config for CPU tests (the JAX package's
+    values for the keys this package reads)."""
+    cfg = tiny_test_config()
+    cfg.GROUNDINGDINO.enabled = True
+    cfg.GROUNDINGDINO.hidden_dim = 16  # == MODEL.BACKBONE.OUT_CHANNELS
+    cfg.GROUNDINGDINO.nheads = 2
+    cfg.GROUNDINGDINO.dim_feedforward = 32
+    cfg.GROUNDINGDINO.enc_layers = 1
+    cfg.GROUNDINGDINO.dec_layers = 2
+    cfg.GROUNDINGDINO.num_queries = 12
+    cfg.GROUNDINGDINO.max_text_len = cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN
+    return cfg
+
+
 def build_model(cfg):
-    """MQ-GLIP from a config, in fp32 on the CPU. Move it with
-    `.to(device, dtype)`: the compute dtype is the parameters' dtype."""
+    """MQ-GLIP, or MQ-GroundingDINO when `GROUNDINGDINO.enabled`, from a
+    config, in fp32 on the CPU. Move it with `.to(device, dtype)`: the
+    compute dtype is the parameters' dtype."""
+    if cfg.GROUNDINGDINO.enabled:
+        from mqdet_torch.models.gdino import MQGroundingDINO
+
+        return MQGroundingDINO(cfg)
     from mqdet_torch.models.mq_glip import MQGLIP
 
     return MQGLIP(cfg)
@@ -89,13 +119,50 @@ def synthetic_batch(
     }
 
 
+def synthetic_caption_batch(
+    cfg,
+    batch: int,
+    image_hw: Tuple[int, int],
+    num_labels: int = 40,
+    k_shot: int = 5,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """`synthetic_batch` with captions in GroundingDINO's shape: [CLS] (101),
+    then per label two name tokens and '.' (1012), then [SEP] (102), then
+    padding masked out. The queries and the agg_map row of label j sit on
+    its two name tokens, so the sub-sentence masks hold one block per label."""
+    out = synthetic_batch(cfg, batch, image_hw, num_labels, k_shot, seed)
+    t = cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN
+    used = 3 * num_labels + 2
+    if used > t:
+        raise ValueError(f"{num_labels} labels need {used} tokens, T = {t}")
+    rng = np.random.default_rng(seed + 1)
+    ids = np.zeros((batch, t), np.int32)
+    ids[:, 0] = 101
+    ids[:, 1 : used - 1] = np.concatenate(
+        [rng.integers(2000, 29000, (batch, num_labels, 2)), np.full((batch, num_labels, 1), 1012)], -1
+    ).reshape(batch, -1)
+    ids[:, used - 1] = 102
+    mask = np.zeros((batch, t), np.int32)
+    mask[:, :used] = 1
+    query_mask = np.zeros((batch, num_labels * k_shot, t), np.float32)
+    agg_map = np.zeros((batch, num_labels, t), np.float32)
+    for j in range(num_labels):
+        span = [3 * j + 1, 3 * j + 2]
+        query_mask[:, j * k_shot : (j + 1) * k_shot, span] = 1
+        agg_map[:, j, span] = 0.5
+    out.update(input_ids=ids, attention_mask=mask, query_mask=query_mask, agg_map=agg_map)
+    return out
+
+
 @torch.no_grad()
 def init_params(model: torch.nn.Module, seed: int = 0, scale: float = 0.02) -> torch.nn.Module:
     """Fill every parameter by the rule of the JAX package's
     `init_params_fast`: ones for norm scales, the fusion layer-scale gammas
     and the `Scale` / `log_scale` scalars (flax leaves named *scale,
-    *gamma_v, *gamma_l), zeros for biases, else numpy normals * `scale` from
-    `seed`, drawn in state_dict order."""
+    *gamma_v, *gamma_l), zeros for biases (an attention's `in_proj_bias`
+    holds three flax biases), else numpy normals * `scale` from `seed`,
+    drawn in state_dict order."""
     ones = set()
     for name, mod in model.named_modules():
         if isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
@@ -104,7 +171,7 @@ def init_params(model: torch.nn.Module, seed: int = 0, scale: float = 0.02) -> t
     for key, t in model.state_dict().items():
         if key in ones or key.endswith(("gamma_v", "gamma_l", "scale")):
             t.fill_(1.0)
-        elif key.endswith(".bias"):
+        elif key.endswith((".bias", "in_proj_bias")):
             t.zero_()
         else:
             t.copy_(torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32) * scale))

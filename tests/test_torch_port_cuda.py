@@ -14,6 +14,7 @@ import torch
 
 from mqdet_torch.ops import bi_attention as tba
 from mqdet_torch.ops import deform_conv as tdc
+from mqdet_torch.ops import ms_deform_attn as tms
 
 BOUND = 2e-2
 
@@ -71,7 +72,7 @@ def test_dcn_kernel_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,t,heads", [(1, 100, 64, 1), (2, 700, 128, 2), (1, 3000, 256, 8)])
+@pytest.mark.parametrize("b,n,t,heads", [(1, 100, 64, 1), (2, 700, 128, 2), (1, 3000, 256, 8), (2, 2333, 256, 4)])
 def test_bi_attention_kernel_matches_plain(dev, b, n, t, heads):
     e = 256 * heads
     g = torch.Generator(device=dev).manual_seed(n)
@@ -99,3 +100,65 @@ def test_bi_attention_kernel_refuses_other_widths(dev):
     k = torch.zeros(1, 64, 256, device=dev).bfloat16()
     with pytest.raises(ValueError):  # head width 128
         tba.flash_bi_attention(q, k, q, k, None, 2)
+
+
+GDINO_800 = [(100, 168), (50, 84), (25, 42), (13, 21)]  # the 800x1344 pyramid
+
+
+def _msda(dev, b, shapes, q, lo, hi, nh=8, hd=32, p=4, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = sum(h * w for h, w in shapes)
+    q = s if q is None else q
+    value = torch.randn(b, s, nh, hd, generator=g, device=dev).bfloat16()
+    loc = torch.rand(b, q, nh, len(shapes), p, 2, generator=g, device=dev) * (hi - lo) + lo
+    attn = torch.rand(b, q, nh, len(shapes), p, generator=g, device=dev)
+    attn = attn / attn.sum(dim=(3, 4), keepdim=True)
+    return value, loc, attn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, level shapes, Q (None: Q = S, encoder queries), loc range, hd)
+    (2, [(25, 42), (13, 21), (7, 11), (4, 6)], None, (-0.2, 1.2), 32),
+    (3, GDINO_800, 900, (0.0, 1.0), 32),
+    (2, GDINO_800, 900, (-1.0, 2.0), 32),
+    (2, [(9, 7), (5, 4)], 33, (-0.3, 1.3), 8),
+    (1, [(16, 16), (8, 8), (4, 4)], None, (0.0, 1.0), 32),
+])
+def test_msda_kernel_matches_plain(dev, case):
+    b, shapes, q, (lo, hi), hd = case
+    value, loc, attn = _msda(dev, b, shapes, q, lo, hi, hd=hd)
+    n0 = tms.launch_count
+    got = tms.ms_deform_attn(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert tms.launch_count == n0 + 1
+    ref = tms.ms_deform_attn_plain(value.float(), shapes, loc, attn)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert _close(got, ref)
+    # items are independent: the last item alone gives the same rows
+    alone = tms.ms_deform_attn(value[-1:].contiguous(), shapes, loc[-1:].contiguous(), attn[-1:].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], got[-1])
+
+
+@pytest.mark.cuda
+def test_msda_kernel_refuses_what_it_does_not_take(dev):
+    shapes = [(4, 4), (2, 2)]
+    value, loc, attn = _msda(dev, 1, shapes, 5, 0.0, 1.0, nh=2, hd=32, p=2)
+    with pytest.raises(TypeError):  # fp32 value
+        tms.ms_deform_attn(value.float(), shapes, loc, attn)
+    with pytest.raises(TypeError):  # bf16 locations
+        tms.ms_deform_attn(value, shapes, loc.bfloat16(), attn)
+    with pytest.raises(ValueError):  # levels do not cover S
+        tms.ms_deform_attn(value, [(4, 4), (2, 1)], loc, attn)
+    for hd in (24, 64):  # head widths without an instantiation
+        with pytest.raises(ValueError):
+            tms.ms_deform_attn(torch.zeros(1, 20, 2, hd, device=dev).bfloat16(), shapes, loc, attn)
+    with pytest.raises(ValueError):  # five levels
+        v5 = torch.zeros(1, 23, 2, 32, device=dev).bfloat16()
+        loc5 = torch.rand(1, 5, 2, 5, 2, 2, device=dev)
+        tms.ms_deform_attn(v5, shapes + [(1, 1)] * 3, loc5, torch.rand(1, 5, 2, 5, 2, device=dev))
+    with pytest.raises(ValueError):  # weights of another shape
+        tms.ms_deform_attn(value, shapes, loc, attn[:, :4].contiguous())
+    with pytest.raises(ValueError):  # not contiguous
+        tms.ms_deform_attn(value, shapes, loc.transpose(1, 2).contiguous().transpose(1, 2), attn)

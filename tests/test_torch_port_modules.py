@@ -177,6 +177,8 @@ def test_port_config_matches_jax_defaults():
     for tcfg, jcfg in (
         (tb.tiny_test_config(), jb.tiny_test_config()),
         (tb.mq_glip_t_config(), jb.mq_glip_t_config()),
+        (tb.tiny_gdino_config(), jb.tiny_gdino_config()),
+        (tb.mq_groundingdino_t_config(), jb.mq_groundingdino_t_config()),
     ):
         n = 0
         for key, val in leaves(tcfg):
@@ -234,9 +236,10 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
         "import sys\n"
         "import chip_smoke\n"
         "from mqdet_torch.engine import predict\n"
-        "from mqdet_torch.ops import bi_attention, deform_conv, kernels\n"
+        "from mqdet_torch.ops import bi_attention, deform_conv, kernels, ms_deform_attn\n"
         "from mqdet_torch.utils import builders\n"
         "builders.init_params(builders.build_model(builders.tiny_test_config()))\n"
+        "builders.init_params(builders.build_model(builders.tiny_gdino_config()))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib', 'mqdet_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -1,6 +1,7 @@
-"""mqdet_torch ops vs the JAX package: the plain versions of the two CUDA
-kernels (DCNv2, bi-attention), the strided offset reinterpretation, NMS and
-ATSS post-processing, plus the wrappers' device dispatch.
+"""mqdet_torch ops vs the JAX package: the plain versions of the three CUDA
+kernels (DCNv2, bi-attention, multi-scale deformable attention), the strided
+offset reinterpretation, NMS and ATSS post-processing, plus the wrappers'
+device dispatch.
 
 Inputs are numpy arrays from a seed, fp32 on both sides (conftest forces
 highest matmul precision on the JAX side). Tolerances are fp32 rounding:
@@ -18,6 +19,7 @@ import torch
 
 from mqdet_torch.ops import bi_attention as tba
 from mqdet_torch.ops import deform_conv as tdc
+from mqdet_torch.ops import ms_deform_attn as tms
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -234,7 +236,7 @@ def test_kernel_library_name_tracks_the_sources(tmp_path, monkeypatch):
     from mqdet_torch.ops import kernels
 
     before = kernels.library_path()
-    assert len(kernels.sources()) == 2
+    assert len(kernels.sources()) == 3
     for src in kernels.sources():
         shutil.copy(src, tmp_path)
     monkeypatch.setattr(kernels, "CSRC", str(tmp_path))
@@ -242,3 +244,83 @@ def test_kernel_library_name_tracks_the_sources(tmp_path, monkeypatch):
     with open(tmp_path / "deform_conv.cu", "a") as f:
         f.write("\n// edit\n")
     assert kernels.library_path() != before
+
+
+def _msda_inputs(rng, shapes, q, lo, hi, b=2, nh=2, hd=8, p=3):
+    """value (B, S, nh, hd); locations uniform in [lo, hi) (outside [0, 1]
+    the samples leave the image); softmaxed weights. q=None: encoder
+    queries, Q = S."""
+    s = sum(h * w for h, w in shapes)
+    q = s if q is None else q
+    value = rng.standard_normal((b, s, nh, hd)).astype(np.float32)
+    loc = rng.uniform(lo, hi, (b, q, nh, len(shapes), p, 2)).astype(np.float32)
+    attn = rng.random((b, q, nh, len(shapes), p)).astype(np.float32)
+    attn /= attn.sum(axis=(3, 4), keepdims=True)
+    return value, loc, attn
+
+
+@pytest.mark.parametrize("case", ["decoder_in_range", "decoder_out_of_image", "encoder_non_exact_ratio"])
+def test_msda_plain_matches_jax_composite(case):
+    """Against `ms_deform_attn_sample`, fp32, atol 1e-5: locations inside
+    the image, locations well off it (up to half a map beyond each border),
+    and a pyramid whose level ratios are not exact (15 -> 8 -> 4 -> 3)."""
+    from mqdet_tpu.ops.ms_deform_attn import ms_deform_attn_sample
+
+    rng = np.random.default_rng(12)
+    shapes = [(15, 15), (8, 8), (4, 4), (3, 2)]
+    lo, hi, q = {"decoder_in_range": (0.0, 1.0, 40), "decoder_out_of_image": (-0.5, 1.5, 40),
+                 "encoder_non_exact_ratio": (-0.1, 1.1, None)}[case]
+    value, loc, attn = _msda_inputs(rng, shapes, q, lo, hi)
+    want = ms_deform_attn_sample(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn))
+    got = tms.ms_deform_attn(torch.from_numpy(value), shapes, torch.from_numpy(loc), torch.from_numpy(attn))
+    assert got.shape == want.shape == (2, loc.shape[1], 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_msda_plain_matches_jax_pallas_interpret():
+    """Against the TPU kernel itself, in interpret mode, where it is exact:
+    encoder queries with offsets inside its clip window (built as
+    tests/test_msda_pallas.py builds them), shapes [(8, 8), (4, 4)], B = 1;
+    query level 0 on the kernel, the rest on its gather part. atol 2e-5,
+    the JAX package's own bound for this kernel."""
+    from mqdet_tpu.ops.pallas.msda_pallas import ms_deform_attn_encoder
+
+    rng = np.random.default_rng(13)
+    shapes = [(8, 8), (4, 4)]
+    nh, hd, p = 2, 8, 3
+    s = sum(h * w for h, w in shapes)
+    value = rng.standard_normal((1, s, nh, hd)).astype(np.float32)
+    attn = rng.random((1, s, nh, 2, p)).astype(np.float32)
+    attn /= attn.sum(axis=(3, 4), keepdims=True)
+    ref = np.concatenate([
+        np.stack(np.meshgrid((np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h), -1).reshape(h * w, 2)
+        for h, w in shapes
+    ])
+    loc = np.zeros((1, s, nh, 2, p, 2), np.float32)
+    for lv, (h, w) in enumerate(shapes):
+        u = rng.uniform(-1.0, 1.0, (1, s, nh, p, 2)) * 0.95
+        loc[:, :, :, lv, :, 0] = ref[None, :, None, None, 0] + u[..., 0] / w
+        loc[:, :, :, lv, :, 1] = ref[None, :, None, None, 1] + u[..., 1] / h
+    want = ms_deform_attn_encoder(
+        jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn),
+        pallas_query_levels=(0,), interpret=True,
+    )
+    got = tms.ms_deform_attn(torch.from_numpy(value), shapes, torch.from_numpy(loc), torch.from_numpy(attn))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+def test_msda_wrapper_takes_the_plain_path_only_on_cpu():
+    """A CPU tensor runs the plain version (no launch counted, output in the
+    value's dtype, accumulated in fp32); any other non-CUDA device raises."""
+    rng = np.random.default_rng(14)
+    shapes = [(6, 5), (3, 3)]
+    value, loc, attn = map(torch.from_numpy, _msda_inputs(rng, shapes, 7, 0.0, 1.0))
+    n0 = tms.launch_count
+    out = tms.ms_deform_attn(value, shapes, loc, attn)
+    assert out.shape == (2, 7, 16) and out.dtype == torch.float32 and tms.launch_count == n0
+    out16 = tms.ms_deform_attn(value.bfloat16(), shapes, loc, attn)
+    assert out16.dtype == torch.bfloat16 and tms.launch_count == n0
+    ref16 = tms.ms_deform_attn_plain(value.bfloat16().float(), shapes, loc, attn)
+    torch.testing.assert_close(out16.float(), ref16, atol=2e-2, rtol=1e-2)  # one bf16 rounding of the output
+    with pytest.raises(ValueError):
+        tms.ms_deform_attn(value.to("meta"), shapes, loc.to("meta"), attn.to("meta"))
