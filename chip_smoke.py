@@ -14,8 +14,11 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      at the main paths' shapes, bf16 inputs from the seed: max abs error
      against the bound 2e-2 * max|ref|, and the median time of 10 runs of
      the kernel and of the plain version (bf16, same inputs), CUDA events.
-     DCN at the GLIP levels; bi-attention at GLIP's (4, 22400, 2048) with 8
-     heads and GroundingDINO's (4, 22323, 1024) with 4 heads, T 256; MSDA at
+     DCN at the GLIP levels; bi-attention, single-score pair and dual-score
+     kernel, at GLIP's (4, 22400, 2048) with 8 heads and GroundingDINO's
+     (4, 22323, 1024) with 4 heads, T 256; the streamed (per-level,
+     carried-state) bi-attention at GLIP's 800x1344 pyramid (16800, 4200,
+     1050, 273 and 77 rows); MSDA at
      the 800x1344 GroundingDINO pyramid (100x168, 50x84, 25x42, 13x21; 8
      heads of 32, 4 levels x 4 points, B 4) for encoder queries (Q = S),
      decoder queries (Q = 900) and locations far outside the TPU kernel's
@@ -24,7 +27,9 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      256x256 image, one chunk, on the card (bf16, kernels) against the same
      weights in fp32 on the CPU (plain versions), by relative L2 error within
      twice the drift of the plain path run in bf16 on the CPU (or 1e-2 where
-     that is larger). MQ-GLIP-T: FPN features and dot-product logits.
+     that is larger). MQ-GLIP-T: FPN features and dot-product logits, the
+     card run under each fusion switch (default, MQDET_FLASH_LEVELS=stream,
+     MQDET_FLASH_SCORES=dual) against the one CPU reference.
      MQ-GroundingDINO-T: the encoder's memory and text and the two-stage
      logits (`enc_logits`), taken before the top-900 selection, whose
      overlap with the fp32 selection is printed;
@@ -37,13 +42,17 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      MQ-GroundingDINO-T 96 MSDA (6 encoder + 6 decoder layers, 8 groups) and
      48 bi-attention (one per encoder layer). Every output must be finite
      and of the right shape. Then p50 over --runs timed runs and the peak
-     device memory of the protocol;
-  5. per model, one protocol run under torch.profiler: device busy time,
+     device memory of the protocol. The same runs first under the fusion
+     switches, with phase 5 for each: MQ-GLIP-T under stream (240 level
+     launches, 5 per stage, and no pair launch) and under dual (48 dual
+     launches), MQ-GroundingDINO-T under dual (48; its fusion takes one
+     flattened tensor, so stream does not apply);
+  5. per protocol run, one run under torch.profiler: device busy time,
      idle share, kernel time by family and the time and launches of each
      hand-written kernel;
-  6. per model, one protocol run with a device synchronise at the
-     boundaries of its main modules (forward hooks): host-clock ms per
-     module.
+  6. per model, last (default switches), one protocol run with a device
+     synchronise at the boundaries of its main modules (forward hooks):
+     host-clock ms per module.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -52,6 +61,7 @@ without those lines.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -66,9 +76,28 @@ E2E_FLOOR = 1e-2      # whole network: floor of the bf16-vs-fp32 relative L2 bou
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("dcn", "mqdet_torch/csrc/deform_conv.cu", "mqdet_tpu/ops/pallas/deform_conv_pallas.py:561"),
     ("bi_attention", "mqdet_torch/csrc/bi_attention.cu", "mqdet_tpu/ops/pallas/bi_attention_pallas.py:384"),
+    ("bi_attention_dual", "mqdet_torch/csrc/bi_attention.cu", "mqdet_tpu/ops/pallas/bi_attention_pallas.py:107"),
+    ("bi_attention_levels", "mqdet_torch/csrc/bi_attention.cu", "mqdet_tpu/ops/pallas/bi_attention_pallas.py:252"),
     ("ms_deform_attn", "mqdet_torch/csrc/ms_deform_attn.cu", "mqdet_tpu/ops/pallas/msda_pallas.py:455"),
 )
 GDINO_800 = [(100, 168), (50, 84), (25, 42), (13, 21)]  # the 800x1344 pyramid
+GLIP_800 = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
+SWITCHES = {"default": {}, "stream": {"MQDET_FLASH_LEVELS": "stream"}, "dual": {"MQDET_FLASH_SCORES": "dual"}}
+
+
+@contextlib.contextmanager
+def switched(name: str):
+    """Sets the fusion switches of SWITCHES[name] for the block."""
+    keys = ("MQDET_FLASH_LEVELS", "MQDET_FLASH_SCORES")
+    old = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update(SWITCHES[name])
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
 
 
 def fail(msg: str) -> None:
@@ -112,7 +141,7 @@ def phase_kernels(torch, seed):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    results = {"dcn": [], "bi_attention": [], "ms_deform_attn": []}
+    results = {name: [] for name, _, _ in KERNELS}
 
     def dcn_case(b, h, w, c, stride):
         ho, wo = -(-h // stride), -(-w // stride)
@@ -144,7 +173,7 @@ def phase_kernels(torch, seed):
     dcn_case(4, 100, 168, 256, 2)
     dcn_case(4, 7, 11, 256, 1)
 
-    def bi_case(b, n, t, e, heads):
+    def bi_inputs(b, n, t, e, heads):
         q = (torch.randn(b, n, e, generator=g, device=dev) * (e // heads) ** -0.5).bfloat16()
         k = torch.randn(b, t, e, generator=g, device=dev).bfloat16()
         vv = torch.randn(b, n, e, generator=g, device=dev).bfloat16()
@@ -152,34 +181,60 @@ def phase_kernels(torch, seed):
         keep = torch.ones(b, t, dtype=torch.bool, device=dev)
         keep[:, 200:] = False  # padded text tail
         keep[1, 120:] = False
-        bias = torch.where(keep, 0.0, -9e15).float()
-        args = (q, k, vv, vl, bias)
-        ov, ol = ba.flash_bi_attention(*args, num_heads=heads)
-        torch.cuda.synchronize()
-        rv, rl = ba.bi_attention_plain(*(a.float() for a in args[:4]), bias, num_heads=heads)
-        errs = [max_err(ov, rv), max_err(ol, rl)]
-        del rv, rl
-        ms_ = cuda_time_ms(lambda: ba.flash_bi_attention(*args, num_heads=heads))
-        plain_ms = cuda_time_ms(lambda: ba.bi_attention_plain(*args, num_heads=heads))
-        ok = all(err <= ERR_BOUND * scale for err, scale in errs) and bool(
-            torch.isfinite(ov).all() and torch.isfinite(ol).all()
+        return q, k, vv, vl, torch.where(keep, 0.0, -9e15).float()
+
+    def bi_check(name, case, outs, refs, ms_, plain_ms):
+        errs = [max_err(o, r) for o, r in zip(outs, refs)]
+        ok = all(err <= ERR_BOUND * scale for err, scale in errs) and all(
+            bool(torch.isfinite(o).all()) for o in outs
         )
         say(
-            f"phase 2: bi-attention q/vv {(b, n, e)} T {t} heads {heads}: max_abs_err out_v "
-            f"{errs[0][0]!r} (bound {ERR_BOUND * errs[0][1]!r}), out_l {errs[1][0]!r} "
-            f"(bound {ERR_BOUND * errs[1][1]!r}); kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms; "
-            f"{'ok' if ok else 'FAIL'}"
+            f"phase 2: {name} {case}: max_abs_err out_v {errs[0][0]!r} (bound "
+            f"{ERR_BOUND * errs[0][1]!r}), out_l {errs[-1][0]!r} (bound {ERR_BOUND * errs[-1][1]!r}); "
+            f"kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms; {'ok' if ok else 'FAIL'}"
         )
         if not ok:
-            fail(f"bi-attention kernel disagrees with its plain version at {(b, n, t, e, heads)}")
-        results["bi_attention"].append(
-            (f"q/vv {(b, n, e)} T {t} heads {heads}", max(errs[0][0], errs[1][0]), ms_, plain_ms)
-        )
-        del q, k, vv, vl, ov, ol
+            fail(f"{name} kernel disagrees with its plain version at {case}")
+        results[name].append((case, max(e for e, _ in errs), ms_, plain_ms))
         torch.cuda.empty_cache()
 
-    bi_case(4, 22400, 256, 2048, 8)   # MQ-GLIP-T's VLFuse at 800x1344
-    bi_case(4, 22323, 256, 1024, 4)   # MQ-GroundingDINO-T's encoder fusion at 800x1344
+    def bi_case(b, n, t, e, heads, dual):
+        """The single-score pair (dual False) or the dual-score kernel."""
+        name = "bi_attention_dual" if dual else "bi_attention"
+        plain = ba.bi_attention_dual_plain if dual else ba.bi_attention_plain
+        args = bi_inputs(b, n, t, e, heads)
+        ov, ol = ba.flash_bi_attention(*args, num_heads=heads, dual_scores=dual)
+        torch.cuda.synchronize()
+        refs = plain(*(a.float() for a in args[:4]), args[4], num_heads=heads)
+        ms_ = cuda_time_ms(lambda: ba.flash_bi_attention(*args, num_heads=heads, dual_scores=dual))
+        plain_ms = cuda_time_ms(lambda: plain(*args, num_heads=heads))
+        bi_check(name, f"q/vv {(b, n, e)} T {t} heads {heads}", (ov, ol), refs, ms_, plain_ms)
+
+    def levels_case(b, shapes, t, e, heads):
+        """The streamed form, one launch per level, at a pyramid's levels."""
+        sizes = [h * w for h, w in shapes]
+        q, k, vv, vl, bias = bi_inputs(b, sum(sizes), t, e, heads)
+        qs = [x.contiguous() for x in q.split(sizes, 1)]
+        vvs = [x.contiguous() for x in vv.split(sizes, 1)]
+        del q, vv
+        ovs, ol = ba.flash_bi_attention_levels(qs, k, vvs, vl, bias, heads)
+        torch.cuda.synchronize()
+        rvs, rl = ba.bi_attention_levels_plain(
+            [x.float() for x in qs], k.float(), [x.float() for x in vvs], vl.float(), bias, heads
+        )
+        # one bound over all levels' out_v, as for the flat form
+        outs = (torch.cat(ovs, 1), ol)
+        refs = (torch.cat(rvs, 1), rl)
+        del rvs
+        ms_ = cuda_time_ms(lambda: ba.flash_bi_attention_levels(qs, k, vvs, vl, bias, heads))
+        plain_ms = cuda_time_ms(lambda: ba.bi_attention_levels_plain(qs, k, vvs, vl, bias, heads))
+        bi_check("bi_attention_levels", f"levels {sizes} x (B {b}, E {e}) T {t} heads {heads}",
+                 outs, refs, ms_, plain_ms)
+
+    for dual in (False, True):
+        bi_case(4, 22400, 256, 2048, 8, dual)   # MQ-GLIP-T's VLFuse at 800x1344
+        bi_case(4, 22323, 256, 1024, 4, dual)   # MQ-GroundingDINO-T's encoder fusion at 800x1344
+    levels_case(4, GLIP_800, 256, 2048, 8)      # MQ-GLIP-T's VLFuse under MQDET_FLASH_LEVELS=stream
 
     def msda_case(name, b, q, lo, hi, nh=8, hd=32, p=4):
         """q None: encoder queries (Q = S), each sampling every level around
@@ -232,18 +287,6 @@ def phase_kernels(torch, seed):
     return results
 
 
-def make_text(torch, make_batch, cfg, groups, cp, hw, seed):
-    batch = make_batch(cfg, batch=cp, image_hw=hw, num_labels=40, k_shot=5, seed=seed)
-    image = torch.from_numpy(batch["images"][:1]).permute(0, 3, 1, 2).contiguous()
-
-    def grp(key):  # the same chunk inputs in every group, as bench.py does
-        x = torch.from_numpy(batch[key])
-        return x[None].expand(groups, *x.shape).contiguous()
-
-    keys = ("input_ids", "attention_mask", "queries", "query_mask", "agg_map", "image_sizes")
-    return image, [grp(k) for k in keys]
-
-
 def compare_to_reference(torch, label, names, ref, plain16, card):
     """Relative L2 error of each card tensor against the fp32 reference,
     bounded by twice the plain bf16 path's error (floor E2E_FLOOR). Entries
@@ -272,7 +315,11 @@ def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed):
     through 12 BERT layers and 6 head stages whatever the kernels do, so the
     bound is calibrated by the CPU's plain path run in bf16: the card's error
     may be at most twice the plain bf16 error, or E2E_FLOOR, whichever is
-    larger. A wrong kernel or layout gives errors of order 1."""
+    larger. A wrong kernel or layout gives errors of order 1. The card runs
+    once under each fusion switch of SWITCHES (the concatenated pair, the
+    streamed levels, the dual-score kernel), each against the same CPU
+    reference, taken under the default switches."""
+    from mqdet_torch.ops import launch_counts
     from mqdet_torch.utils.builders import synthetic_batch
 
     hw = (256, 256)
@@ -286,17 +333,31 @@ def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed):
             out = model.forward_head(feats, *(t.to(dev) for t in text))
         return [f.float().cpu() for f in feats] + [d.float().cpu() for d in out["dot_product_logits"]]
 
-    ref = run(model_cpu, "cpu")
-    plain16 = run(copy.deepcopy(model_cpu).to(torch.bfloat16), "cpu")
-    card = run(model_gpu, torch.device("cuda"))
+    with switched("default"):
+        ref = run(model_cpu, "cpu")
+        plain16 = run(copy.deepcopy(model_cpu).to(torch.bfloat16), "cpu")
     names = [f"fpn{i}" for i in range(5)] + [f"logits{i}" for i in range(5)]
-    worst = compare_to_reference(torch, "MQ-GLIP-T", names, ref, plain16, card)
-    say(
-        f"phase 3: reference check, MQ-GLIP-T full width at {hw}, card bf16 kernels vs CPU fp32 "
-        f"plain on 5 FPN levels and 5 logit levels: worst err / bound {worst[0]!r} at {worst[1]} "
-        f"(card relative L2 err {worst[2]!r}, plain bf16 {worst[3]!r}; bound max(2 * plain, "
-        f"{E2E_FLOOR})); ok"
-    )
+    # one VLFuse per head stage; under stream one launch per level
+    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
+    fusion = {"default": {"bi_attention": stages}, "stream": {"bi_attention_levels": stages * levels},
+              "dual": {"bi_attention_dual": stages}}
+    keys = ("bi_attention", "bi_attention_dual", "bi_attention_levels")
+    for switch in SWITCHES:
+        with switched(switch):
+            launch_counts(reset=True)
+            card = run(model_gpu, torch.device("cuda"))
+            used = {k: v for k, v in launch_counts().items() if k in keys}
+        want = {k: v for k, v in predicted(**fusion[switch]).items() if k in keys}
+        label = f"MQ-GLIP-T ({switch} fusion switches)"
+        if used != want:
+            fail(f"{label}: bi-attention launches {used} != predicted {want}")
+        worst = compare_to_reference(torch, label, names, ref, plain16, card)
+        say(
+            f"phase 3: reference check, {label} full width at {hw}, card bf16 kernels vs CPU fp32 "
+            f"plain on 5 FPN levels and 5 logit levels: worst err / bound {worst[0]!r} at {worst[1]} "
+            f"(card relative L2 err {worst[2]!r}, plain bf16 {worst[3]!r}; bound max(2 * plain, "
+            f"{E2E_FLOOR})); bi-attention launches {used}; ok"
+        )
 
 
 def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
@@ -339,7 +400,8 @@ def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
 
 FAMILIES = (
     ("dcn kernel", ("dcn_forward_kernel",)),
-    ("bi-attention kernels", ("bi_attn_v_kernel", "bi_attn_l_kernel")),
+    ("bi-attention kernels", ("bi_attn_v_kernel", "bi_attn_l_kernel", "bi_attn_dual_kernel",
+                              "bi_attn_carry_kernel")),
     ("msda kernel", ("msda_forward_kernel",)),
     ("convolutions", ("conv", "fprop", "implicit")),
     ("matmuls", ("gemm", "nvjet", "cutlass", "xmma")),
@@ -431,57 +493,68 @@ def phase_split(torch, label, protocol, image, text, parts):
         f"{total * 1000.0!r} ms; ms by module: {split}, rest {(total - sum(spent.values())) * 1000.0!r}")
 
 
-def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed, parts):
-    """Phases 4, 5 and 6 for one model; returns the launch counts of the
-    counted protocol run."""
-    from mqdet_torch.engine.predict import make_protocol_fn
-    from mqdet_torch.ops import bi_attention, deform_conv, ms_deform_attn
+def predicted(**counts) -> dict:
+    """Launch counts of one protocol run: `counts`, and 0 for every other kernel."""
+    from mqdet_torch.ops import COUNTERS
 
-    counters = {"dcn": deform_conv, "bi_attention": bi_attention, "ms_deform_attn": ms_deform_attn}
+    return {name: counts.get(name, 0) for name, _, _ in COUNTERS}
+
+
+def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed, parts=None,
+                   switch="default"):
+    """Phase 4 and 5 for one model under the fusion switches SWITCHES[switch],
+    and phase 6 where `parts` is given; returns the launch counts of the
+    counted protocol run (a name of `mqdet_torch.ops.COUNTERS` each)."""
+    from mqdet_torch.engine.predict import make_protocol_fn
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import protocol_inputs
+
+    label = label if switch == "default" else f"{label} {switch}"
     dev = torch.device("cuda")
     hw = (800, 1344)
     cp, groups = 4, -(-31 // 4)
-    image, text = make_text(torch, make_batch, cfg, groups, cp, hw, seed)
+    image, text = protocol_inputs(cfg, make_batch, groups, cp, hw, seed)
     image, text = image.to(dev), [t.to(dev) for t in text]
     protocol = make_protocol_fn(model, hw, cfg)
-    torch.cuda.reset_peak_memory_stats()
-    protocol(image, *text)  # warm-up
-    torch.cuda.synchronize()
-
-    for mod in counters.values():
-        mod.launch_count = 0
-    dets = protocol(image, *text)
-    torch.cuda.synchronize()
-    launches = {k: mod.launch_count for k, mod in counters.items()}
-    shapes_ok = (
-        tuple(dets.boxes.shape) == (groups, cp, slots, 4)
-        and tuple(dets.scores.shape) == tuple(dets.labels.shape) == tuple(dets.valid.shape)
-        == (groups, cp, slots)
-    )
-    finite = all(bool(torch.isfinite(t).all()) for t in (dets.boxes, dets.scores))
-    n_valid = int(dets.valid.sum())
-    labels_ok = bool(((dets.labels >= 0) & (dets.labels <= 40)).all())
-    say(f"phase 4: {label} protocol launches {launches} (predicted {want}); shapes ok {shapes_ok}; "
-        f"finite {finite}; labels in range {labels_ok}; valid detections {n_valid} of "
-        f"{groups * cp * slots}")
-    if launches != want:
-        fail(f"{label}: launch counts {launches} != predicted {want}")
-    if not (shapes_ok and finite and labels_ok):
-        fail(f"{label}: protocol output malformed")
-
-    times = []
-    for _ in range(runs):
+    with switched(switch):
+        torch.cuda.reset_peak_memory_stats()
+        protocol(image, *text)  # warm-up
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        protocol(image, *text)
+
+        launch_counts(reset=True)
+        dets = protocol(image, *text)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    p50 = statistics.median(times)
-    say(f"phase 4: {label} protocol p50 {p50 * 1000.0!r} ms over {runs} runs "
-        f"(min {min(times) * 1000.0!r}, max {max(times) * 1000.0!r}); {1.0 / p50!r} img/s; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
-    phase_profile(torch, label, protocol, image, text)
-    phase_split(torch, label, protocol, image, text, parts)
+        launches = launch_counts()
+        shapes_ok = (
+            tuple(dets.boxes.shape) == (groups, cp, slots, 4)
+            and tuple(dets.scores.shape) == tuple(dets.labels.shape) == tuple(dets.valid.shape)
+            == (groups, cp, slots)
+        )
+        finite = all(bool(torch.isfinite(t).all()) for t in (dets.boxes, dets.scores))
+        n_valid = int(dets.valid.sum())
+        labels_ok = bool(((dets.labels >= 0) & (dets.labels <= 40)).all())
+        say(f"phase 4: {label} protocol launches {launches} (predicted {want}); shapes ok {shapes_ok}; "
+            f"finite {finite}; labels in range {labels_ok}; valid detections {n_valid} of "
+            f"{groups * cp * slots}")
+        if launches != want:
+            fail(f"{label}: launch counts {launches} != predicted {want}")
+        if not (shapes_ok and finite and labels_ok):
+            fail(f"{label}: protocol output malformed")
+
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            protocol(image, *text)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        p50 = statistics.median(times)
+        say(f"phase 4: {label} protocol p50 {p50 * 1000.0!r} ms over {runs} runs "
+            f"(min {min(times) * 1000.0!r}, max {max(times) * 1000.0!r}); {1.0 / p50!r} img/s; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+        phase_profile(torch, label, protocol, image, text)
+        if parts is not None:
+            phase_split(torch, label, protocol, image, text, parts)
     return launches
 
 
@@ -535,13 +608,21 @@ def main() -> int:
     del model_cpu
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
     groups = -(-31 // 4)
-    want = {"dcn": groups * stages * (3 * levels - 2), "bi_attention": groups * stages, "ms_deform_attn": 0}
+    dcn, fuse = groups * stages * (3 * levels - 2), groups * stages
     tower = model.rpn.head.dyhead_tower
     parts = {"image tower": [model.backbone.body, model.backbone.fpn], "language tower": [model.language_backbone],
              "VLFuse": list(tower[0::3]), "head BERT layers": list(tower[1::3]), "DyConv": list(tower[2::3])}
-    launches["MQ-GLIP-T"] = phase_protocol(
-        torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300, want, args.runs, args.seed, parts
-    )
+    # default last: its phase 6 (synchronised split) ends a model's runs, because
+    # protocols timed right after it read 7-24% slower with the same device busy time
+    for switch, want in (
+        ("stream", predicted(dcn=dcn, bi_attention_levels=fuse * levels)),  # one launch per level
+        ("dual", predicted(dcn=dcn, bi_attention_dual=fuse)),
+        ("default", predicted(dcn=dcn, bi_attention=fuse)),
+    ):
+        launches[f"MQ-GLIP-T {switch}"] = phase_protocol(
+            torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300, want, args.runs, args.seed,
+            parts if switch == "default" else None, switch,
+        )
     del model, tower, parts  # nothing of MQ-GLIP-T may stay on the card
     torch.cuda.empty_cache()
 
@@ -552,18 +633,22 @@ def main() -> int:
     model = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
     phase_reference_gdino(torch, cfg, model_cpu, model, args.seed)
     del model_cpu
-    want = {"dcn": 0, "bi_attention": groups * g.enc_layers,
-            "ms_deform_attn": groups * (g.enc_layers + g.dec_layers)}
+    msda, fuse = groups * (g.enc_layers + g.dec_layers), groups * g.enc_layers
     tr = model.transformer
     parts = {"image tower": [model.backbone[0], *model.input_proj], "BERT": [model.bert],
              "fusion": list(tr.encoder.fusion_layers), "text enhancer": list(tr.encoder.text_layers),
              "encoder deformable layers": list(tr.encoder.layers), "decoder layers": list(tr.decoder.layers),
              "bbox heads": list(model.bbox_embed),
              "two-stage heads": [tr.enc_output, tr.enc_output_norm, tr.enc_out_bbox_embed]}
-    launches["MQ-GroundingDINO-T"] = phase_protocol(
-        torch, "MQ-GroundingDINO-T", model, cfg, synthetic_caption_batch, g.num_queries, want,
-        args.runs, args.seed, parts,
-    )
+    # the fusion takes one flattened tensor, so MQDET_FLASH_LEVELS does not apply
+    for switch, want in (
+        ("dual", predicted(ms_deform_attn=msda, bi_attention_dual=fuse)),
+        ("default", predicted(ms_deform_attn=msda, bi_attention=fuse)),
+    ):
+        launches[f"MQ-GroundingDINO-T {switch}"] = phase_protocol(
+            torch, "MQ-GroundingDINO-T", model, cfg, synthetic_caption_batch, g.num_queries, want,
+            args.runs, args.seed, parts if switch == "default" else None, switch,
+        )
     del model, tr, parts
 
     say(f"wall time {time.perf_counter() - t_start!r} s (build included)")

@@ -2,21 +2,31 @@
 only (counterpart of `mqdet_tpu/models/fusion.py`; reference
 utils/fuse_helper.py BiMultiHeadAttention / BiAttentionBlockForCheckpoint).
 
-The pyramid is concatenated into one visual sequence and one bidirectional
-cross-attention updates both modalities, through `ops.bi_attention.
-flash_bi_attention` (the CUDA kernel on the card, the plain version on the
-CPU). q is pre-scaled by d^-0.5; the layer-scale residual is added to the
-NORMED inputs, as in the reference.
+The pyramid's levels are passed as a list of (B, H_l W_l, C) token views and
+one bidirectional cross-attention over all their tokens updates both
+modalities. `MQDET_FLASH_LEVELS` (read at call time) picks how, as in the
+JAX package: `concat` (the default) concatenates the normed levels inside
+`BiMultiHeadAttention` and runs `ops.bi_attention.flash_bi_attention` (which
+reads `MQDET_FLASH_SCORES`: `dual` selects the dual-score kernel); any other
+value streams the levels through `flash_bi_attention_levels`, one launch per
+level with the l-side softmax state carried between them, without
+concatenating the pyramid or splitting out_v (single-score only, so `dual`
+is ignored there). A single (B, N, C) tensor always takes
+`flash_bi_attention`. q is pre-scaled by d^-0.5; the layer-scale residual is
+added to the NORMED inputs, as in the reference.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import os
+from typing import List, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from mqdet_torch.models.layers import LayerNorm, cl
-from mqdet_torch.ops.bi_attention import flash_bi_attention
+from mqdet_torch.ops.bi_attention import flash_bi_attention, flash_bi_attention_levels
+
+Visual = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
 class BiMultiHeadAttention(nn.Module):
@@ -31,17 +41,28 @@ class BiMultiHeadAttention(nn.Module):
         self.out_v_proj = nn.Linear(embed_dim, v_dim)
         self.out_l_proj = nn.Linear(embed_dim, l_dim)
 
-    def forward(self, v, l, attention_mask_l=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """v: (B, N, v_dim); l: (B, T, l_dim); attention_mask_l: (B, T) 1 = valid."""
-        q = self.v_proj(v) * self.head_dim**-0.5
-        vv = self.values_v_proj(v)
+    def forward(self, v: Visual, l, attention_mask_l=None) -> Tuple[Visual, torch.Tensor]:
+        """v: (B, N, v_dim) or a list of per-level (B, N_l, v_dim), returned
+        in the same form; l: (B, T, l_dim); attention_mask_l: (B, T) 1 = valid."""
+        scale = self.head_dim**-0.5
         k = self.l_proj(l)
         vl = self.values_l_proj(l)
         bias = None
         if attention_mask_l is not None:
             bias = torch.where(attention_mask_l == 0, -9e15, 0.0).float()
-        out_v, out_l = flash_bi_attention(q, k, vv, vl, bias, self.num_heads)
-        return self.out_v_proj(out_v), self.out_l_proj(out_l)
+        if isinstance(v, torch.Tensor) or os.environ.get("MQDET_FLASH_LEVELS", "concat") == "concat":
+            flat = v if isinstance(v, torch.Tensor) else torch.cat(list(v), 1)
+            out_v, out_l = flash_bi_attention(
+                self.v_proj(flat) * scale, k, self.values_v_proj(flat), vl, bias, self.num_heads
+            )
+            out_v = self.out_v_proj(out_v)
+            if not isinstance(v, torch.Tensor):
+                out_v = list(out_v.split([x.shape[1] for x in v], 1))
+            return out_v, self.out_l_proj(out_l)
+        qs = [self.v_proj(x) * scale for x in v]
+        vvs = [self.values_v_proj(x) for x in v]
+        out_vs, out_l = flash_bi_attention_levels(qs, k, vvs, vl, bias, self.num_heads)
+        return [self.out_v_proj(x) for x in out_vs], self.out_l_proj(out_l)
 
 
 class BiAttentionBlock(nn.Module):
@@ -53,27 +74,32 @@ class BiAttentionBlock(nn.Module):
         self.gamma_v = nn.Parameter(torch.full((v_dim,), init_value))
         self.gamma_l = nn.Parameter(torch.full((l_dim,), init_value))
 
-    def forward(self, v, l, attention_mask_l=None):
-        vn = self.layer_norm_v(v)
+    def forward(self, v: Visual, l, attention_mask_l=None):
+        """v: one (B, N, C) tensor or a per-level list; the return matches."""
+        is_list = not isinstance(v, torch.Tensor)
+        vn = [self.layer_norm_v(x) for x in v] if is_list else self.layer_norm_v(v)
         ln = self.layer_norm_l(l)
         dv, dl = self.attn(vn, ln, attention_mask_l)
-        return vn + self.gamma_v.to(dv.dtype) * dv, ln + self.gamma_l.to(dl.dtype) * dl
+        if is_list:
+            v = [a + self.gamma_v.to(d.dtype) * d for a, d in zip(vn, dv)]
+        else:
+            v = vn + self.gamma_v.to(dv.dtype) * dv
+        return v, ln + self.gamma_l.to(dl.dtype) * dl
 
 
 class VLFuse(nn.Module):
-    """One early-fusion stage: the levels (B, C, H_l, W_l) form one visual
-    sequence of sum(H_l W_l) tokens for a single bi-attention."""
+    """One early-fusion stage: the levels (B, C, H_l, W_l), channels_last,
+    go to the bi-attention as (B, H_l W_l, C) token views (no copy)."""
 
     def __init__(self, num_convs: int, v_dim: int, l_dim: int):
         super().__init__()
         self.b_attn = BiAttentionBlock(v_dim, l_dim, init_value=1.0 / num_convs)
 
     def forward(self, visual: List[torch.Tensor], lang_hidden, lang_masks):
-        shapes = [f.shape for f in visual]
-        tokens = torch.cat([f.permute(0, 2, 3, 1).reshape(f.shape[0], -1, f.shape[1]) for f in visual], 1)
+        tokens = [f.permute(0, 2, 3, 1).reshape(f.shape[0], -1, f.shape[1]) for f in visual]
         new_v, new_l = self.b_attn(tokens, lang_hidden, lang_masks)
-        outs, start = [], 0
-        for b, c, h, w in shapes:
-            outs.append(cl(new_v[:, start : start + h * w].reshape(b, h, w, c).permute(0, 3, 1, 2)))
-            start += h * w
+        outs = [
+            cl(t.reshape(b, h, w, c).permute(0, 3, 1, 2))
+            for t, (b, c, h, w) in zip(new_v, (f.shape for f in visual))
+        ]
         return outs, new_l

@@ -1,35 +1,74 @@
 """Bidirectional vision-language cross-attention (X-MHA), eval only.
 
 Counterpart of `mqdet_tpu/ops/pallas/bi_attention_pallas.py::
-flash_bi_attention` with its signature and layouts:
+flash_bi_attention` and `flash_bi_attention_levels`, with their signatures
+and layouts:
 
     flash_bi_attention(q (B,N,E) pre-scaled, k (B,T,E), vv (B,N,E), vl (B,T,E),
-                       bias_l (B,T) f32 additive or None, num_heads)
+                       bias_l (B,T) f32 additive or None, num_heads,
+                       dual_scores=None)
       -> out_v (B,N,E), out_l (B,T,E)
+    flash_bi_attention_levels([q_l (B,N_l,E)], k, [vv_l (B,N_l,E)], vl, bias_l,
+                              num_heads)
+      -> [out_v_l (B,N_l,E)], out_l (B,T,E)
 
 per head: s = q.k^T, out_v = softmax_T(s + bias_l).vl, out_l = softmax_N(s^T).vv.
-On a CUDA tensor it launches the two kernels of `csrc/bi_attention.cu` (bf16
-in and out, fp32 scores and accumulation; head width 256, T a multiple of 64
-up to 256) or raises; on a CPU tensor it runs the plain PyTorch version below,
-which is the JAX package's composite (`models/fusion.py`).
+The levels form is the same attention over the concatenation of the levels,
+computed without concatenating them: the l side's online-softmax state
+(acc (B,H,T,D), den (B,H,T), m (B,H,T), fp32, from (0, 0, -1e30)) is carried
+from level to level and out_l = acc / den is taken once, after the last.
+
+`dual_scores` selects the formulation as the JAX package does: None reads
+`MQDET_FLASH_SCORES` (the value `dual` selects the dual-score form, anything
+else the single-score one), a bool overrides it. The port reads the variable
+at call time; JAX reads it when it traces. The levels form has only the
+single-score formulation, as in JAX.
+
+On a CUDA tensor each function launches its kernel of `csrc/bi_attention.cu`
+(bf16 in and out, fp32 scores and accumulation; head width 256, T a multiple
+of 64 up to 256, contiguous 16-byte aligned tensors) or raises; on a CPU
+tensor it runs its plain PyTorch version below.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from mqdet_torch.ops import kernels
 
-launch_count = 0  # wrapper launches (one per call: both kernels) since last reset
+# wrapper launches since the last reset: one per call of the single-score
+# pair, of the dual-score kernel, and per level of the levels form
+launch_count = 0
+dual_launch_count = 0
+levels_launch_count = 0
 HEAD_DIM = 256
+NEG = -1e30
 
 
 def _softmax_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
     m = x.amax(dim=dim, keepdim=True)
     e = torch.exp((x - m).float())
     return (e / e.sum(dim=dim, keepdim=True)).to(x.dtype)
+
+
+def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
+    b, n, e = x.shape
+    return x.reshape(b, n, h, e // h).transpose(1, 2)  # (B, H, N, D)
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+def _v_side(s, bias_l, vlh):
+    """out_v (B, H, N, D) from the scores s = q.k^T (B, H, N, T)."""
+    if bias_l is not None:
+        s = s + bias_l[:, None, None, :].to(s.dtype)
+    return torch.matmul(_softmax_f32(s, -1), vlh)
 
 
 def bi_attention_plain(
@@ -40,31 +79,71 @@ def bi_attention_plain(
     bias_l: Optional[torch.Tensor],
     num_heads: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch bi-attention: both score tensors in the compute dtype,
-    softmax reduced in fp32, value products accumulated in fp32."""
-    b, n, e = q.shape
-    t = k.shape[1]
+    """Plain single-score bi-attention: ONE score product s = q.k^T (in the
+    compute dtype) serves both sides, the l side reducing it over N, as the
+    TPU kernel's single-score branch does; softmax in fp32."""
     h = num_heads
-    d = e // h
-    qh = q.reshape(b, n, h, d).transpose(1, 2)    # (B, H, N, D)
-    kh = k.reshape(b, t, h, d).transpose(1, 2)    # (B, H, T, D)
-    vvh = vv.reshape(b, n, h, d).transpose(1, 2)
-    vlh = vl.reshape(b, t, h, d).transpose(1, 2)
-    attn_v = torch.matmul(qh, kh.transpose(-1, -2))   # (B, H, N, T)
-    if bias_l is not None:
-        attn_v = attn_v + bias_l[:, None, None, :].to(attn_v.dtype)
-    attn_v = _softmax_f32(attn_v, -1)
-    out_v = torch.matmul(attn_v, vlh)
-    del attn_v
-    attn_l = _softmax_f32(torch.matmul(kh, qh.transpose(-1, -2)), -1)  # (B, H, T, N)
-    out_l = torch.matmul(attn_l, vvh)
-    out_v = out_v.transpose(1, 2).reshape(b, n, e)
-    out_l = out_l.transpose(1, 2).reshape(b, t, e)
-    return out_v, out_l
+    qh, kh, vvh, vlh = (_heads(x, h) for x in (q, k, vv, vl))
+    s = torch.matmul(qh, kh.transpose(-1, -2))   # (B, H, N, T)
+    out_v = _v_side(s, bias_l, vlh)
+    out_l = torch.matmul(_softmax_f32(s, -2).transpose(-1, -2), vvh)
+    return _merge(out_v), _merge(out_l)
 
 
-def _launch(q, k, vv, vl, bias_l, num_heads):
-    global launch_count
+def bi_attention_dual_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    vv: torch.Tensor,
+    vl: torch.Tensor,
+    bias_l: Optional[torch.Tensor],
+    num_heads: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain dual-score bi-attention: two explicit score products, s = q.k^T
+    for the v side and s^T = k.q^T for the l side, each softmax over its
+    minor axis in fp32 (the JAX package's composite)."""
+    h = num_heads
+    qh, kh, vvh, vlh = (_heads(x, h) for x in (q, k, vv, vl))
+    out_v = _v_side(torch.matmul(qh, kh.transpose(-1, -2)), bias_l, vlh)
+    st = torch.matmul(kh, qh.transpose(-1, -2))  # (B, H, T, N)
+    out_l = torch.matmul(_softmax_f32(st, -1), vvh)
+    return _merge(out_v), _merge(out_l)
+
+
+def bi_attention_levels_plain(
+    qs: Sequence[torch.Tensor],
+    k: torch.Tensor,
+    vvs: Sequence[torch.Tensor],
+    vl: torch.Tensor,
+    bias_l: Optional[torch.Tensor],
+    num_heads: int,
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Plain levels form: per level, the v side as in `bi_attention_plain`
+    and the carried online-softmax update of the l side's fp32 state on this
+    level's rows only (no concatenation); out_l = acc / den after the last."""
+    h = num_heads
+    kh, vlh = _heads(k, h), _heads(vl, h)
+    b, _, t, d = kh.shape
+    acc = torch.zeros(b, h, t, d, dtype=torch.float32, device=k.device)
+    den = torch.zeros(b, h, t, dtype=torch.float32, device=k.device)
+    m = torch.full((b, h, t), NEG, dtype=torch.float32, device=k.device)
+    out_vs = []
+    for q, vv in zip(qs, vvs):
+        qh, vvh = _heads(q, h), _heads(vv, h)
+        s = torch.matmul(qh, kh.transpose(-1, -2))  # (B, H, N_l, T)
+        out_vs.append(_merge(_v_side(s, bias_l, vlh)))
+        s = s.float()
+        m_new = torch.maximum(m, s.amax(dim=-2))
+        alpha = torch.exp(m - m_new)
+        e = torch.exp(s - m_new[:, :, None, :])
+        acc = acc * alpha[..., None] + torch.matmul(e.to(vvh.dtype).transpose(-1, -2), vvh).float()
+        den = den * alpha + e.sum(dim=-2)
+        m = m_new
+    out_l = (acc / den[..., None]).to(k.dtype)
+    return out_vs, _merge(out_l)
+
+
+def _check(q, k, vv, vl, bias_l, num_heads):
+    """Raises on what the kernels do not take; returns bias_l as (B, T) f32."""
     b, n, e = q.shape
     t = k.shape[1]
     if e % num_heads or e // num_heads != HEAD_DIM:
@@ -87,23 +166,79 @@ def _launch(q, k, vv, vl, bias_l, num_heads):
     for x in (q, k, vv, vl):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"kernel takes bfloat16, got {x.dtype}")
+    return bias_l
+
+
+def _launch(q, k, vv, vl, bias_l, num_heads, dual):
+    global launch_count, dual_launch_count
+    bias_l = _check(q, k, vv, vl, bias_l, num_heads)
+    b, n, e = q.shape
     out_v = torch.empty_like(q)
     out_l = torch.empty_like(k)
     p = ctypes.c_void_p
-    code = kernels.lib().mqdet_bi_attention_forward(
+    name = "mqdet_bi_attention_dual_forward" if dual else "mqdet_bi_attention_forward"
+    code = getattr(kernels.lib(), name)(
         p(q.data_ptr()), p(k.data_ptr()), p(vv.data_ptr()), p(vl.data_ptr()),
         p(bias_l.data_ptr()), p(out_v.data_ptr()), p(out_l.data_ptr()),
-        b, n, t, e, num_heads, p(kernels.stream_ptr(q.device)),
+        b, n, k.shape[1], e, num_heads, p(kernels.stream_ptr(q.device)),
     )
-    kernels.check(code, "mqdet_bi_attention_forward")
-    launch_count += 1
+    kernels.check(code, name)
+    if dual:
+        dual_launch_count += 1
+    else:
+        launch_count += 1
     return out_v, out_l
 
 
-def flash_bi_attention(q, k, vv, vl, bias_l, num_heads):
+def _launch_levels(qs, k, vvs, vl, bias_l, num_heads):
+    global levels_launch_count
+    if not qs or len(qs) != len(vvs):
+        raise ValueError("need one q and one vv per level")
+    b, t, e = k.shape
+    bias = bias_l
+    for q, vv in zip(qs, vvs):
+        bias = _check(q, k, vv, vl, bias, num_heads)
+    h = num_heads
+    acc = torch.zeros(b, h, t, HEAD_DIM, dtype=torch.float32, device=k.device)
+    den = torch.zeros(b, h, t, dtype=torch.float32, device=k.device)
+    m = torch.full((b, h, t), NEG, dtype=torch.float32, device=k.device)
+    p = ctypes.c_void_p
+    stream = p(kernels.stream_ptr(k.device))
+    out_vs = []
+    for q, vv in zip(qs, vvs):
+        out_v = torch.empty_like(q)
+        code = kernels.lib().mqdet_bi_attention_carry_forward(
+            p(q.data_ptr()), p(k.data_ptr()), p(vv.data_ptr()), p(vl.data_ptr()),
+            p(bias.data_ptr()), p(acc.data_ptr()), p(den.data_ptr()), p(m.data_ptr()),
+            p(out_v.data_ptr()), b, q.shape[1], t, e, h, stream,
+        )
+        kernels.check(code, "mqdet_bi_attention_carry_forward")
+        levels_launch_count += 1
+        out_vs.append(out_v)
+    out_l = (acc / den[..., None]).to(k.dtype)
+    return out_vs, _merge(out_l)
+
+
+def _device(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no bi-attention kernel for device {x.device}")
+    return x.device.type
+
+
+def flash_bi_attention(q, k, vv, vl, bias_l, num_heads, dual_scores=None):
     """See module docstring."""
-    if q.device.type == "cpu":
-        return bi_attention_plain(q, k, vv, vl, bias_l, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"no bi-attention kernel for device {q.device}")
-    return _launch(q, k, vv, vl, bias_l, num_heads)
+    if dual_scores is None:
+        dual = os.environ.get("MQDET_FLASH_SCORES", "single") == "dual"
+    else:
+        dual = bool(dual_scores)
+    if _device(q) == "cpu":
+        plain = bi_attention_dual_plain if dual else bi_attention_plain
+        return plain(q, k, vv, vl, bias_l, num_heads)
+    return _launch(q, k, vv, vl, bias_l, num_heads, dual)
+
+
+def flash_bi_attention_levels(qs, k, vvs, vl, bias_l, num_heads):
+    """See module docstring: one kernel launch per level on the card."""
+    if _device(k) == "cpu":
+        return bi_attention_levels_plain(qs, k, vvs, vl, bias_l, num_heads)
+    return _launch_levels(qs, k, vvs, vl, bias_l, num_heads)

@@ -103,6 +103,10 @@ def lib() -> ctypes.CDLL:
         so.mqdet_dcn_forward.restype = i
         so.mqdet_bi_attention_forward.argtypes = [p] * 7 + [i] * 5 + [p]
         so.mqdet_bi_attention_forward.restype = i
+        so.mqdet_bi_attention_dual_forward.argtypes = [p] * 7 + [i] * 5 + [p]
+        so.mqdet_bi_attention_dual_forward.restype = i
+        so.mqdet_bi_attention_carry_forward.argtypes = [p] * 9 + [i] * 5 + [p]
+        so.mqdet_bi_attention_carry_forward.restype = i
         so.mqdet_ms_deform_attn_forward.argtypes = [p] * 4 + [ctypes.POINTER(i)] + [i] * 7 + [p]
         so.mqdet_ms_deform_attn_forward.restype = i
         _lib = so

@@ -155,6 +155,23 @@ def synthetic_caption_batch(
     return out
 
 
+def protocol_inputs(cfg, make_batch, groups: int, cp: int, image_hw: Tuple[int, int], seed: int = 0):
+    """The LVIS protocol's inputs as bench.py builds them: one image
+    (1, 3, H, W) and [input_ids, attention_mask, queries, query_mask,
+    agg_map, image_sizes], each (G, CP, ...), every group given the same CP
+    chunks of 40 labels x 5 queries from `make_batch` (`synthetic_batch` or
+    `synthetic_caption_batch`)."""
+    batch = make_batch(cfg, batch=cp, image_hw=image_hw, num_labels=40, k_shot=5, seed=seed)
+    image = torch.from_numpy(batch["images"][:1]).permute(0, 3, 1, 2).contiguous()
+
+    def grp(key):
+        x = torch.from_numpy(batch[key])
+        return x[None].expand(groups, *x.shape).contiguous()
+
+    keys = ("input_ids", "attention_mask", "queries", "query_mask", "agg_map", "image_sizes")
+    return image, [grp(k) for k in keys]
+
+
 @torch.no_grad()
 def init_params(model: torch.nn.Module, seed: int = 0, scale: float = 0.02) -> torch.nn.Module:
     """Fill every parameter by the rule of the JAX package's

@@ -102,6 +102,74 @@ def test_bi_attention_kernel_refuses_other_widths(dev):
         tba.flash_bi_attention(q, k, q, k, None, 2)
 
 
+def _bi_inputs(dev, b, n, t, heads, seed):
+    e = 256 * heads
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, n, e, generator=g, device=dev) * 0.0625).bfloat16()
+    k = torch.randn(b, t, e, generator=g, device=dev).bfloat16()
+    vv = torch.randn(b, n, e, generator=g, device=dev).bfloat16()
+    vl = torch.randn(b, t, e, generator=g, device=dev).bfloat16()
+    keep = torch.rand(b, t, generator=g, device=dev) > 0.25  # masked text
+    keep[:, t - t // 4 :] = False
+    return q, k, vv, vl, torch.where(keep, 0.0, -9e15).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,t,heads", [(1, 100, 64, 1), (2, 700, 128, 2), (1, 3000, 256, 8), (2, 2333, 256, 4)])
+def test_bi_attention_dual_kernel_matches_plain(dev, b, n, t, heads):
+    q, k, vv, vl, bias = _bi_inputs(dev, b, n, t, heads, n + 1)
+    counts = (tba.launch_count, tba.dual_launch_count)
+    gv, gl = tba.flash_bi_attention(q, k, vv, vl, bias, heads, dual_scores=True)
+    torch.cuda.synchronize()
+    assert (tba.launch_count, tba.dual_launch_count) == (counts[0], counts[1] + 1)
+    rv, rl = tba.bi_attention_dual_plain(q.float(), k.float(), vv.float(), vl.float(), bias, heads)
+    assert _close(gv, rv) and _close(gl, rl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sizes,t,heads", [
+    (2, [420, 180, 70, 30], 128, 2),               # the JAX package's test levels
+    (1, [1050, 273, 77], 256, 8),                  # the 800x1344 pyramid's last levels: 77 rows < 2 tiles
+    (2, [16800, 4200, 1050, 273, 77], 256, 1),     # the whole 800x1344 pyramid, every level with a tail
+    (1, [5], 64, 1),                               # one level inside one tile
+])
+def test_bi_attention_levels_kernel_matches_plain(dev, b, sizes, t, heads):
+    q, k, vv, vl, bias = _bi_inputs(dev, b, sum(sizes), t, heads, len(sizes))
+    qs = [x.contiguous() for x in q.split(sizes, 1)]
+    vvs = [x.contiguous() for x in vv.split(sizes, 1)]
+    n0 = tba.levels_launch_count
+    gvs, gl = tba.flash_bi_attention_levels(qs, k, vvs, vl, bias, heads)
+    torch.cuda.synchronize()
+    assert tba.levels_launch_count == n0 + len(sizes)
+    rvs, rl = tba.bi_attention_levels_plain(
+        [x.float() for x in qs], k.float(), [x.float() for x in vvs], vl.float(), bias, heads
+    )
+    assert [x.shape for x in gvs] == [x.shape for x in rvs]
+    assert _close(torch.cat(gvs, 1), torch.cat(rvs, 1)) and _close(gl, rl)
+    # the carried state over the levels is the attention over their concatenation
+    fv, fl = tba.bi_attention_plain(q.float(), k.float(), vv.float(), vl.float(), bias, heads)
+    assert _close(torch.cat(gvs, 1), fv) and _close(gl, fl)
+
+
+@pytest.mark.cuda
+def test_dual_and_levels_kernels_refuse_what_they_do_not_take(dev):
+    q, k, vv, vl, bias = _bi_inputs(dev, 2, 200, 64, 1, 0)
+    with pytest.raises(ValueError):  # T = 48
+        tba.flash_bi_attention(q, k[:, :48].contiguous(), vv, vl[:, :48].contiguous(), bias[:, :48].contiguous(),
+                               1, dual_scores=True)
+    with pytest.raises(ValueError):  # head width 128
+        tba.flash_bi_attention(q, k, vv, vl, bias, 2, dual_scores=True)
+    with pytest.raises(ValueError):  # T = 48
+        tba.flash_bi_attention_levels([q], k[:, :48].contiguous(), [vv], vl[:, :48].contiguous(),
+                                      bias[:, :48].contiguous(), 1)
+    with pytest.raises(ValueError):  # a level that is a view into the whole (not contiguous)
+        tba.flash_bi_attention_levels(list(q.split([150, 50], 1)), k, list(vv.split([150, 50], 1)), vl, bias, 1)
+    with pytest.raises(TypeError):  # fp32
+        tba.flash_bi_attention_levels([q.float()], k.float(), [vv.float()], vl.float(), bias, 1)
+    with pytest.raises(ValueError):  # one vv short
+        tba.flash_bi_attention_levels([q, q], k, [vv], vl, bias, 1)
+
+
 GDINO_800 = [(100, 168), (50, 84), (25, 42), (13, 21)]  # the 800x1344 pyramid
 
 

@@ -229,14 +229,15 @@ def test_port_never_imports_jax():
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
-    """chip_smoke.py and the main path it drives import neither JAX nor any
-    module of mqdet_tpu (only the weight bridge reads the JAX package's
+    """chip_smoke.py, the main path it drives and the fusion A/B tool import
+    neither JAX nor any module of mqdet_tpu (only the weight bridge reads the JAX package's
     framework-free rule table)."""
     _fresh_import(
         "import sys\n"
         "import chip_smoke\n"
         "from mqdet_torch.engine import predict\n"
         "from mqdet_torch.ops import bi_attention, deform_conv, kernels, ms_deform_attn\n"
+        "from mqdet_torch.tools import perf_fusion_ab\n"
         "from mqdet_torch.utils import builders\n"
         "builders.init_params(builders.build_model(builders.tiny_test_config()))\n"
         "builders.init_params(builders.build_model(builders.tiny_gdino_config()))\n"
