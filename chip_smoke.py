@@ -12,9 +12,18 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      parallel);
   2. each hand-written kernel against its plain PyTorch version (run in fp32)
      at the main paths' shapes, bf16 inputs from the seed: max abs error
-     against the bound 2e-2 * max|ref|, and the median time of 10 runs of
-     the kernel and of the plain version (bf16, same inputs), CUDA events.
-     DCN at the GLIP levels; bi-attention, single-score pair and dual-score
+     against the bound 2e-2 * max|ref|, the median time of 10 runs of the
+     kernel and of the plain version (bf16, same inputs), CUDA events, and
+     the bound (the least time the card could take: bytes moved over
+     3.35 TB/s or operations over their peak rate, whichever is larger).
+     DCN at the GLIP levels (offsets x3, so the +-2 clip bites): the exact
+     kernel, its clipped mode (K2) and the band kernel (K1, version 2); at
+     the level-0 shape under perf_dcn_sweep's two offset regimes, versions 1,
+     3 and 5 against the plain version, 5 and 6 and x_tiles 2 and 3 bitwise
+     equal to version 2, and version 5's fast-path share; the band at radius
+     8, stride 2 (the largest band); then the sweep path itself
+     (mqdet_torch.tools.perf_dcn_sweep, versions 1, 2, 3, 5, 6 at block rows
+     8 and 16), its launches counted. Bi-attention, single-score pair and dual-score
      kernel, at GLIP's (4, 22400, 2048) with 8 heads and GroundingDINO's
      (4, 22323, 1024) with 4 heads, T 256; the streamed (per-level,
      carried-state) bi-attention at GLIP's 800x1344 pyramid (16800, 4200,
@@ -29,7 +38,10 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      twice the drift of the plain path run in bf16 on the CPU (or 1e-2 where
      that is larger). MQ-GLIP-T: FPN features and dot-product logits, the
      card run under each fusion switch (default, MQDET_FLASH_LEVELS=stream,
-     MQDET_FLASH_SCORES=dual) against the one CPU reference.
+     MQDET_FLASH_SCORES=dual) and under MQDET_DEFORM_IMPL unset (the band
+     kernel), window (K2) and gather (exact), each against the CPU plain
+     path of the same DCN route, with its launches counted; the max |offset|
+     of the random-init model is printed (whether the clip binds).
      MQ-GroundingDINO-T: the encoder's memory and text and the two-stage
      logits (`enc_logits`), taken before the top-900 selection, whose
      overlap with the fp32 selection is printed;
@@ -37,8 +49,9 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      init_params(seed), one 800x1344 image, 8 groups x CP 4 chunks of 40
      labels x 5 queries, T = 256, through make_protocol_fn. The launch
      counters, set to 0 just before one protocol run, must equal the
-     prediction: MQ-GLIP-T 624 DCN and 48 bi-attention launches (13 DCN
-     calls and one bi-attention per head stage, 6 stages, 8 groups);
+     prediction: MQ-GLIP-T 624 band DCN (dcn_band) and 48 bi-attention
+     launches (13 DCN calls and one bi-attention per head stage, 6 stages, 8
+     groups);
      MQ-GroundingDINO-T 96 MSDA (6 encoder + 6 decoder layers, 8 groups) and
      48 bi-attention (one per encoder layer). Every output must be finite
      and of the right shape. Then p50 over --runs timed runs and the peak
@@ -54,9 +67,10 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      synchronise at the boundaries of its main modules (forward hooks):
      host-clock ms per module.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Any failure exits non-zero
-without those lines.
+The line before the last is a JSON object with one entry per kernel (its
+launches summed over the counted paths: the protocols, phase 3's card runs
+and the sweep path); the last line is {"ok": true, "device": {...}}. Any
+failure exits non-zero without those lines.
 """
 from __future__ import annotations
 
@@ -66,15 +80,25 @@ import copy
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ERR_BOUND = 2e-2      # kernel vs fp32 plain, relative to max|ref| (bf16 in/out)
 E2E_FLOOR = 1e-2      # whole network: floor of the bf16-vs-fp32 relative L2 bound
-KERNELS = (  # name, source, the TPU kernel it replaces
-    ("dcn", "mqdet_torch/csrc/deform_conv.cu", "mqdet_tpu/ops/pallas/deform_conv_pallas.py:561"),
+HBM_BYTES_S = 3.35e12  # H100 SXM: device memory rate, bf16 dense tensor-core and fp32 peaks
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+DCN_SRC = "mqdet_torch/csrc/deform_conv.cu"
+K1 = "mqdet_tpu/ops/pallas/deform_conv_pallas.py"
+KERNELS = (  # name, source, the TPU kernel (or XLA composite) it replaces; the order of ops.COUNTERS
+    ("dcn", DCN_SRC, "mqdet_tpu/ops/deform_conv.py:62"),
+    ("dcn_gather_clip", DCN_SRC, "mqdet_tpu/ops/pallas/deform_conv_gather_pallas.py:220"),
+    ("dcn_band", DCN_SRC, f"{K1}:561"),
+    ("dcn_band_v1", DCN_SRC, f"{K1}:59"),
+    ("dcn_band_v3", DCN_SRC, f"{K1}:535"),
+    ("dcn_band_v5", DCN_SRC, f"{K1}:262"),
+    ("dcn_band_v6", DCN_SRC, f"{K1}:540"),
     ("bi_attention", "mqdet_torch/csrc/bi_attention.cu", "mqdet_tpu/ops/pallas/bi_attention_pallas.py:384"),
     ("bi_attention_dual", "mqdet_torch/csrc/bi_attention.cu", "mqdet_tpu/ops/pallas/bi_attention_pallas.py:107"),
     ("bi_attention_levels", "mqdet_torch/csrc/bi_attention.cu", "mqdet_tpu/ops/pallas/bi_attention_pallas.py:252"),
@@ -83,14 +107,20 @@ KERNELS = (  # name, source, the TPU kernel it replaces
 GDINO_800 = [(100, 168), (50, 84), (25, 42), (13, 21)]  # the 800x1344 pyramid
 GLIP_800 = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
 SWITCHES = {"default": {}, "stream": {"MQDET_FLASH_LEVELS": "stream"}, "dual": {"MQDET_FLASH_SCORES": "dual"}}
+# MQDET_DEFORM_IMPL -> the DCN kernel of the route at C = 256 (None: unset, the default)
+DEFORM_ROUTES = {None: "dcn_band", "window": "dcn_gather_clip", "gather": "dcn"}
+SWEEP_VERSIONS, SWEEP_BLOCK_ROWS = (2, 1, 3, 5, 6), (8, 16)  # version 2 first: the sweep's reference
 
 
 @contextlib.contextmanager
-def switched(name: str):
-    """Sets the fusion switches of SWITCHES[name] for the block."""
-    keys = ("MQDET_FLASH_LEVELS", "MQDET_FLASH_SCORES")
+def switched(name: str, deform=None):
+    """Sets the fusion switches of SWITCHES[name] and MQDET_DEFORM_IMPL
+    (None: unset) for the block."""
+    keys = ("MQDET_FLASH_LEVELS", "MQDET_FLASH_SCORES", "MQDET_DEFORM_IMPL")
     old = {k: os.environ.pop(k, None) for k in keys}
     os.environ.update(SWITCHES[name])
+    if deform is not None:
+        os.environ["MQDET_DEFORM_IMPL"] = deform
     try:
         yield
     finally:
@@ -109,69 +139,172 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def max_err(got, ref) -> tuple:
     """(max |got - ref|, max |ref|)."""
     err = (got.float() - ref.float()).abs().max().item()
     return err, ref.abs().max().item()
 
 
+def bound(nbytes: float, tensor_flops: float = 0.0, fp32_flops: float = 0.0) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take for the work,
+    the larger of the bytes over the memory rate and the operations over the
+    peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(tensor_flops / PEAK_BF16, fp32_flops / PEAK_FP32)
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def dcn_bound(b, h, w, c, ho, wo, cout) -> tuple:
+    """bf16 x, offset, mask, weight, bias read once, out written once; the
+    (M, 9C) x (9C, Cout) product on the tensor cores, the 4-corner blend
+    (8 flops per sample and channel) in fp32."""
+    m = b * ho * wo
+    nbytes = 2 * (b * h * w * c + m * 27 + 9 * c * cout + cout + m * cout)
+    return bound(nbytes, 2.0 * m * 9 * c * cout, 8.0 * m * 9 * c)
+
+
+def bi_bound(b, n, t, e, dual=False) -> tuple:
+    """q, vv (B, N, E), k, vl (B, T, E) bf16 and the fp32 bias read once,
+    out_v and out_l written once; the score product(s) and the two output
+    products: 6 B N T E flops, 8 with the dual form's second score product."""
+    nbytes = 2 * (3 * b * n * e + 3 * b * t * e) + 4 * b * t
+    return bound(nbytes, (8.0 if dual else 6.0) * b * n * t * e)
+
+
+def msda_bound(b, s, q, nh, hd, levels, p) -> tuple:
+    """value bf16, fp32 locations and weights read once, the bf16 output
+    written once; per sample point 4 corners x hd multiply-adds and the
+    weighted sum, in fp32."""
+    pts = b * q * nh * levels * p
+    nbytes = 2 * b * s * nh * hd + 12 * pts + 2 * b * q * nh * hd
+    return bound(nbytes, 0.0, 10.0 * pts * hd)
+
+
 def phase_kernels(torch, seed):
-    """Returns {kernel: [(case, max_abs_err, ms, plain_ms), ...]}, main case first."""
+    """Returns ({kernel: [case dict, ...]}, main case first, and the launch
+    counts of the sweep path)."""
     from mqdet_torch.ops import bi_attention as ba
     from mqdet_torch.ops import deform_conv as dc
+    from mqdet_torch.ops import launch_counts
     from mqdet_torch.ops import ms_deform_attn as ms
+    from mqdet_torch.tools import cuda_time_ms, perf_dcn_sweep
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     results = {name: [] for name, _, _ in KERNELS}
 
-    def dcn_case(b, h, w, c, stride):
+    def record(name, case, err, ms_, plain_ms, bnd, library_ms=None):
+        results[name].append({"case": case, "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+                              "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms})
+
+    def check(label, got, ref, tag=None):
+        err, scale = max_err(got, ref)
+        ok = bool(torch.isfinite(got).all()) and err <= ERR_BOUND * scale
+        say(f"phase 2: {label}: max_abs_err {err!r} (bound {ERR_BOUND * scale!r} = {ERR_BOUND} * max|ref| "
+            f"{scale!r}){tag or ''}; {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{label}: kernel disagrees with its plain version")
+        return err
+
+    def dcn_inputs(b, h, w, c, stride, scale):
         ho, wo = -(-h // stride), -(-w // stride)
         x = torch.randn(b, h, w, c, generator=g, device=dev).bfloat16()
-        # offsets reach well beyond the TPU kernel's +-2 px window
-        off = (torch.randn(b, ho, wo, 18, generator=g, device=dev) * 3.0).bfloat16()
+        off = (torch.randn(b, ho, wo, 18, generator=g, device=dev) * scale).bfloat16()
         mask = torch.rand(b, ho, wo, 9, generator=g, device=dev).bfloat16()
         wt = (torch.randn(3, 3, c, c, generator=g, device=dev) * 0.03).bfloat16()
         bias = (torch.randn(c, generator=g, device=dev) * 0.1).bfloat16()
-        args = (x, off, mask, wt, bias)
-        got = dc.modulated_deform_conv(*args, stride=stride)
-        torch.cuda.synchronize()
-        ref = dc.modulated_deform_conv_plain(*(a.float() for a in args), stride=stride)
-        err, scale = max_err(got, ref)
-        del ref
-        ms_ = cuda_time_ms(lambda: dc.modulated_deform_conv(*args, stride=stride))
-        plain_ms = cuda_time_ms(lambda: dc.modulated_deform_conv_plain(*args, stride=stride))
-        ok = bool(torch.isfinite(got).all()) and err <= ERR_BOUND * scale
-        say(
-            f"phase 2: dcn x{(b, h, w, c)} stride {stride} -> {(ho, wo)}: max_abs_err {err!r} "
-            f"(bound {ERR_BOUND * scale!r} = {ERR_BOUND} * max|ref| {scale!r}); "
-            f"kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms; {'ok' if ok else 'FAIL'}"
+        return (x, off, mask, wt, bias)
+
+    def dcn_case(b, h, w, c, stride):
+        """The exact kernel, K2 and band v2 at one level of the pyramid;
+        offsets x3 reach well beyond the +-2 clip."""
+        ho, wo = -(-h // stride), -(-w // stride)
+        args = dcn_inputs(b, h, w, c, stride, 3.0)
+        br = 16 if h // stride >= 100 else 8  # the model's block rows
+        routes = (
+            ("dcn", lambda a: dc.modulated_deform_conv(*a, stride=stride),
+             lambda a: dc.modulated_deform_conv_plain(*a, stride=stride)),
+            ("dcn_gather_clip", lambda a: dc.modulated_deform_conv_window(*a, stride=stride, radius=2),
+             lambda a: dc.modulated_deform_conv_clipped_plain(*a, stride=stride, radius=2)),
+            ("dcn_band", lambda a: dc.modulated_deform_conv_pallas(*a, stride=stride, radius=2, block_rows=br),
+             lambda a: dc.modulated_deform_conv_clipped_plain(*a, stride=stride, radius=2)),
         )
-        if not ok:
-            fail(f"dcn kernel disagrees with its plain version at {(b, h, w, c, stride)}")
-        results["dcn"].append((f"x{(b, h, w, c)} s{stride}", err, ms_, plain_ms))
+        for name, fn, plain in routes:
+            got = fn(args)
+            torch.cuda.synchronize()
+            ref = plain(tuple(a.float() for a in args))
+            ms_ = cuda_time_ms(lambda: fn(args))
+            plain_ms = cuda_time_ms(lambda: plain(args))
+            bnd = dcn_bound(b, h, w, c, ho, wo, c)
+            err = check(f"{name} x{(b, h, w, c)} stride {stride} -> {(ho, wo)}", got, ref,
+                        f"; kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]})")
+            del ref, got
+            record(name, f"x{(b, h, w, c)} s{stride}", err, ms_, plain_ms, bnd)
+        torch.cuda.empty_cache()
 
     dcn_case(4, 100, 168, 256, 1)
     dcn_case(4, 100, 168, 256, 2)
     dcn_case(4, 7, 11, 256, 1)
+
+    # the band kernel's versions at the level-0 shape, under the sweep's two offset regimes
+    x0, offs, m0, wt0, bs0 = perf_dcn_sweep.sweep_inputs(dev)
+    regime_err = {}  # (version, regime) -> max abs error against the plain version
+    for regime, off0 in offs.items():
+        args = (x0, off0, m0, wt0, bs0)
+        ref = dc.modulated_deform_conv_clipped_plain(*(a.float() for a in args), stride=1, radius=2)
+        v2 = dc.modulated_deform_conv_pallas(*args, stride=1, radius=2, block_rows=16, version=2)
+        for version in SWEEP_VERSIONS:
+            got = dc.modulated_deform_conv_pallas(*args, stride=1, radius=2, block_rows=16, version=version)
+            torch.cuda.synchronize()
+            regime_err[version, regime] = check(
+                f"dcn_band version {version}, level 0 (4, 100, 168, 256), {regime} offsets", got, ref)
+        same = {}
+        for version, tiles in ((5, 1), (6, 1), (2, 2), (2, 3)):
+            got = dc.modulated_deform_conv_pallas(*args, stride=1, radius=2, block_rows=16, version=version,
+                                                  x_tiles=tiles)
+            same[f"v{version} x_tiles {tiles}"] = torch.equal(got, v2)
+        share = dc.band_fast_share(off0, 1, 2, 16)
+        say(f"phase 2: dcn_band level 0, {regime} offsets: bitwise equal to version 2: {same}; version 5's "
+            f"fast path takes {share!r} of the (tile, tap) pairs (block rows 16)")
+        if not all(same.values()):
+            fail(f"dcn_band variants differ from version 2 ({regime} offsets): {same}")
+        del ref, v2, got
+    torch.cuda.empty_cache()
+
+    # the largest band: radius 8 at stride 2 (offsets x6, so the clip bites at 8)
+    args = dcn_inputs(4, 100, 168, 256, 2, 6.0)
+    ref = dc.modulated_deform_conv_clipped_plain(*(a.float() for a in args), stride=2, radius=8)
+    for version in (2, 6):
+        got = dc.modulated_deform_conv_pallas(*args, stride=2, radius=8, block_rows=16, version=version)
+        torch.cuda.synchronize()
+        check(f"dcn_band version {version}, radius 8, stride 2, x (4, 100, 168, 256) -> (50, 84)", got, ref)
+    del ref, got, args
+    torch.cuda.empty_cache()
+
+    # the sweep path (perf_dcn_sweep's entry), counted: every version at block rows 8 and 16
+    launch_counts(reset=True)
+    recs = list(perf_dcn_sweep.sweep(SWEEP_VERSIONS, SWEEP_BLOCK_ROWS, dev))
+    sweep_launches = launch_counts()
+    for rec in recs:
+        say(f"phase 2: perf_dcn_sweep {json.dumps(rec)}")
+    per_case = 1 + perf_dcn_sweep.WARMUP + perf_dcn_sweep.ITERS
+    names = {1: "dcn_band_v1", 2: "dcn_band", 3: "dcn_band_v3", 5: "dcn_band_v5", 6: "dcn_band_v6"}
+    want = predicted(**{names[v]: len(offs) * len(SWEEP_BLOCK_ROWS) * per_case for v in SWEEP_VERSIONS})
+    say(f"phase 2: perf_dcn_sweep path launches {sweep_launches} (predicted {want})")
+    if sweep_launches != want or any("error" in r for r in recs):
+        fail("perf_dcn_sweep path: a case failed or the launches differ from the prediction")
+    plain_ms = {3: cuda_time_ms(lambda: dc.modulated_deform_conv_v3_plain(x0, offs["rand"], m0, wt0, bs0))}
+    plain_ms[1] = cuda_time_ms(lambda: dc.modulated_deform_conv_clipped_plain(x0, offs["rand"], m0, wt0, bs0))
+    bnd = dcn_bound(4, 100, 168, 256, 100, 168, 256)
+    for rec in recs:
+        v = rec["version"]
+        if v != 2:
+            record(names[v], f"perf_dcn_sweep {rec['regime']} block rows {rec['block_rows']}",
+                   regime_err[v, rec["regime"]], rec["ms"], plain_ms[3 if v == 3 else 1], bnd)
+    for rows in results.values():  # the sweep's rand regime at the model's block rows first
+        rows.sort(key=lambda r: not r["case"].startswith("perf_dcn_sweep rand block rows 16"))
+    del x0, offs, m0, wt0, bs0
+    torch.cuda.empty_cache()
 
     def bi_inputs(b, n, t, e, heads):
         q = (torch.randn(b, n, e, generator=g, device=dev) * (e // heads) ** -0.5).bfloat16()
@@ -183,7 +316,7 @@ def phase_kernels(torch, seed):
         keep[1, 120:] = False
         return q, k, vv, vl, torch.where(keep, 0.0, -9e15).float()
 
-    def bi_check(name, case, outs, refs, ms_, plain_ms):
+    def bi_check(name, case, outs, refs, ms_, plain_ms, bnd):
         errs = [max_err(o, r) for o, r in zip(outs, refs)]
         ok = all(err <= ERR_BOUND * scale for err, scale in errs) and all(
             bool(torch.isfinite(o).all()) for o in outs
@@ -191,11 +324,12 @@ def phase_kernels(torch, seed):
         say(
             f"phase 2: {name} {case}: max_abs_err out_v {errs[0][0]!r} (bound "
             f"{ERR_BOUND * errs[0][1]!r}), out_l {errs[-1][0]!r} (bound {ERR_BOUND * errs[-1][1]!r}); "
-            f"kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms; {'ok' if ok else 'FAIL'}"
+            f"kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]}); "
+            f"{'ok' if ok else 'FAIL'}"
         )
         if not ok:
             fail(f"{name} kernel disagrees with its plain version at {case}")
-        results[name].append((case, max(e for e, _ in errs), ms_, plain_ms))
+        record(name, case, max(e for e, _ in errs), ms_, plain_ms, bnd)
         torch.cuda.empty_cache()
 
     def bi_case(b, n, t, e, heads, dual):
@@ -208,7 +342,8 @@ def phase_kernels(torch, seed):
         refs = plain(*(a.float() for a in args[:4]), args[4], num_heads=heads)
         ms_ = cuda_time_ms(lambda: ba.flash_bi_attention(*args, num_heads=heads, dual_scores=dual))
         plain_ms = cuda_time_ms(lambda: plain(*args, num_heads=heads))
-        bi_check(name, f"q/vv {(b, n, e)} T {t} heads {heads}", (ov, ol), refs, ms_, plain_ms)
+        bi_check(name, f"q/vv {(b, n, e)} T {t} heads {heads}", (ov, ol), refs, ms_, plain_ms,
+                 bi_bound(b, n, t, e, dual))
 
     def levels_case(b, shapes, t, e, heads):
         """The streamed form, one launch per level, at a pyramid's levels."""
@@ -229,7 +364,7 @@ def phase_kernels(torch, seed):
         ms_ = cuda_time_ms(lambda: ba.flash_bi_attention_levels(qs, k, vvs, vl, bias, heads))
         plain_ms = cuda_time_ms(lambda: ba.bi_attention_levels_plain(qs, k, vvs, vl, bias, heads))
         bi_check("bi_attention_levels", f"levels {sizes} x (B {b}, E {e}) T {t} heads {heads}",
-                 outs, refs, ms_, plain_ms)
+                 outs, refs, ms_, plain_ms, bi_bound(b, sum(sizes), t, e))
 
     for dual in (False, True):
         bi_case(4, 22400, 256, 2048, 8, dual)   # MQ-GLIP-T's VLFuse at 800x1344
@@ -267,15 +402,17 @@ def phase_kernels(torch, seed):
         del ref_out
         ms_ = cuda_time_ms(lambda: ms.ms_deform_attn(value, shapes, loc, attn))
         plain_ms = cuda_time_ms(lambda: ms.ms_deform_attn_plain(value, shapes, loc, attn))
+        bnd = msda_bound(b, s, q, nh, hd, len(shapes), p)
         ok = bool(torch.isfinite(got).all()) and err <= ERR_BOUND * scale
         say(
             f"phase 2: msda {name}: value {(b, s, nh, hd)} Q {q} levels {shapes} P {p}, locations "
             f"{where}: max_abs_err {err!r} (bound {ERR_BOUND * scale!r} = {ERR_BOUND} * max|ref| "
-            f"{scale!r}); kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms; {'ok' if ok else 'FAIL'}"
+            f"{scale!r}); kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]}); "
+            f"{'ok' if ok else 'FAIL'}"
         )
         if not ok:
             fail(f"msda kernel disagrees with its plain version ({name})")
-        results["ms_deform_attn"].append((f"{name} Q {q}", err, ms_, plain_ms))
+        record("ms_deform_attn", f"{name} Q {q}", err, ms_, plain_ms, bnd)
         del value, loc, attn, got
         torch.cuda.empty_cache()
 
@@ -284,7 +421,7 @@ def phase_kernels(torch, seed):
     # far: up to a whole map beyond each border, hundreds of cells from any
     # query, far past the TPU kernel's +-4 cell window
     msda_case("decoder far", 4, 900, -1.0, 2.0)
-    return results
+    return results, sweep_launches
 
 
 def compare_to_reference(torch, label, names, ref, plain16, card):
@@ -317,8 +454,14 @@ def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed):
     may be at most twice the plain bf16 error, or E2E_FLOOR, whichever is
     larger. A wrong kernel or layout gives errors of order 1. The card runs
     once under each fusion switch of SWITCHES (the concatenated pair, the
-    streamed levels, the dual-score kernel), each against the same CPU
-    reference, taken under the default switches."""
+    streamed levels, the dual-score kernel) with MQDET_DEFORM_IMPL unset,
+    and under the default fusion switches with MQDET_DEFORM_IMPL window and
+    gather; each against the CPU reference of its DCN route (clipped, or
+    exact for gather), taken under the default fusion switches. Where the
+    fp32 model's offsets stay inside the radius, the clip changes nothing
+    and the two routes' CPU references are the same computation, so it is
+    taken once. Returns the launch counts of each card run."""
+    from mqdet_torch.models.vldyhead import DyConv
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.utils.builders import synthetic_batch
 
@@ -328,36 +471,62 @@ def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed):
     text = [torch.from_numpy(batch[k]) for k in ("input_ids", "attention_mask", "queries", "query_mask")]
 
     def run(model, dev):
-        with torch.inference_mode():
-            feats = model.encode_image(image.to(dev))
-            out = model.forward_head(feats, *(t.to(dev) for t in text))
-        return [f.float().cpu() for f in feats] + [d.float().cpu() for d in out["dot_product_logits"]]
+        """(FPN levels and logit levels, max |offset| of the DyConv offset convs)."""
+        seen = []
+        hooks = [m.offset.register_forward_hook(lambda mod, a, out: seen.append(out[:, :18].abs().amax()))
+                 for m in model.modules() if isinstance(m, DyConv)]
+        try:
+            with torch.inference_mode():
+                feats = model.encode_image(image.to(dev))
+                out = model.forward_head(feats, *(t.to(dev) for t in text))
+        finally:
+            for h in hooks:
+                h.remove()
+        outs = [f.float().cpu() for f in feats] + [d.float().cpu() for d in out["dot_product_logits"]]
+        return outs, float(torch.stack(seen).max())
 
+    def reference():
+        (ref, off32), (plain16, off16) = run(model_cpu, "cpu"), run(copy.deepcopy(model_cpu).to(torch.bfloat16), "cpu")
+        return ref, plain16, max(off32, off16)
+
+    radius = cfg.TPU.DEFORM_RADIUS
     with switched("default"):
-        ref = run(model_cpu, "cpu")
-        plain16 = run(copy.deepcopy(model_cpu).to(torch.bfloat16), "cpu")
+        refs = {"clipped": reference()}
+    max_off = refs["clipped"][2]
+    if max_off <= radius:
+        refs["exact"] = refs["clipped"]
+    else:
+        with switched("default", "gather"):
+            refs["exact"] = reference()
+    say(f"phase 3: MQ-GLIP-T full width, random init (seed {seed}) at {hw}: max |offset| {max_off!r} "
+        f"(CPU, fp32 and bf16) against TPU.DEFORM_RADIUS {radius}: the clip "
+        f"{'binds' if max_off > radius else 'does not bind; the exact and clipped CPU references are one run'}")
     names = [f"fpn{i}" for i in range(5)] + [f"logits{i}" for i in range(5)]
-    # one VLFuse per head stage; under stream one launch per level
+    # one VLFuse per head stage (under stream one launch per level); 3 * levels - 2 DCN calls per stage
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
     fusion = {"default": {"bi_attention": stages}, "stream": {"bi_attention_levels": stages * levels},
               "dual": {"bi_attention_dual": stages}}
-    keys = ("bi_attention", "bi_attention_dual", "bi_attention_levels")
-    for switch in SWITCHES:
-        with switched(switch):
+    launches = {}
+    for switch, deform in [(sw, None) for sw in SWITCHES] + [("default", "window"), ("default", "gather")]:
+        with switched(switch, deform):
             launch_counts(reset=True)
-            card = run(model_gpu, torch.device("cuda"))
-            used = {k: v for k, v in launch_counts().items() if k in keys}
-        want = {k: v for k, v in predicted(**fusion[switch]).items() if k in keys}
-        label = f"MQ-GLIP-T ({switch} fusion switches)"
+            card, _ = run(model_gpu, torch.device("cuda"))
+            used = launch_counts()
+        want = predicted(**fusion[switch], **{DEFORM_ROUTES[deform]: stages * (3 * levels - 2)})
+        label = f"MQ-GLIP-T ({switch} fusion switches, MQDET_DEFORM_IMPL {deform or 'unset'})"
         if used != want:
-            fail(f"{label}: bi-attention launches {used} != predicted {want}")
+            fail(f"{label}: launches {used} != predicted {want}")
+        launches[f"MQ-GLIP-T reference {switch} {deform or 'unset'}"] = used
+        ref, plain16, _ = refs["exact" if deform == "gather" else "clipped"]
         worst = compare_to_reference(torch, label, names, ref, plain16, card)
+        said = {k: v for k, v in used.items() if v}
         say(
             f"phase 3: reference check, {label} full width at {hw}, card bf16 kernels vs CPU fp32 "
             f"plain on 5 FPN levels and 5 logit levels: worst err / bound {worst[0]!r} at {worst[1]} "
             f"(card relative L2 err {worst[2]!r}, plain bf16 {worst[3]!r}; bound max(2 * plain, "
-            f"{E2E_FLOOR})); bi-attention launches {used}; ok"
+            f"{E2E_FLOOR})); launches {said}; ok"
         )
+    return launches
 
 
 def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
@@ -399,7 +568,7 @@ def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
 
 
 FAMILIES = (
-    ("dcn kernel", ("dcn_forward_kernel",)),
+    ("dcn kernels", ("dcn_forward_kernel", "dcn_band_kernel")),
     ("bi-attention kernels", ("bi_attn_v_kernel", "bi_attn_l_kernel", "bi_attn_dual_kernel",
                               "bi_attn_carry_kernel")),
     ("msda kernel", ("msda_forward_kernel",)),
@@ -576,15 +745,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from mqdet_torch.ops import kernels
+    from mqdet_torch.tools import card
     from mqdet_torch.utils.builders import (
         build_model, init_params, mq_glip_t_config, mq_groundingdino_t_config, synthetic_batch,
         synthetic_caption_batch,
     )
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card()
     t0 = time.perf_counter()
     kernels.lib()
     build_s = time.perf_counter() - t0
@@ -593,18 +760,18 @@ def main() -> int:
         f"{len(kernels.sources())} kernel sources built from mqdet_torch/csrc for sm_90a in "
         f"{build_s!r} s ({os.path.basename(kernels.library_path())})")
 
-    kres = phase_kernels(torch, args.seed)
+    kres, sweep_launches = phase_kernels(torch, args.seed)
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
     torch.set_num_threads(os.cpu_count() or 1)
-    launches = {}
+    launches = {"perf_dcn_sweep": sweep_launches}
 
     # ---- MQ-GLIP-T -------------------------------------------------------
     cfg = mq_glip_t_config()
     cfg.MODEL.ATSS.DETECTIONS_PER_IMG = 300
     model_cpu = init_params(build_model(cfg), seed=args.seed).eval()
     model = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
-    phase_reference_glip(torch, cfg, model_cpu, model, args.seed)
+    launches.update(phase_reference_glip(torch, cfg, model_cpu, model, args.seed))
     del model_cpu
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
     groups = -(-31 // 4)
@@ -615,9 +782,9 @@ def main() -> int:
     # default last: its phase 6 (synchronised split) ends a model's runs, because
     # protocols timed right after it read 7-24% slower with the same device busy time
     for switch, want in (
-        ("stream", predicted(dcn=dcn, bi_attention_levels=fuse * levels)),  # one launch per level
-        ("dual", predicted(dcn=dcn, bi_attention_dual=fuse)),
-        ("default", predicted(dcn=dcn, bi_attention=fuse)),
+        ("stream", predicted(dcn_band=dcn, bi_attention_levels=fuse * levels)),  # one launch per level
+        ("dual", predicted(dcn_band=dcn, bi_attention_dual=fuse)),
+        ("default", predicted(dcn_band=dcn, bi_attention=fuse)),
     ):
         launches[f"MQ-GLIP-T {switch}"] = phase_protocol(
             torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300, want, args.runs, args.seed,
@@ -655,14 +822,17 @@ def main() -> int:
     entries = []
     for name, source, replaces in KERNELS:
         cases = kres[name]
-        _, _, ms, plain_ms = cases[0]
+        main_case = cases[0]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(per_path[name] for per_path in launches.values()),
-            "launches_by_path": {path: per_path[name] for path, per_path in launches.items()},
-            "max_abs_err": max(c[1] for c in cases), "ms": ms, "plain_ms": plain_ms,
-            "cases": [{"case": c, "max_abs_err": e, "ms": t, "plain_ms": pt} for c, e, t, pt in cases],
+            "launches_by_path": {path: per_path[name] for path, per_path in launches.items() if per_path[name]},
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "cases": cases,
         })
+        if not entries[-1]["launches"]:
+            fail(f"{name}: no counted path launched it")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -71,6 +71,11 @@ def default_config() -> CfgNode:
             "NEW_MASK_TOKEN": False, "LEARNABLE_BANK": False, "ADD_VISION_LAYER": False,
             "QUERY_FUSION": False,
         },
+        # DCNv2: the clipped routes clip offsets to +-DEFORM_RADIUS
+        # (`utils/calibrate.py` measures and sets it); offsets applied to the
+        # conv over the next level are read "strided" (the reference CUDA
+        # kernel's flat-buffer reinterpretation) or "resample"d
+        "TPU": {"DEFORM_RADIUS": 2, "DEFORM_OFFSET_COMPAT": "strided"},
         # the evaluation keys of the JAX package's GroundingDINO block
         "GROUNDINGDINO": {
             "enabled": False, "hidden_dim": 256, "num_queries": 900, "nheads": 8,

@@ -1,8 +1,9 @@
 """Weight bridge: a flat flax parameter dict -> this package's state_dict.
 
 The port's modules carry the reference's torch attribute names, so its
-`state_dict()` keys are the reference keys of the JAX package's rule tables
-(`mqdet_tpu/io/torch_import.py`: `build_rule_table` for MQ-GLIP,
+`state_dict()` keys are the reference keys of the rule tables
+(`mqdet_torch/io/torch_import.py`, the port's copy of the JAX package's
+`mqdet_tpu/io/torch_import.py`: `build_rule_table` for MQ-GLIP,
 `build_gdino_rule_table` for MQ-GroundingDINO; flax path -> (reference key,
 transform)). The bridge is that table read backwards: HWIO -> OIHW for
 `_t_conv`, a transpose for `_t_linear`, identity, the scalar reshape back to
@@ -13,7 +14,7 @@ it. Where a rule names several candidate reference keys, the first is the
 port's. A released GLIP / MQ-Det / GroundingDINO `.pth` therefore loads
 directly:
 
-    state = strip_prefixes(load_torch_state_dict(path))   # mqdet_tpu.io.torch_import
+    state = strip_prefixes(load_torch_state_dict(path))   # mqdet_torch.io.torch_import
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items() if k in model.state_dict()})
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from mqdet_tpu.io import torch_import as TI
+from mqdet_torch.io import torch_import as TI
 
 IN_PROJ = ("in_proj_weight", "in_proj_bias")
 
@@ -43,7 +44,7 @@ def reference_rules() -> Dict[str, Tuple[str, Callable]]:
 
 
 def rule_table(model: Optional[torch.nn.Module] = None) -> Dict:
-    """The JAX package's rule table for `model`'s family: the GroundingDINO
+    """The rule table for `model`'s family: the GroundingDINO
     table at the model's depth, else (and without a model) MQ-GLIP's."""
     from mqdet_torch.models.gdino import MQGroundingDINO
 

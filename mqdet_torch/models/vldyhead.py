@@ -7,15 +7,21 @@ DYReLU)], then the cls / bbox / centerness convs and the dot-product token
 head with its +-50000 clip. `dyhead_tower` holds the stages at the
 reference's indices 3i, 3i+1, 3i+2, so the state_dict keys are its keys.
 
-Every deformable conv goes through `ops.deform_conv.modulated_deform_conv`,
-one call per level (13 per stage at 5 levels): the CUDA kernel on the card,
-the plain version on the CPU. Offsets predicted at level L and applied to the
-conv over level L+1 are read with the reference CUDA kernel's strided
-reinterpretation, per batch item.
+Every deformable conv is one call per level (13 per stage at 5 levels),
+dispatched as the JAX package's `DeformConvGN` does on `MQDET_DEFORM_IMPL`,
+read at call time: `gather` samples exactly (`modulated_deform_conv`);
+`pallas` (the default, and `pallas_interpret`) with C % 128 == 0 clips the
+offsets to +-`TPU.DEFORM_RADIUS` in the band kernel
+(`modulated_deform_conv_pallas`); anything else clips them in the gather
+kernel (`modulated_deform_conv_window`). On the CPU each route runs its plain
+version. Offsets predicted at level L and applied to the conv over level L+1
+are read with the reference CUDA kernel's strided reinterpretation, per batch
+item (`TPU.DEFORM_OFFSET_COMPAT = "strided"`), or resampled (`"resample"`).
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List
 
 import torch
@@ -25,7 +31,13 @@ from torch import nn
 from mqdet_torch.models.bert import BertLayer
 from mqdet_torch.models.fusion import VLFuse
 from mqdet_torch.models.layers import DYReLU, GroupNorm, Scale, cl, h_sigmoid, upsample_bilinear
-from mqdet_torch.ops.deform_conv import modulated_deform_conv, reinterpret_offsets_strided
+from mqdet_torch.ops.deform_conv import (
+    modulated_deform_conv,
+    modulated_deform_conv_pallas,
+    modulated_deform_conv_window,
+    reinterpret_offsets_strided,
+    resize_offsets,
+)
 
 # The JAX package's VLDyHead builds its DyConv GroupNorms with 16 groups
 # whatever MODEL.GROUP_NORM.NUM_GROUPS says; so does the port.
@@ -41,30 +53,44 @@ class ModulatedDeformConv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x, offset, mask):
+    def forward(self, x, offset, mask, radius: int):
         """x: (B, C, H, W); offset (B, Ho, Wo, 18), mask (B, Ho, Wo, 9) NHWC.
-        Returns (B, Cout, Ho, Wo) channels_last."""
-        w_hwio = self.weight.permute(2, 3, 1, 0).contiguous()
-        y = modulated_deform_conv(
-            x.permute(0, 2, 3, 1).contiguous(), offset, mask, w_hwio, self.bias, self.stride
-        )
+        Returns (B, Cout, Ho, Wo) channels_last. The route follows
+        MQDET_DEFORM_IMPL (module docstring)."""
+        impl = os.environ.get("MQDET_DEFORM_IMPL", "pallas")
+        args = (x.permute(0, 2, 3, 1).contiguous(), offset, mask,
+                self.weight.permute(2, 3, 1, 0).contiguous(), self.bias)
+        if impl == "gather":
+            y = modulated_deform_conv(*args, stride=self.stride)
+        elif impl in ("pallas", "pallas_interpret") and x.shape[1] % 128 == 0:
+            # the JAX package's block_rows: 16 at the 100-row level, else 8
+            y = modulated_deform_conv_pallas(*args, stride=self.stride, radius=radius,
+                                             block_rows=16 if x.shape[2] // self.stride >= 100 else 8)
+        else:
+            y = modulated_deform_conv_window(*args, stride=self.stride, radius=radius)
         return y.permute(0, 3, 1, 2)
 
 
 class DeformConvGN(nn.Module):
-    """Conv3x3Norm with a modulated deformable conv + GroupNorm."""
+    """Conv3x3Norm with a modulated deformable conv + GroupNorm. `radius`
+    and `offset_compat` are the JAX module's (`TPU.DEFORM_RADIUS`,
+    `TPU.DEFORM_OFFSET_COMPAT`)."""
 
-    def __init__(self, cin: int, cout: int, stride: int, groups: int):
+    def __init__(self, cin: int, cout: int, stride: int, groups: int, radius: int = 2,
+                 offset_compat: str = "strided"):
         super().__init__()
         self.stride = stride
+        self.radius = radius
+        self.offset_compat = offset_compat
         self.conv = ModulatedDeformConv(cin, cout, stride)
         self.bn = GroupNorm(groups, cout)
 
     def forward(self, x, offset, mask):
         ho, wo = -(-x.shape[2] // self.stride), -(-x.shape[3] // self.stride)
         if offset.shape[1:3] != (ho, wo):
-            offset, mask = reinterpret_offsets_strided(offset, mask, ho, wo)
-        return self.bn(self.conv(x, offset, mask))
+            prep = reinterpret_offsets_strided if self.offset_compat == "strided" else resize_offsets
+            offset, mask = prep(offset, mask, ho, wo)
+        return self.bn(self.conv(x, offset, mask, self.radius))
 
 
 class DyConv(nn.Module):
@@ -73,10 +99,10 @@ class DyConv(nn.Module):
     then DYReLU. DyConv.0 runs over level L+1, DyConv.1 over L, DyConv.2
     (stride 2) over L-1."""
 
-    def __init__(self, channels: int, gn_groups: int):
+    def __init__(self, channels: int, gn_groups: int, radius: int = 2, offset_compat: str = "strided"):
         super().__init__()
         self.DyConv = nn.ModuleList(
-            DeformConvGN(channels, channels, s, gn_groups) for s in (1, 1, 2)
+            DeformConvGN(channels, channels, s, gn_groups, radius, offset_compat) for s in (1, 1, 2)
         )
         self.AttnConv = nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Conv2d(channels, 1, 1), nn.ReLU())
         self.relu = DYReLU(channels)
@@ -129,7 +155,7 @@ class VLDyHead(nn.Module):
             tower += [
                 VLFuse(self.num_convs, ch, lb.LANG_DIM),
                 BertLayer(lb.LANG_DIM, lb.NUM_HEADS, lb.INTERMEDIATE_SIZE),
-                DyConv(ch, GN_GROUPS),
+                DyConv(ch, GN_GROUPS, cfg.TPU.DEFORM_RADIUS, cfg.TPU.DEFORM_OFFSET_COMPAT),
             ]
         self.dyhead_tower = nn.ModuleList(tower)
         num_classes = dy.NUM_CLASSES - 1

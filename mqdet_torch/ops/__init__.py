@@ -6,6 +6,12 @@ import importlib
 
 COUNTERS = (  # kernel name, module of this package, attribute of its launch count
     ("dcn", "deform_conv", "launch_count"),
+    ("dcn_gather_clip", "deform_conv", "clip_launch_count"),
+    ("dcn_band", "deform_conv", "band_launch_count"),
+    ("dcn_band_v1", "deform_conv", "band_v1_launch_count"),
+    ("dcn_band_v3", "deform_conv", "band_v3_launch_count"),
+    ("dcn_band_v5", "deform_conv", "band_v5_launch_count"),
+    ("dcn_band_v6", "deform_conv", "band_v6_launch_count"),
     ("bi_attention", "bi_attention", "launch_count"),
     ("bi_attention_dual", "bi_attention", "dual_launch_count"),
     ("bi_attention_levels", "bi_attention", "levels_launch_count"),

@@ -1,16 +1,24 @@
 """Modulated deformable convolution (DCNv2), 3x3, pad 1, stride 1 or 2.
 
-Counterpart of `mqdet_tpu/ops/deform_conv.py`. The public function keeps the
-JAX package's signature and NHWC layout:
+Counterpart of `mqdet_tpu/ops/deform_conv.py` and of the two Pallas DCN
+kernels. The public functions keep the JAX package's signatures (without
+`interpret`) and NHWC layout: x (B,H,W,C), offset (B,Ho,Wo,18) as (dy, dx) per
+tap, mask (B,Ho,Wo,9), weight (3,3,C,Cout), bias (Cout,) or None.
 
-    modulated_deform_conv(x (B,H,W,C), offset (B,Ho,Wo,18), mask (B,Ho,Wo,9),
-                          weight (3,3,C,Cout), bias (Cout,) or None, stride)
+    modulated_deform_conv            exact sampling; kernel `dcn`
+    modulated_deform_conv_window     offsets clipped to +-radius; kernel
+    modulated_deform_conv_pallas_gather  `dcn_gather_clip` (the clipped mode
+                                     of the exact kernel, the TPU's K2)
+    modulated_deform_conv_pallas     offsets clipped to +-radius; the band
+                                     kernel `dcn_band` (K1), versions
+                                     1/3/5/6 (K1b) and the x_tiles wrapper
 
-On a CUDA tensor it launches the hand-written kernel of `csrc/deform_conv.cu`
-(bf16 in and out, fp32 accumulation) or raises; on a CPU tensor it runs the
-plain PyTorch version below. Sampling is exact 4-corner bilinear with zeros
-outside the image and no offset clipping (the TPU kernel's +-radius window
-exists only for the TPU).
+The clipped functions equal the exact one on offsets clamped to
+[-radius, radius] (zero padding outside the image either way). On a CUDA
+tensor each launches its hand-written kernel of `csrc/deform_conv.cu` (bf16 in
+and out, fp32 accumulation) or raises; on a CPU tensor it runs the plain
+PyTorch version below. `block_rows` changes no result: on the card it sets the
+band kernel's tile rows.
 """
 from __future__ import annotations
 
@@ -18,24 +26,55 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from mqdet_torch.ops import kernels
 
-launch_count = 0  # kernel launches since the caller last reset it
+launch_count = 0          # exact kernel launches ("dcn") since the caller last reset it
+clip_launch_count = 0     # its clipped mode ("dcn_gather_clip")
+band_launch_count = 0     # the band kernel, version 2 ("dcn_band")
+band_v1_launch_count = 0  # versions 1, 3, 5, 6 ("dcn_band_v1" ...)
+band_v3_launch_count = 0
+band_v5_launch_count = 0
+band_v6_launch_count = 0
+_BAND_COUNTER = {1: "band_v1_launch_count", 2: "band_launch_count", 3: "band_v3_launch_count",
+                 5: "band_v5_launch_count", 6: "band_v6_launch_count"}
+
+MAX_WINDOW_RADIUS = 8  # the largest radius the band kernel takes (and `utils/calibrate.py` uses)
+# Mirror of the band kernel's shared-memory layout (csrc/deform_conv.cu): the
+# A/B/C tile union and the per-block tables, then the band buffers; the C
+# entry point refuses a count that differs from its own.
+BAND_OFFSET = 45824
+SMEM_LIMIT = 232448
+BAND_BM = 64  # output positions per block
 
 
-def _bilinear_gather(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """img (B, H, W, C); y, x (B, P) fractional -> (B, P, C). Zero for samples
-    with y <= -1, y >= H, x <= -1 or x >= W, and for each corner outside the
-    image (deformable im2col semantics)."""
-    b, h, w, c = img.shape
-    flat = img.reshape(b, h * w, c)
-    bidx = torch.arange(b, device=img.device)[:, None]
-    oob = (y <= -1.0) | (y >= h) | (x <= -1.0) | (x >= w)
-    y0 = torch.floor(y)
-    x0 = torch.floor(x)
-    ly, lx = y - y0, x - x0
-    out = torch.zeros(b, y.shape[1], c, dtype=img.dtype, device=img.device)
+def _sample_patches(x, offset, mask, stride, fold_mask):
+    """(B, Ho, Wo, 9, C) modulated bilinear samples in x.dtype. Zero for
+    samples with y <= -1, y >= H, x <= -1 or x >= W, and for each corner
+    outside the image (deformable im2col semantics). With fold_mask the mask
+    multiplies each corner weight in fp32 before the weight is cast to
+    x.dtype; else it multiplies the blended sample."""
+    b, h, w, c = x.shape
+    ho, wo = offset.shape[1], offset.shape[2]
+    dev = x.device
+    ys = torch.arange(ho, device=dev, dtype=torch.float32) * stride - 1.0
+    xs = torch.arange(wo, device=dev, dtype=torch.float32) * stride - 1.0
+    taps = torch.arange(3, device=dev, dtype=torch.float32)
+    base_y = (ys[:, None, None, None] + taps[None, None, :, None]).expand(ho, wo, 3, 3)
+    base_x = (xs[None, :, None, None] + taps[None, None, None, :]).expand(ho, wo, 3, 3)
+    off = offset.float().reshape(b, ho, wo, 9, 2)
+    sy = (base_y.reshape(ho, wo, 9)[None] + off[..., 0]).reshape(b, -1)
+    sx = (base_x.reshape(ho, wo, 9)[None] + off[..., 1]).reshape(b, -1)
+    mk = mask.float().reshape(b, -1)
+
+    flat = x.reshape(b, h * w, c)
+    bidx = torch.arange(b, device=dev)[:, None]
+    oob = (sy <= -1.0) | (sy >= h) | (sx <= -1.0) | (sx >= w)
+    y0 = torch.floor(sy)
+    x0 = torch.floor(sx)
+    ly, lx = sy - y0, sx - x0
+    out = torch.zeros(b, sy.shape[1], c, dtype=x.dtype, device=dev)
     for yy, xx, wt in (
         (y0, x0, (1 - ly) * (1 - lx)),
         (y0, x0 + 1, (1 - ly) * lx),
@@ -44,9 +83,20 @@ def _bilinear_gather(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> tor
     ):
         inb = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1) & ~oob
         idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
-        wt = torch.where(inb, wt, torch.zeros_like(wt)).to(img.dtype)
+        if fold_mask:
+            wt = wt * mk
+        wt = torch.where(inb, wt, torch.zeros_like(wt)).to(x.dtype)
         out += flat[bidx, idx] * wt[..., None]
+    out = out.reshape(b, ho, wo, 9, c)
+    if not fold_mask:
+        out = out * mask.reshape(b, ho, wo, 9, 1).to(x.dtype)
     return out
+
+
+def _contract(patches, weight, bias):
+    b, ho, wo, _, c = patches.shape
+    out = torch.matmul(patches.reshape(b, ho, wo, 9 * c), weight.reshape(9 * c, weight.shape[-1]))
+    return out + bias if bias is not None else out
 
 
 def modulated_deform_conv_plain(
@@ -59,24 +109,21 @@ def modulated_deform_conv_plain(
 ) -> torch.Tensor:
     """Plain PyTorch DCNv2 (the exact gather form of the JAX package's
     `modulated_deform_conv`): bilinear im2col then one matmul."""
-    b, h, w, c = x.shape
-    ho, wo = offset.shape[1], offset.shape[2]
-    cout = weight.shape[-1]
-    dev = x.device
-    ys = torch.arange(ho, device=dev, dtype=torch.float32) * stride - 1.0
-    xs = torch.arange(wo, device=dev, dtype=torch.float32) * stride - 1.0
-    taps = torch.arange(3, device=dev, dtype=torch.float32)
-    base_y = (ys[:, None, None, None] + taps[None, None, :, None]).expand(ho, wo, 3, 3)
-    base_x = (xs[None, :, None, None] + taps[None, None, None, :]).expand(ho, wo, 3, 3)
-    off = offset.float().reshape(b, ho, wo, 9, 2)
-    sy = (base_y.reshape(ho, wo, 9)[None] + off[..., 0]).reshape(b, -1)
-    sx = (base_x.reshape(ho, wo, 9)[None] + off[..., 1]).reshape(b, -1)
-    patches = _bilinear_gather(x, sy, sx).reshape(b, ho, wo, 9, c)
-    patches = patches * mask.reshape(b, ho, wo, 9, 1).to(x.dtype)
-    out = torch.matmul(patches.reshape(b, ho, wo, 9 * c), weight.reshape(9 * c, cout))
-    if bias is not None:
-        out = out + bias
-    return out
+    return _contract(_sample_patches(x, offset, mask, stride, False), weight, bias)
+
+
+def modulated_deform_conv_clipped_plain(x, offset, mask, weight, bias=None, stride=1, radius=2):
+    """The clipped DCNv2 of the window composite, K1 and K2: the exact plain
+    version on offsets clamped to [-radius, radius]."""
+    return modulated_deform_conv_plain(x, offset.clamp(-radius, radius), mask, weight, bias, stride)
+
+
+def modulated_deform_conv_v3_plain(x, offset, mask, weight, bias=None, stride=1, radius=2):
+    """K1 version 3's function: the clipped DCNv2 with the 4-corner blend in
+    x.dtype. Each corner weight (bilinear times mask, fp32) is cast to
+    x.dtype, and the products and their sum are taken in x.dtype. For fp32
+    inputs it is the clipped plain version up to fp32 rounding."""
+    return _contract(_sample_patches(x, offset.clamp(-radius, radius), mask, stride, True), weight, bias)
 
 
 def reinterpret_offsets_strided(
@@ -98,8 +145,22 @@ def reinterpret_offsets_strided(
     return misread(offset), misread(mask)
 
 
-def _launch(x, offset, mask, weight, bias, stride) -> torch.Tensor:
-    global launch_count
+def resize_offsets(
+    offset: torch.Tensor, mask: torch.Tensor, ho: int, wo: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DyConv's `offset_compat="resample"`: the 27-channel (offset, mask)
+    field resampled to (ho, wo) by half-pixel bilinear interpolation
+    (align_corners=False); offset values are not rescaled. NHWC in and out."""
+    om = torch.cat([offset, mask], dim=-1).permute(0, 3, 1, 2)
+    if om.shape[2:] != (ho, wo):
+        om = F.interpolate(om, size=(ho, wo), mode="bilinear", align_corners=False)
+    om = om.permute(0, 2, 3, 1)
+    return om[..., :18].contiguous(), om[..., 18:].contiguous()
+
+
+def _check(x, offset, mask, weight, bias, stride):
+    """Shapes, dtype, layout and alignment the kernels take; returns
+    (B, H, W, C, Ho, Wo, Cout)."""
     if stride not in (1, 2):
         raise ValueError(f"stride {stride} not supported")
     if x.dim() != 4 or weight.dim() != 4:
@@ -116,10 +177,9 @@ def _launch(x, offset, mask, weight, bias, stride) -> torch.Tensor:
         )
     if c % 8 or cout % 8:
         raise ValueError(f"C={c} and Cout={cout} must be multiples of 8")
-    if x.numel() >= 2**31:
+    if x.numel() >= 2**31 or b * ho * wo * 18 >= 2**31:
         raise ValueError("x too large for 32-bit element offsets")
-    tensors = [x, offset, mask, weight] + ([bias] if bias is not None else [])
-    for t in tensors:
+    for t in [x, offset, mask, weight] + ([bias] if bias is not None else []):
         if t.device != x.device:
             raise ValueError("all inputs must be on one device")
         if t.dtype != torch.bfloat16:
@@ -130,17 +190,40 @@ def _launch(x, offset, mask, weight, bias, stride) -> torch.Tensor:
             raise ValueError("kernel needs 16-byte aligned tensors")
     if bias is not None and bias.shape != (cout,):
         raise ValueError(f"bias {tuple(bias.shape)} != ({cout},)")
-    out = torch.empty(b, ho, wo, cout, dtype=x.dtype, device=x.device)
+    return b, h, w, c, ho, wo, cout
+
+
+def _pointers(x, offset, mask, weight, bias, out):
     p = ctypes.c_void_p
+    return (p(x.data_ptr()), p(offset.data_ptr()), p(mask.data_ptr()), p(weight.data_ptr()),
+            p(bias.data_ptr() if bias is not None else None), p(out.data_ptr()))
+
+
+def _launch(x, offset, mask, weight, bias, stride, radius) -> torch.Tensor:
+    """The gather kernel: exact for radius None, else clipped (K2)."""
+    global launch_count, clip_launch_count
+    b, h, w, c, ho, wo, cout = _check(x, offset, mask, weight, bias, stride)
+    if radius is not None and radius < 0:
+        raise ValueError(f"radius {radius} < 0")
+    out = torch.empty(b, ho, wo, cout, dtype=x.dtype, device=x.device)
     code = kernels.lib().mqdet_dcn_forward(
-        p(x.data_ptr()), p(offset.data_ptr()), p(mask.data_ptr()),
-        p(weight.data_ptr()), p(bias.data_ptr() if bias is not None else None),
-        p(out.data_ptr()), b, h, w, c, ho, wo, cout, stride,
-        p(kernels.stream_ptr(x.device)),
+        *_pointers(x, offset, mask, weight, bias, out), b, h, w, c, ho, wo, cout, stride,
+        -1 if radius is None else int(radius), ctypes.c_void_p(kernels.stream_ptr(x.device)),
     )
     kernels.check(code, "mqdet_dcn_forward")
-    launch_count += 1
+    if radius is None:
+        launch_count += 1
+    else:
+        clip_launch_count += 1
     return out
+
+
+def _on_device(x, plain, launch):
+    if x.device.type == "cpu":
+        return plain()
+    if x.device.type != "cuda":
+        raise ValueError(f"no DCN kernel for device {x.device}")
+    return launch()
 
 
 def modulated_deform_conv(
@@ -151,9 +234,145 @@ def modulated_deform_conv(
     bias: Optional[torch.Tensor] = None,
     stride: int = 1,
 ) -> torch.Tensor:
-    """DCNv2 (see module docstring). Returns (B, Ho, Wo, Cout), Ho = ceil(H/stride)."""
-    if x.device.type == "cpu":
-        return modulated_deform_conv_plain(x, offset, mask, weight, bias, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"no DCN kernel for device {x.device}")
-    return _launch(x, offset, mask, weight, bias, stride)
+    """Exact DCNv2 (the JAX package's `modulated_deform_conv`). Returns
+    (B, Ho, Wo, Cout), Ho = ceil(H/stride)."""
+    return _on_device(
+        x, lambda: modulated_deform_conv_plain(x, offset, mask, weight, bias, stride),
+        lambda: _launch(x, offset, mask, weight, bias, stride, None),
+    )
+
+
+def modulated_deform_conv_window(x, offset, mask, weight, bias=None, stride=1, radius=3, block_rows=8):
+    """DCNv2 with offsets clipped to [-radius, radius] (the JAX package's
+    window composite, `ops/deform_conv.py:171`). On the card: the clipped
+    4-corner gather kernel (K2)."""
+    return _on_device(
+        x, lambda: modulated_deform_conv_clipped_plain(x, offset, mask, weight, bias, stride, radius),
+        lambda: _launch(x, offset, mask, weight, bias, stride, radius),
+    )
+
+
+def modulated_deform_conv_pallas_gather(x, offset, mask, weight, bias=None, stride=1, radius=2, block_rows=16):
+    """The TPU's 4-corner gather kernel's entry point
+    (`deform_conv_gather_pallas.py:132`): the same function and kernel as
+    `modulated_deform_conv_window`, with its own default radius."""
+    return modulated_deform_conv_window(x, offset, mask, weight, bias, stride, radius, block_rows)
+
+
+def band_version(version: int) -> int:
+    """The launcher's rule: 2, 3, 5 and 6 select that version, any other value version 1."""
+    return version if version in (2, 3, 5, 6) else 1
+
+
+def band_tile(block_rows: int) -> Tuple[int, int]:
+    """The band kernel's tile (rows, columns) of 64 output positions: rows is
+    block_rows rounded down to a power of two in [1, 64]."""
+    br = 1 << (max(1, min(int(block_rows), BAND_BM)).bit_length() - 1)
+    return br, BAND_BM // br
+
+
+def band_geometry(c: int, stride: int, radius: int, block_rows: int, version: int):
+    """(rows, cols, chunk, shared-memory bytes) of a band launch: the channel
+    chunk is 32 where the band fits, else 16. Raises ValueError for a radius
+    outside [0, MAX_WINDOW_RADIUS] or a band that does not fit a block."""
+    if not 0 <= radius <= MAX_WINDOW_RADIUS:
+        raise ValueError(f"radius {radius} outside [0, {MAX_WINDOW_RADIUS}]: use the gather kernel")
+    br, bw = band_tile(block_rows)
+    px = ((br - 1) * stride + 2 * radius + 4) * ((bw - 1) * stride + 2 * radius + 4)
+    per = {1: 2, 6: 6}.get(band_version(version), 4)  # bytes per (pixel, channel) of the band buffers
+    for bk in (32, 16):
+        nbytes = BAND_OFFSET + px * bk * per
+        if c % bk == 0 and nbytes <= SMEM_LIMIT:
+            return br, bw, bk, nbytes
+    raise ValueError(
+        f"band of radius {radius}, stride {stride}, tile {br}x{bw} does not fit a block's shared memory (C={c})"
+    )
+
+
+def band_fast_share(offset: torch.Tensor, stride: int, radius: int, block_rows: int) -> float:
+    """Share of (tile, tap) pairs that take version 5's fast path: those whose
+    clipped floor(rel) is the same, in both axes, at every position of the
+    band kernel's tile inside the output grid (the kernel's own rule)."""
+    br, bw = band_tile(block_rows)
+    b, ho, wo, _ = offset.shape
+    taps = torch.tensor([[ky - 1, kx - 1] for ky in range(3) for kx in range(3)], dtype=torch.float32,
+                        device=offset.device)
+    fl = torch.floor(offset.float().reshape(b, ho, wo, 9, 2).clamp(-radius, radius) + taps)
+    ty, tx = -(-ho // br), -(-wo // bw)
+    pad = (0, 0, 0, tx * bw - wo, 0, ty * br - ho)  # positions past the grid take no part
+    hi = F.pad(fl.reshape(b, ho, wo, 18), pad, value=float("-inf"))
+    lo = F.pad(fl.reshape(b, ho, wo, 18), pad, value=float("inf"))
+    hi = hi.reshape(b, ty, br, tx, bw, 9, 2).amax(dim=(2, 4))
+    lo = lo.reshape(b, ty, br, tx, bw, 9, 2).amin(dim=(2, 4))
+    return float((hi == lo).all(-1).float().mean())
+
+
+def _launch_band(x, offset, mask, weight, bias, stride, radius, block_rows, version) -> torch.Tensor:
+    b, h, w, c, ho, wo, cout = _check(x, offset, mask, weight, bias, stride)
+    v = band_version(version)
+    br, bw, bk, nbytes = band_geometry(c, stride, radius, block_rows, v)
+    out = torch.empty(b, ho, wo, cout, dtype=x.dtype, device=x.device)
+    code = kernels.lib().mqdet_dcn_band_forward(
+        *_pointers(x, offset, mask, weight, bias, out), b, h, w, c, ho, wo, cout, stride, int(radius),
+        br, bw, v, bk, nbytes, ctypes.c_void_p(kernels.stream_ptr(x.device)),
+    )
+    kernels.check(code, "mqdet_dcn_band_forward")
+    globals()[_BAND_COUNTER[v]] += 1
+    return out
+
+
+def _band(x, offset, mask, weight, bias, stride, radius, block_rows, version):
+    plain = modulated_deform_conv_v3_plain if band_version(version) == 3 else modulated_deform_conv_clipped_plain
+    return _on_device(
+        x, lambda: plain(x, offset, mask, weight, bias, stride, radius),
+        lambda: _launch_band(x, offset, mask, weight, bias, stride, radius, block_rows, version),
+    )
+
+
+def _x_tiled(x, offset, mask, weight, bias, stride, radius, block_rows, version, t):
+    """The TPU launcher's x_tiles (`_mdc_dispatch` :701): the output columns
+    split into t tiles of ceil(Wo/t), each run with a halo of e outputs on
+    its left and e_r on its right whose input window holds every pixel its
+    real outputs read with a non-zero weight (x zero-padded past the image),
+    all t tiles as extra batch entries of one call, then stitched. Each real
+    output sees the same pixels, weights and products as untiled, so the
+    result is bitwise the untiled one."""
+    b, h, w, c = x.shape
+    ho, wo = offset.shape[1], offset.shape[2]
+    s = stride
+    wo_t = -(-wo // t)
+    e = -(-(radius + 1) // s)          # e * s >= 1 + radius: the leftmost pixel a real output reads
+    e_r = -(-(radius + 2) // s) - 1    # (e_r + 1) * s >= radius + 2: the rightmost
+    n = wo_t + e + e_r                 # output columns per tile
+    wt_ = n * s                        # input columns per tile window
+    right = max(0, (t - 1) * wo_t * s + wt_ - e * s - w)
+    xpad = F.pad(x, (0, 0, e * s, right))
+    xt = torch.stack([xpad[:, :, tt * wo_t * s: tt * wo_t * s + wt_] for tt in range(t)], 1)
+    xt = xt.reshape(b * t, h, wt_, c)
+    # halo outputs take the nearest real column's offsets and mask (edge
+    # padding keeps version 5's tiles tight); they are cropped below
+    cols = torch.arange(t, device=x.device)[:, None] * wo_t - e + torch.arange(n, device=x.device)[None]
+    cols = cols.clamp(0, wo - 1).reshape(-1)
+
+    def per_tile(a):
+        ch = a.shape[-1]
+        return a[:, :, cols].reshape(b, ho, t, n, ch).permute(0, 2, 1, 3, 4).reshape(b * t, ho, n, ch).contiguous()
+
+    out = _band(xt, per_tile(offset), per_tile(mask), weight, bias, stride, radius, block_rows, version)
+    out = out.reshape(b, t, ho, n, -1)[:, :, :, e: e + wo_t].permute(0, 2, 1, 3, 4)
+    return out.reshape(b, ho, t * wo_t, -1)[:, :, :wo].contiguous()
+
+
+def modulated_deform_conv_pallas(
+    x, offset, mask, weight, bias=None, stride=1, radius=2, block_rows=8, version=2, x_tiles=0,
+):
+    """DCNv2 with offsets clipped to [-radius, radius], the function of the
+    TPU's K1 launcher (`deform_conv_pallas.py:631`). On the card: the band
+    kernel, version `version` (2, 3, 5, 6, anything else 1), `block_rows`
+    output rows per tile; `x_tiles` > 1 splits the output columns into that
+    many tiles run as extra batch entries of one launch (0 means 1). On the
+    CPU: the clipped plain version (version 3: its x.dtype blend), through the
+    same x_tiles wrapper."""
+    if x_tiles > 1:
+        return _x_tiled(x, offset, mask, weight, bias, stride, radius, block_rows, version, int(x_tiles))
+    return _band(x, offset, mask, weight, bias, stride, radius, block_rows, version)

@@ -99,8 +99,10 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         so = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
-        so.mqdet_dcn_forward.argtypes = [p] * 6 + [i] * 8 + [p]
+        so.mqdet_dcn_forward.argtypes = [p] * 6 + [i] * 9 + [p]
         so.mqdet_dcn_forward.restype = i
+        so.mqdet_dcn_band_forward.argtypes = [p] * 6 + [i] * 14 + [p]
+        so.mqdet_dcn_band_forward.restype = i
         so.mqdet_bi_attention_forward.argtypes = [p] * 7 + [i] * 5 + [p]
         so.mqdet_bi_attention_forward.restype = i
         so.mqdet_bi_attention_dual_forward.argtypes = [p] * 7 + [i] * 5 + [p]

@@ -1,1 +1,31 @@
-"""Command-line tools of the port (run with `python -m mqdet_torch.tools.<name>`)."""
+"""Command-line tools of the port (run with `python -m mqdet_torch.tools.<name>`),
+and the two measurement helpers they share with `chip_smoke.py`."""
+import statistics
+import subprocess
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Median of `iters` single calls of fn, each between two CUDA events,
+    after `warmup` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)

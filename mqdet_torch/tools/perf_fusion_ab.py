@@ -26,7 +26,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -55,14 +54,11 @@ def main(argv=None) -> int:
 
     from mqdet_torch.engine.predict import make_protocol_fn
     from mqdet_torch.ops import launch_counts
+    from mqdet_torch.tools import card
     from mqdet_torch.utils.builders import (
         build_model, init_params, mq_glip_t_config, protocol_inputs, synthetic_batch,
     )
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     cfg = mq_glip_t_config()
     cfg.MODEL.ATSS.DETECTIONS_PER_IMG = 300
@@ -95,7 +91,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "levels": args.levels, "scores": args.scores,
         "p50_ms": statistics.median(times) * 1000.0, "min_ms": min(times) * 1000.0,
-        "iters": len(times), "device": torch.cuda.get_device_name(0), "card": card,
+        "iters": len(times), "device": torch.cuda.get_device_name(0), "card": card(),
         "launches": launches,
     }))
     return 0

@@ -71,6 +71,96 @@ def test_dcn_kernel_refuses_what_it_does_not_take(dev):
         tdc.modulated_deform_conv(xb, off.bfloat16(), mask.bfloat16(), wt.bfloat16(), None, 3)
 
 
+def _dcn_clip_inputs(dev, shape, stride, radius, seed):
+    """Offsets x3 (the clip bites), every fifth exactly at +-radius (an
+    integer rel whose floor+1 corner has weight 0)."""
+    b, h, w, c, cout = shape
+    ho, wo = -(-h // stride), -(-w // stride)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=g, device=dev).bfloat16()
+    off = torch.randn(b, ho, wo, 18, generator=g, device=dev) * 3
+    off[..., ::5] = radius * torch.sign(off[..., ::5])
+    mask = torch.rand(b, ho, wo, 9, generator=g, device=dev).bfloat16()
+    wt = (torch.randn(3, 3, c, cout, generator=g, device=dev) * 0.1).bfloat16()
+    bias = torch.randn(cout, generator=g, device=dev).bfloat16()
+    return x, off.bfloat16(), mask, wt, bias
+
+
+def _clip_ref(args, stride, radius):
+    return tdc.modulated_deform_conv_clipped_plain(*(a.float() for a in args), stride=stride, radius=radius)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("shape,radius", [((2, 13, 21, 64, 136), 1), ((1, 5, 7, 8, 8), 2), ((4, 7, 11, 256, 256), 8)])
+def test_dcn_clip_kernel_matches_plain(dev, stride, shape, radius):
+    """K2: the gather kernel's clipped mode, through both entry points."""
+    args = _dcn_clip_inputs(dev, shape, stride, radius, seed=radius)
+    n0 = tdc.clip_launch_count
+    got = tdc.modulated_deform_conv_window(*args, stride=stride, radius=radius)
+    again = tdc.modulated_deform_conv_pallas_gather(*args, stride=stride, radius=radius)
+    torch.cuda.synchronize()
+    assert tdc.clip_launch_count == n0 + 2
+    assert torch.equal(got, again)
+    assert _close(got, _clip_ref(args, stride, radius))
+
+
+BAND_CASES = [  # (B, H, W, C, Cout), radius, block_rows: partial tiles at the right and bottom edges
+    ((2, 13, 21, 64, 136), 1, 8),
+    ((2, 13, 21, 64, 136), 8, 16),
+    ((1, 5, 7, 16, 8), 2, 8),       # smaller than one tile
+    ((4, 7, 11, 256, 256), 3, 16),  # the 800x1344 pyramid's last level
+    ((1, 40, 50, 32, 64), 5, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 2, 3, 5, 6])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("case", BAND_CASES)
+def test_dcn_band_kernel_matches_plain(dev, version, stride, case):
+    shape, radius, block_rows = case
+    args = _dcn_clip_inputs(dev, shape, stride, radius, seed=version)
+    counter = tdc._BAND_COUNTER[version]
+    n0 = getattr(tdc, counter)
+    got = tdc.modulated_deform_conv_pallas(*args, stride=stride, radius=radius, block_rows=block_rows,
+                                           version=version)
+    torch.cuda.synchronize()
+    assert getattr(tdc, counter) == n0 + 1
+    assert got.shape == (shape[0], -(-shape[1] // stride), -(-shape[2] // stride), shape[4])
+    assert _close(got, _clip_ref(args, stride, radius))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dcn_band_variants_are_bitwise_version_2(dev, stride):
+    """v5 (fast path), v6 (fp32 band) and x_tiles 2 and 3 give v2's bits.
+    The first 8 rows carry small offsets (fast tiles), the rest large ones."""
+    args = list(_dcn_clip_inputs(dev, (2, 24, 70, 64, 128), stride, 2, seed=11))
+    args[1][:, :8] = (args[1][:, :8].float() * 0.02 + 0.3).bfloat16()
+    ref = tdc.modulated_deform_conv_pallas(*args, stride=stride, radius=2, block_rows=8, version=2)
+    assert tdc.band_fast_share(args[1], stride, 2, 8) > 0.2
+    for version, tiles in ((5, 1), (6, 1), (2, 2), (2, 3), (5, 3)):
+        got = tdc.modulated_deform_conv_pallas(*args, stride=stride, radius=2, block_rows=8, version=version,
+                                               x_tiles=tiles)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (version, tiles)
+
+
+@pytest.mark.cuda
+def test_dcn_band_refuses_what_it_does_not_take(dev):
+    args = _dcn_clip_inputs(dev, (1, 9, 9, 32, 32), 2, 8, seed=0)
+    with pytest.raises(ValueError):  # past MAX_WINDOW_RADIUS
+        tdc.modulated_deform_conv_pallas(*args, stride=2, radius=9)
+    with pytest.raises(ValueError):  # a 64 x 1 tile's band at radius 8, stride 2 exceeds shared memory
+        tdc.modulated_deform_conv_pallas(*args, stride=2, radius=8, block_rows=64)
+    small = _dcn_clip_inputs(dev, (1, 9, 9, 8, 8), 1, 2, seed=0)
+    with pytest.raises(ValueError):  # C = 8 is not a multiple of the 16-channel chunk
+        tdc.modulated_deform_conv_pallas(*small, stride=1, radius=2)
+    with pytest.raises(TypeError):  # fp32
+        tdc.modulated_deform_conv_pallas(*(a.float() for a in args), stride=2, radius=2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,t,heads", [(1, 100, 64, 1), (2, 700, 128, 2), (1, 3000, 256, 8), (2, 2333, 256, 4)])
 def test_bi_attention_kernel_matches_plain(dev, b, n, t, heads):

@@ -301,17 +301,19 @@ def test_wrappers_take_the_plain_path_only_on_cpu():
 
 
 def test_launch_counts_read_and_reset_every_kernel_counter(monkeypatch):
-    import chip_smoke
-    from mqdet_torch.ops import deform_conv, launch_counts, ms_deform_attn
+    import importlib
 
-    for mod, attr in ((deform_conv, "launch_count"), (tba, "launch_count"), (tba, "dual_launch_count"),
-                      (tba, "levels_launch_count"), (ms_deform_attn, "launch_count")):
-        monkeypatch.setattr(mod, attr, 3)
+    import chip_smoke
+    from mqdet_torch.ops import COUNTERS, deform_conv, launch_counts, ms_deform_attn
+
+    for _, mod, attr in COUNTERS:
+        monkeypatch.setattr(importlib.import_module(f"mqdet_torch.ops.{mod}"), attr, 3)
     counts = launch_counts()
     assert list(counts) == [name for name, _, _ in chip_smoke.KERNELS]  # one name per kernel JSON entry
-    assert set(counts.values()) == {3}
+    assert set(counts.values()) == {3} and len(counts) == 11
     assert set(launch_counts(reset=True).values()) == {0}
-    assert (deform_conv.launch_count, tba.dual_launch_count, ms_deform_attn.launch_count) == (0, 0, 0)
+    assert (deform_conv.launch_count, deform_conv.band_launch_count, tba.dual_launch_count,
+            ms_deform_attn.launch_count) == (0, 0, 0, 0)
 
 
 def _tool(*argv):

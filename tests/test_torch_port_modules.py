@@ -9,10 +9,15 @@ scales are exercised too), and the port gets the same values through
 in fp32 on the CPU, so tolerances are fp32 rounding of a few chained layers:
 atol 1e-4 on O(1) activations unless stated.
 
-The JAX side's deformable conv runs the exact gather path
-(MQDET_DEFORM_IMPL=gather): random-weight offsets exceed the window
-composite's radius. TF32 is off on the torch side (it only matters on a
-card; the CPU never uses it).
+The deformable convs follow MQDET_DEFORM_IMPL on both sides. The tests
+pinned to `gather` cover the exact route. At the tiny config the offsets
+stay inside the clip radius (max |offset| 1.41 against 2), so the clipped
+routes (unset, the default: JAX's window composite off the TPU, the port's
+clipped plain version; and `window`) are covered by the `_clipped_route`
+tests, whose offsets go far past the radius (DyConv's input features x20;
+the head normalises its input, so there the offset convs are x20), at
+TPU.DEFORM_RADIUS 2 and 3. TF32 is off on the torch side (it only
+matters on a card; the CPU never uses it).
 """
 import os
 import subprocess
@@ -84,6 +89,61 @@ def to_nhwc(t):
 @pytest.fixture(scope="module")
 def pair():
     return tiny_pair()[:3]
+
+
+@pytest.fixture(scope="module")
+def pair_r3():
+    """The tiny pair built with TPU.DEFORM_RADIUS = 3 on both sides."""
+    def mods(cfg):
+        cfg.TPU.DEFORM_RADIUS = 3
+
+    return tiny_pair(mods)[:3]
+
+
+# the clipped routes: (MQDET_DEFORM_IMPL, TPU.DEFORM_RADIUS); None is unset, the default
+CLIPPED_ROUTES = [(None, 2), ("window", 2), (None, 3)]
+
+
+def set_deform_impl(monkeypatch, impl):
+    if impl is None:
+        monkeypatch.delenv("MQDET_DEFORM_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("MQDET_DEFORM_IMPL", impl)
+
+
+def scale_offset_convs(params, tmodel, k):
+    """(JAX params, deep copy of the port model) with every DyConv offset
+    conv's kernel and bias times k, so the offsets they predict scale by k."""
+    import copy
+
+    from mqdet_torch.models.vldyhead import DyConv
+
+    scaled = jax.tree_util.tree_map_with_path(
+        lambda p, v: v * k if any(getattr(e, "key", None) == "offset" for e in p) else v, params
+    )
+    tmodel = copy.deepcopy(tmodel)
+    with torch.no_grad():
+        for m in tmodel.modules():
+            if isinstance(m, DyConv):
+                m.offset.weight.mul_(k)
+                m.offset.bias.mul_(k)
+    return scaled, tmodel
+
+
+def max_offset_seen(tmodel, run):
+    """run() under forward hooks on every DyConv offset conv; returns
+    (run's result, the max |offset| they produced)."""
+    from mqdet_torch.models.vldyhead import DyConv
+
+    seen = []
+    hooks = [m.offset.register_forward_hook(lambda mod, a, out: seen.append(out[:, :18].abs().max().item()))
+             for m in tmodel.modules() if isinstance(m, DyConv)]
+    try:
+        out = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, max(seen)
 
 
 @pytest.fixture(scope="module")
@@ -221,7 +281,7 @@ def test_port_never_imports_jax():
         "import mqdet_torch\n"
         "for m in pkgutil.walk_packages(mqdet_torch.__path__, 'mqdet_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in ('jax', 'flax', 'jaxlib') if m in sys.modules]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'jaxlib', 'mqdet_tpu')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('mqdet_torch')]))\n"
     )
@@ -229,15 +289,17 @@ def test_port_never_imports_jax():
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
-    """chip_smoke.py, the main path it drives and the fusion A/B tool import
-    neither JAX nor any module of mqdet_tpu (only the weight bridge reads the JAX package's
-    framework-free rule table)."""
+    """chip_smoke.py, the main path it drives and the port's tools import
+    neither JAX nor any module of mqdet_tpu (the weight bridge reads the
+    port's own copy of the rule tables, `mqdet_torch/io/torch_import.py`)."""
     _fresh_import(
         "import sys\n"
         "import chip_smoke\n"
         "from mqdet_torch.engine import predict\n"
         "from mqdet_torch.ops import bi_attention, deform_conv, kernels, ms_deform_attn\n"
-        "from mqdet_torch.tools import perf_fusion_ab\n"
+        "from mqdet_torch.io import from_jax\n"
+        "from mqdet_torch.tools import perf_dcn_sweep, perf_fusion_ab\n"
+        "from mqdet_torch.utils import calibrate\n"
         "from mqdet_torch.utils import builders\n"
         "builders.init_params(builders.build_model(builders.tiny_test_config()))\n"
         "builders.init_params(builders.build_model(builders.tiny_gdino_config()))\n"
@@ -355,6 +417,60 @@ def test_vldyhead_matches(pair, monkeypatch):
     )
     with torch.no_grad():
         got = tmodel.rpn.head([nchw(f) for f in feats], torch.from_numpy(lang), torch.from_numpy(mask))
+    np.testing.assert_allclose(
+        got["fused_lang_hidden"].numpy(), np.asarray(want["fused_lang_hidden"]), atol=1e-4, rtol=1e-4
+    )
+    for key in ("logits", "bbox_reg", "centerness"):
+        for w, g in zip(want[key], got[key]):
+            np.testing.assert_allclose(to_nhwc(g), np.asarray(w), atol=1e-4, rtol=1e-4, err_msg=key)
+    for w, g in zip(want["dot_product_logits"], got["dot_product_logits"]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl,radius", CLIPPED_ROUTES)
+def test_dyconv_matches_on_the_clipped_route(request, impl, radius, monkeypatch):
+    """Input features x20: offsets reach far past the radius, so the clip
+    decides the result."""
+    from mqdet_tpu.models.vldyhead import DyConv as JDyConv
+
+    set_deform_impl(monkeypatch, impl)
+    _, params, tmodel = request.getfixturevalue("pair" if radius == 2 else "pair_r3")
+    feats = [f * 20.0 for f in _levels(np.random.default_rng(10))]
+    jmod = JDyConv(channels=16, deform_radius=radius, dtype=jnp.float32)
+    want = jax.jit(jmod.apply)(
+        {"params": params["params"]["rpn"]["dyconv_tower_0"]}, [jnp.asarray(f) for f in feats]
+    )
+    dyconv = tmodel.rpn.head.dyhead_tower[2]
+    assert all(m.radius == radius for m in dyconv.DyConv)
+    with torch.no_grad():
+        got, seen = max_offset_seen(dyconv, lambda: dyconv([nchw(f) for f in feats]))
+    assert seen > 3 * radius
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(to_nhwc(g), np.asarray(w), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("impl,radius", CLIPPED_ROUTES)
+def test_vldyhead_matches_on_the_clipped_route(request, impl, radius, monkeypatch):
+    """Every stage's offset conv x20: offsets reach far past the radius."""
+    set_deform_impl(monkeypatch, impl)
+    jmodel, params, tmodel = request.getfixturevalue("pair" if radius == 2 else "pair_r3")
+    params, tmodel = scale_offset_convs(params, tmodel, 20.0)
+    rng = np.random.default_rng(11)
+    feats = _levels(rng)
+    lang = rng.standard_normal((2, 16, 32)).astype(np.float32)
+    mask = np.ones((2, 16), np.int32)
+    mask[1, 9:] = 0
+
+    def jfn(m, f, l, ms):
+        return m.rpn(f, l, ms, embedding=l)
+
+    want = jax.jit(lambda p, *a: jmodel.apply(p, *a, method=jfn))(
+        params, [jnp.asarray(f) for f in feats], jnp.asarray(lang), jnp.asarray(mask)
+    )
+    with torch.no_grad():
+        got, seen = max_offset_seen(tmodel, lambda: tmodel.rpn.head(
+            [nchw(f) for f in feats], torch.from_numpy(lang), torch.from_numpy(mask)))
+    assert seen > 3 * radius
     np.testing.assert_allclose(
         got["fused_lang_hidden"].numpy(), np.asarray(want["fused_lang_hidden"]), atol=1e-4, rtol=1e-4
     )
