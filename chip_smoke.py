@@ -23,9 +23,16 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      equal to version 2, and version 5's fast-path share; the band at radius
      8, stride 2 (the largest band); then the sweep path itself
      (mqdet_torch.tools.perf_dcn_sweep, versions 1, 2, 3, 5, 6 at block rows
-     8 and 16), its launches counted. Bi-attention, single-score pair and dual-score
-     kernel, at GLIP's (4, 22400, 2048) with 8 heads and GroundingDINO's
-     (4, 22323, 1024) with 4 heads, T 256; the streamed (per-level,
+     8 and 16), its launches counted. Bi-attention, K3 and K3b (one wgmma
+     kernel and the combine behind both entry points), at GLIP's (4, 22400,
+     2048) with 8 heads and GroundingDINO's (4, 22323, 1024) with 4 heads, T
+     256, with the l side's split count S, the kernel's registers and spill
+     bytes from the ptxas report, its TFLOP/s on the 8 B N T E it computes,
+     its share of the bound, and `library_ms`: two scaled_dot_product_attention
+     calls (v side with the bias as attn_mask, l side), timed only, as the
+     yardstick; K3 also against `bi_attention_tiled_plain` (the plain model of
+     its decomposition) at the kernel's S; K3 and K3b must be bitwise equal;
+     the streamed (per-level,
      carried-state) bi-attention at GLIP's 800x1344 pyramid (16800, 4200,
      1050, 273 and 77 rows); MSDA at
      the 800x1344 GroundingDINO pyramid (100x168, 50x84, 25x42, 13x21; 8
@@ -163,12 +170,14 @@ def dcn_bound(b, h, w, c, ho, wo, cout) -> tuple:
     return bound(nbytes, 2.0 * m * 9 * c * cout, 8.0 * m * 9 * c)
 
 
-def bi_bound(b, n, t, e, dual=False) -> tuple:
+def bi_bound(b, n, t, e) -> tuple:
     """q, vv (B, N, E), k, vl (B, T, E) bf16 and the fp32 bias read once,
-    out_v and out_l written once; the score product(s) and the two output
-    products: 6 B N T E flops, 8 with the dual form's second score product."""
+    out_v and out_l written once; the function's least tensor work, one
+    score product that serves both sides and the two output products: 6 B N
+    T E flops, in either formulation (the port's kernels make 8, their l side
+    recomputing its scores)."""
     nbytes = 2 * (3 * b * n * e + 3 * b * t * e) + 4 * b * t
-    return bound(nbytes, (8.0 if dual else 6.0) * b * n * t * e)
+    return bound(nbytes, 6.0 * b * n * t * e)
 
 
 def msda_bound(b, s, q, nh, hd, levels, p) -> tuple:
@@ -185,7 +194,7 @@ def phase_kernels(torch, seed):
     counts of the sweep path)."""
     from mqdet_torch.ops import bi_attention as ba
     from mqdet_torch.ops import deform_conv as dc
-    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.ops import kernels, launch_counts
     from mqdet_torch.ops import ms_deform_attn as ms
     from mqdet_torch.tools import cuda_time_ms, perf_dcn_sweep
 
@@ -316,7 +325,7 @@ def phase_kernels(torch, seed):
         keep[1, 120:] = False
         return q, k, vv, vl, torch.where(keep, 0.0, -9e15).float()
 
-    def bi_check(name, case, outs, refs, ms_, plain_ms, bnd):
+    def bi_check(name, case, outs, refs, ms_, plain_ms, bnd, library_ms=None, extra=""):
         errs = [max_err(o, r) for o, r in zip(outs, refs)]
         ok = all(err <= ERR_BOUND * scale for err, scale in errs) and all(
             bool(torch.isfinite(o).all()) for o in outs
@@ -324,26 +333,70 @@ def phase_kernels(torch, seed):
         say(
             f"phase 2: {name} {case}: max_abs_err out_v {errs[0][0]!r} (bound "
             f"{ERR_BOUND * errs[0][1]!r}), out_l {errs[-1][0]!r} (bound {ERR_BOUND * errs[-1][1]!r}); "
-            f"kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]}); "
+            f"kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]}){extra}; "
             f"{'ok' if ok else 'FAIL'}"
         )
         if not ok:
             fail(f"{name} kernel disagrees with its plain version at {case}")
-        record(name, case, max(e for e, _ in errs), ms_, plain_ms, bnd)
+        record(name, case, max(e for e, _ in errs), ms_, plain_ms, bnd, library_ms)
         torch.cuda.empty_cache()
 
+    def sdpa_pair(q, k, vv, vl, bias, heads):
+        """The yardstick of K3 and K3b: two scaled_dot_product_attention
+        calls, the v side (q over k and vl, the bias as attn_mask) and the l
+        side (k over q and vv), scale 1. Timed only: the port never calls it."""
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qh, kh, vvh, vlh = (ba._heads(x, heads) for x in (q, k, vv, vl))
+        sdpa(qh, kh, vlh, attn_mask=bias[:, None, None, :].to(q.dtype), scale=1.0)
+        sdpa(kh, qh, vvh, scale=1.0)
+
+    wgmma_regs = kernels.ptxas_report("bi_attn_wgmma_kernel")
+    say(f"phase 2: bi_attn_wgmma_kernel ptxas report {wgmma_regs} (registers at launch; setmaxnreg gives "
+        f"the consumer warpgroups 240)")
+    if wgmma_regs["spill_stores"] or wgmma_regs["spill_loads"]:
+        fail("bi_attn_wgmma_kernel spills registers (ptxas serialises its wgmma then)")
+
     def bi_case(b, n, t, e, heads, dual):
-        """The single-score pair (dual False) or the dual-score kernel."""
+        """K3 (dual False) or K3b against its plain version; K3b's outputs
+        must be K3's bits (one kernel behind both entry points)."""
         name = "bi_attention_dual" if dual else "bi_attention"
         plain = ba.bi_attention_dual_plain if dual else ba.bi_attention_plain
         args = bi_inputs(b, n, t, e, heads)
         ov, ol = ba.flash_bi_attention(*args, num_heads=heads, dual_scores=dual)
+        if dual:
+            k3 = ba.flash_bi_attention(*args, num_heads=heads, dual_scores=False)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip((ov, ol), k3)):
+                fail(f"K3b's outputs differ from K3's at {(b, n, t, e, heads)}")
+            del k3
         torch.cuda.synchronize()
         refs = plain(*(a.float() for a in args[:4]), args[4], num_heads=heads)
+        splits = ba.l_splits(b, heads, t, n)
+        if not dual:  # the plain model of the kernel's decomposition, at the kernel's S
+            tiled = ba.bi_attention_tiled_plain(*(a.float() for a in args[:4]), args[4], heads, splits)
+            errs = [max_err(o, r) for o, r in zip((ov, ol), tiled)]
+            ok = all(err <= ERR_BOUND * scale for err, scale in errs)
+            say(f"phase 2: {name} q/vv {(b, n, e)} against bi_attention_tiled_plain (fp32, S "
+                f"{splits}): max_abs_err out_v {errs[0][0]!r}, out_l {errs[1][0]!r} "
+                f"(bounds {ERR_BOUND * errs[0][1]!r}, {ERR_BOUND * errs[1][1]!r}); {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} disagrees with the plain model of its decomposition at {(b, n, t, e, heads)}")
+            del tiled
         ms_ = cuda_time_ms(lambda: ba.flash_bi_attention(*args, num_heads=heads, dual_scores=dual))
         plain_ms = cuda_time_ms(lambda: plain(*args, num_heads=heads))
-        bi_check(name, f"q/vv {(b, n, e)} T {t} heads {heads}", (ov, ol), refs, ms_, plain_ms,
-                 bi_bound(b, n, t, e, dual))
+        try:
+            library_ms = cuda_time_ms(lambda: sdpa_pair(*args, heads))
+        except RuntimeError as exc:  # no SDPA kernel for these inputs: no yardstick
+            say(f"phase 2: {name} yardstick (two scaled_dot_product_attention calls) failed: {exc}")
+            library_ms = None
+        bnd = bi_bound(b, n, t, e)
+        extra = (f"; S {splits}, {8.0 * b * n * t * e / ms_ / 1e9!r} TFLOP/s on "
+                 f"8 B N T E, {bnd[0] / ms_!r} of the bound; library (two scaled_dot_product_attention "
+                 f"calls) {library_ms!r} ms; ptxas {wgmma_regs}")
+        bi_check(name, f"q/vv {(b, n, e)} T {t} heads {heads}", (ov, ol), refs, ms_, plain_ms, bnd,
+                 library_ms, extra)
+        results[name][-1].update(splits=splits, ptxas=wgmma_regs,
+                                 tflops=8.0 * b * n * t * e / ms_ / 1e9)
 
     def levels_case(b, shapes, t, e, heads):
         """The streamed form, one launch per level, at a pyramid's levels."""
@@ -569,8 +622,7 @@ def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
 
 FAMILIES = (
     ("dcn kernels", ("dcn_forward_kernel", "dcn_band_kernel")),
-    ("bi-attention kernels", ("bi_attn_v_kernel", "bi_attn_l_kernel", "bi_attn_dual_kernel",
-                              "bi_attn_carry_kernel")),
+    ("bi-attention kernels", ("bi_attn_wgmma_kernel", "bi_attn_combine_kernel", "bi_attn_carry_kernel")),
     ("msda kernel", ("msda_forward_kernel",)),
     ("convolutions", ("conv", "fprop", "implicit")),
     ("matmuls", ("gemm", "nvjet", "cutlass", "xmma")),

@@ -28,6 +28,13 @@ On a CUDA tensor each function launches its kernel of `csrc/bi_attention.cu`
 (bf16 in and out, fp32 scores and accumulation; head width 256, T a multiple
 of 64 up to 256, contiguous 16-byte aligned tensors) or raises; on a CPU
 tensor it runs its plain PyTorch version below.
+
+The flat form's kernel (both formulations launch the same one) is a
+flash-attention tile run for both sides: the v side over T in 64-token
+chunks, the l side over `l_splits` contiguous ranges of N (`split_ranges`)
+whose fp32 partials (m, den, acc) a second kernel combines. Two plain models
+of that decomposition, for the tests and `chip_smoke.py` only:
+`bi_attention_tiled_plain` and `combine_l_partials`.
 """
 from __future__ import annotations
 
@@ -46,6 +53,9 @@ dual_launch_count = 0
 levels_launch_count = 0
 HEAD_DIM = 256
 NEG = -1e30
+ROWS, CHUNK = 128, 64  # the flat kernel's query rows per block, key rows per chunk
+L_BLOCKS_MIN = 264     # two waves of the H100's 132 SMs
+MAX_SPLITS = 64        # the combine kernel's bound
 
 
 def _softmax_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -142,6 +152,72 @@ def bi_attention_levels_plain(
     return out_vs, _merge(out_l)
 
 
+def l_splits(b: int, h: int, t: int, n: int) -> int:
+    """S, the number of contiguous ranges of N that the flat kernel's l side
+    splits into: enough that its B * H * ceil(T/128) * S blocks fill two
+    waves of 132 SMs, at most one range per 64-row chunk and at most 64."""
+    chunks = -(-n // CHUNK)
+    per_split = b * h * -(-t // ROWS)
+    return max(1, min(MAX_SPLITS, chunks, -(-L_BLOCKS_MIN // per_split)))
+
+
+def split_ranges(n: int, splits: int) -> List[Tuple[int, int]]:
+    """The N rows [lo, hi) of each range: ceil(chunks / S) chunks of 64 rows
+    each, cut at N. A range can be empty (lo == hi)."""
+    chunks = -(-n // CHUNK)
+    per = -(-chunks // splits) * CHUNK
+    return [(min(s * per, n), min((s + 1) * per, n)) for s in range(splits)]
+
+
+def _flash_rows(qh, kh, vh, bias):
+    """Unnormalised online softmax of queries qh (B, H, M, D) over keys kh
+    and values vh (B, H, K, D) in chunks of 64 keys, with an additive key
+    bias (B, K) or None: fp32 (m, den, acc) of shapes (B, H, M), (B, H, M),
+    (B, H, M, D), from (NEG, 0, 0). Scores in fp32, p cast to vh's dtype
+    before the value product, as the kernel does."""
+    b, h, m_rows, d = qh.shape
+    m = torch.full((b, h, m_rows), NEG, dtype=torch.float32, device=qh.device)
+    den = torch.zeros(b, h, m_rows, dtype=torch.float32, device=qh.device)
+    acc = torch.zeros(b, h, m_rows, d, dtype=torch.float32, device=qh.device)
+    for k0 in range(0, kh.shape[2], CHUNK):
+        s = torch.matmul(qh.float(), kh[:, :, k0:k0 + CHUNK].float().transpose(-1, -2))
+        if bias is not None:
+            s = s + bias[:, None, None, k0:k0 + CHUNK].float()
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        den = den * alpha + p.sum(dim=-1)
+        pv = torch.matmul(p.to(vh.dtype).float(), vh[:, :, k0:k0 + CHUNK].float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    return m, den, acc
+
+
+def combine_l_partials(m: torch.Tensor, den: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Plain version of the combine kernel: the S partials m, den (S, B, H,
+    T) and acc (S, B, H, T, D), fp32 and unnormalised, give out_l (B, T, E)
+    in fp32 = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) den_s, M = max_s
+    m_s. A partial (NEG, 0, 0) weighs 0."""
+    w = torch.exp(m - m.amax(dim=0))
+    out = (w[..., None] * acc).sum(dim=0) / (w * den).sum(dim=0)[..., None]
+    return _merge(out)
+
+
+def bi_attention_tiled_plain(q, k, vv, vl, bias_l, num_heads, splits):
+    """Plain model of the flat kernel's decomposition: the v side as an
+    online softmax over 64-token chunks of T; the l side as `splits`
+    contiguous ranges of N (`split_ranges`), each an online softmax over its
+    64-row chunks giving a partial, then `combine_l_partials`."""
+    h = num_heads
+    qh, kh, vvh, vlh = (_heads(x, h) for x in (q, k, vv, vl))
+    _, den, acc = _flash_rows(qh, kh, vlh, bias_l)
+    out_v = _merge(acc / den[..., None]).to(q.dtype)
+    parts = [_flash_rows(kh, qh[:, :, lo:hi], vvh[:, :, lo:hi], None)
+             for lo, hi in split_ranges(q.shape[1], splits)]
+    m, den, acc = (torch.stack(x) for x in zip(*parts))
+    return out_v, combine_l_partials(m, den, acc).to(k.dtype)
+
+
 def _check(q, k, vv, vl, bias_l, num_heads):
     """Raises on what the kernels do not take; returns bias_l as (B, T) f32."""
     b, n, e = q.shape
@@ -169,18 +245,28 @@ def _check(q, k, vv, vl, bias_l, num_heads):
     return bias_l
 
 
-def _launch(q, k, vv, vl, bias_l, num_heads, dual):
+def _launch(q, k, vv, vl, bias_l, num_heads, dual, splits=None):
+    """The flat kernel and the combine; `splits` overrides `l_splits` (the
+    card tests hold S = 1 against the automatic S)."""
     global launch_count, dual_launch_count
     bias_l = _check(q, k, vv, vl, bias_l, num_heads)
     b, n, e = q.shape
+    t, h = k.shape[1], num_heads
+    s = l_splits(b, h, t, n) if splits is None else int(splits)
+    if not 1 <= s <= MAX_SPLITS:
+        raise ValueError(f"splits must be in [1, {MAX_SPLITS}], got {s}")
     out_v = torch.empty_like(q)
     out_l = torch.empty_like(k)
+    part_acc = torch.empty(s, b, h, t, HEAD_DIM, dtype=torch.float32, device=q.device)
+    part_den = torch.empty(s, b, h, t, dtype=torch.float32, device=q.device)
+    part_m = torch.empty_like(part_den)
     p = ctypes.c_void_p
     name = "mqdet_bi_attention_dual_forward" if dual else "mqdet_bi_attention_forward"
     code = getattr(kernels.lib(), name)(
         p(q.data_ptr()), p(k.data_ptr()), p(vv.data_ptr()), p(vl.data_ptr()),
         p(bias_l.data_ptr()), p(out_v.data_ptr()), p(out_l.data_ptr()),
-        b, n, k.shape[1], e, num_heads, p(kernels.stream_ptr(q.device)),
+        p(part_acc.data_ptr()), p(part_den.data_ptr()), p(part_m.data_ptr()),
+        b, n, t, e, h, s, p(kernels.stream_ptr(q.device)),
     )
     kernels.check(code, name)
     if dual:

@@ -103,9 +103,9 @@ def lib() -> ctypes.CDLL:
         so.mqdet_dcn_forward.restype = i
         so.mqdet_dcn_band_forward.argtypes = [p] * 6 + [i] * 14 + [p]
         so.mqdet_dcn_band_forward.restype = i
-        so.mqdet_bi_attention_forward.argtypes = [p] * 7 + [i] * 5 + [p]
+        so.mqdet_bi_attention_forward.argtypes = [p] * 10 + [i] * 6 + [p]
         so.mqdet_bi_attention_forward.restype = i
-        so.mqdet_bi_attention_dual_forward.argtypes = [p] * 7 + [i] * 5 + [p]
+        so.mqdet_bi_attention_dual_forward.argtypes = [p] * 10 + [i] * 6 + [p]
         so.mqdet_bi_attention_dual_forward.restype = i
         so.mqdet_bi_attention_carry_forward.argtypes = [p] * 9 + [i] * 5 + [p]
         so.mqdet_bi_attention_carry_forward.restype = i
@@ -113,6 +113,36 @@ def lib() -> ctypes.CDLL:
         so.mqdet_ms_deform_attn_forward.restype = i
         _lib = so
     return _lib
+
+
+def ptxas_report(kernel: str) -> dict:
+    """The build log's ptxas report of the first entry function whose
+    mangled name contains `kernel`: {"registers", "spill_stores",
+    "spill_loads", "stack"} (bytes; registers as ptxas allocated them at
+    launch). Raises if the log has no such function."""
+    import re
+
+    with open(library_path() + ".log") as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if not entry or kernel not in entry.group(1):
+            continue
+        out = {}
+        for follow in lines[i + 1:]:
+            if "Compiling entry function" in follow:
+                break
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                              follow)
+            if frame:
+                out.update(stack=int(frame.group(1)), spill_stores=int(frame.group(2)),
+                           spill_loads=int(frame.group(3)))
+            used = re.search(r"Used (\d+) registers", follow)
+            if used:
+                out["registers"] = int(used.group(1))
+        if len(out) == 4:
+            return out
+    raise RuntimeError(f"no ptxas report of an entry function named like {kernel!r}")
 
 
 def check(code: int, name: str) -> None:

@@ -216,6 +216,67 @@ def test_bi_attention_dual_kernel_matches_plain(dev, b, n, t, heads):
     assert _close(gv, rv) and _close(gl, rl)
 
 
+def _bi_ref(args, heads):
+    return tba.bi_attention_dual_plain(*(x.float() for x in args[:4]), args[4], heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("t", [64, 192])
+@pytest.mark.parametrize("n", [1, 63, 65, 127, 129])
+def test_bi_attention_kernel_ragged_n_and_t(dev, dual, t, n):
+    """Tails of the 64-row chunks and 128-row tiles: N < 64, N % 64 != 0,
+    N < 128; a T tile of 64 rows (the second consumer's rows all past T)."""
+    args = _bi_inputs(dev, 2, n, t, 2, 7 * n + t)
+    gv, gl = tba.flash_bi_attention(*args, 2, dual_scores=dual)
+    torch.cuda.synchronize()
+    rv, rl = _bi_ref(args, 2)
+    assert _close(gv, rv) and _close(gl, rl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("case", ["first chunk masked", "item masked", "q x30"])
+def test_bi_attention_kernel_masks_and_large_scores(dev, dual, case):
+    """Bias -9e15 on every token of the first 64-token chunk (the online
+    softmax's first step sees only masked text), on every token of one batch
+    item (the uniform average), and q scaled x30 (scores of std ~30)."""
+    q, k, vv, vl, bias = _bi_inputs(dev, 2, 700, 256, 2, 11)
+    if case == "first chunk masked":
+        bias[:, :64] = -9e15
+    elif case == "item masked":
+        bias[1] = -9e15
+    else:
+        q = (q.float() * 30).bfloat16()
+    args = (q, k, vv, vl, bias)
+    gv, gl = tba.flash_bi_attention(*args, 2, dual_scores=dual)
+    torch.cuda.synchronize()
+    rv, rl = _bi_ref(args, 2)
+    assert bool(torch.isfinite(gv).all()) and bool(torch.isfinite(gl).all())
+    assert _close(gv, rv) and _close(gl, rl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,t,heads", [(2, 2333, 256, 4), (1, 3000, 192, 8), (2, 129, 64, 1)])
+def test_bi_attention_split_invariance_and_k3_k3b_bitwise(dev, b, n, t, heads):
+    """The l side's split count changes only rounding: S = 1 and S = 7 (at
+    N 129, 3 chunks, four ranges without rows) against the automatic S,
+    within 2e-2 * max|ref|; K3 and K3b launch one kernel, so their outputs
+    are bitwise equal."""
+    args = _bi_inputs(dev, b, n, t, heads, n)
+    auto = tba._launch(*args, heads, False)
+    dual = tba._launch(*args, heads, True)
+    torch.cuda.synchronize()
+    refs = _bi_ref(args, heads)
+    for splits in (1, 7):
+        forced = tba._launch(*args, heads, False, splits=splits)
+        torch.cuda.synchronize()
+        for x, y, r in zip(forced, auto, refs):
+            assert (x.float() - y.float()).abs().max().item() <= BOUND * r.abs().max().item()
+    assert all(torch.equal(x, y) for x, y in zip(auto, dual))
+    assert _close(auto[0], refs[0]) and _close(auto[1], refs[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sizes,t,heads", [
     (2, [420, 180, 70, 30], 128, 2),               # the JAX package's test levels
@@ -249,6 +310,8 @@ def test_dual_and_levels_kernels_refuse_what_they_do_not_take(dev):
                                1, dual_scores=True)
     with pytest.raises(ValueError):  # head width 128
         tba.flash_bi_attention(q, k, vv, vl, bias, 2, dual_scores=True)
+    with pytest.raises(ValueError):  # more l splits than the combine takes
+        tba._launch(q, k, vv, vl, bias, 1, False, splits=tba.MAX_SPLITS + 1)
     with pytest.raises(ValueError):  # T = 48
         tba.flash_bi_attention_levels([q], k[:, :48].contiguous(), [vv], vl[:, :48].contiguous(),
                                       bias[:, :48].contiguous(), 1)
