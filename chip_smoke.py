@@ -17,13 +17,17 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      the bound (the least time the card could take: bytes moved over
      3.35 TB/s or operations over their peak rate, whichever is larger).
      DCN at the GLIP levels (offsets x3, so the +-2 clip bites): the exact
-     kernel, its clipped mode (K2) and the band kernel (K1, version 2); at
-     the level-0 shape under perf_dcn_sweep's two offset regimes, versions 1,
-     3 and 5 against the plain version, 5 and 6 and x_tiles 2 and 3 bitwise
-     equal to version 2, and version 5's fast-path share; the band at radius
-     8, stride 2 (the largest band); then the sweep path itself
+     kernel, its clipped mode (K2) and the band kernel (K1, version 2, on
+     wgmma and TMA), the band beside `conv_ms`, one cuDNN 3x3 convolution at
+     the shape (the yardstick of its product alone, not of DCN's function);
+     at the level-0 shape under perf_dcn_sweep's two offset regimes, versions
+     1, 3 and 5 against the plain version, 5 and 6 and x_tiles 2 and 3
+     bitwise equal to version 2, and version 5's fast-path share; the band at
+     radius 8, stride 2 (the largest band); then the sweep path itself
      (mqdet_torch.tools.perf_dcn_sweep, versions 1, 2, 3, 5, 6 at block rows
-     8 and 16), its launches counted. Bi-attention, K3 and K3b (one wgmma
+     8 and 16), its launches counted; the band kernel's ptxas reports (no
+     spill, and no C75xx note in the build: a serialised wgmma fails the
+     run). Bi-attention, K3 and K3b (one wgmma
      kernel and the combine behind both entry points), at GLIP's (4, 22400,
      2048) with 8 heads and GroundingDINO's (4, 22323, 1024) with 4 heads, T
      256, with the l side's split count S, the kernel's registers and spill
@@ -34,11 +38,15 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      its decomposition) at the kernel's S; K3 and K3b must be bitwise equal;
      the streamed (per-level,
      carried-state) bi-attention at GLIP's 800x1344 pyramid (16800, 4200,
-     1050, 273 and 77 rows); MSDA at
-     the 800x1344 GroundingDINO pyramid (100x168, 50x84, 25x42, 13x21; 8
-     heads of 32, 4 levels x 4 points, B 4) for encoder queries (Q = S),
-     decoder queries (Q = 900) and locations far outside the TPU kernel's
-     +-4 cell window and off the image;
+     1050, 273 and 77 rows), with the same two calls over the concatenated
+     levels as its `library_ms`; MSDA at the 800x1344 GroundingDINO pyramid
+     (100x168, 50x84, 25x42, 13x21; 8 heads of 32, 4 levels x 4 points, B 4):
+     encoder queries (Q = S) on the default route, the clipped mode
+     (`ms_deform_attn_clip`, K5's window-clipped function) against
+     `ms_deform_attn_clipped_plain`, near their cells and 12 cells out (the
+     share of sample points the clip moves printed), and under
+     MQDET_MSDA_IMPL=gather on the exact mode; decoder queries (Q = 900) and
+     locations far off the image on the exact mode;
   3. per model, a small-input reference check: the full-width model on a
      256x256 image, one chunk, on the card (bf16, kernels) against the same
      weights in fp32 on the CPU (plain versions), by relative L2 error within
@@ -51,7 +59,10 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      of the random-init model is printed (whether the clip binds).
      MQ-GroundingDINO-T: the encoder's memory and text and the two-stage
      logits (`enc_logits`), taken before the top-900 selection, whose
-     overlap with the fp32 selection is printed;
+     overlap with the fp32 selection is printed; the CPU side under
+     MQDET_MSDA_IMPL=pallas_interpret (the clipped function the card's
+     default route computes), the share of encoder sample points the clip
+     moves printed, the card's 6 clipped and 6 exact MSDA launches counted;
   4. per model, the LVIS protocol as bench.py runs it: full width from
      init_params(seed), one 800x1344 image, 8 groups x CP 4 chunks of 40
      labels x 5 queries, T = 256, through make_protocol_fn. The launch
@@ -59,14 +70,16 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      prediction: MQ-GLIP-T 624 band DCN (dcn_band) and 48 bi-attention
      launches (13 DCN calls and one bi-attention per head stage, 6 stages, 8
      groups);
-     MQ-GroundingDINO-T 96 MSDA (6 encoder + 6 decoder layers, 8 groups) and
-     48 bi-attention (one per encoder layer). Every output must be finite
-     and of the right shape. Then p50 over --runs timed runs and the peak
-     device memory of the protocol. The same runs first under the fusion
-     switches, with phase 5 for each: MQ-GLIP-T under stream (240 level
-     launches, 5 per stage, and no pair launch) and under dual (48 dual
-     launches), MQ-GroundingDINO-T under dual (48; its fusion takes one
-     flattened tensor, so stream does not apply);
+     MQ-GroundingDINO-T 48 clipped MSDA (ms_deform_attn_clip, 6 encoder
+     layers x 8 groups), 48 exact MSDA (6 decoder layers) and 48
+     bi-attention (one per encoder layer). Every output must be finite and
+     of the right shape. Then p50 over --runs timed runs and the peak device
+     memory of the protocol. The same runs first under the switches, with
+     phase 5 for each: MQ-GLIP-T under stream (240 level launches, 5 per
+     stage, and no pair launch), under dual (48 dual launches) and under
+     MQDET_DEFORM_IMPL=window (624 K2 launches), MQ-GroundingDINO-T under
+     dual (48; its fusion takes one flattened tensor, so stream does not
+     apply);
   5. per protocol run, one run under torch.profiler: device busy time,
      idle share, kernel time by family and the time and launches of each
      hand-written kernel;
@@ -109,7 +122,8 @@ KERNELS = (  # name, source, the TPU kernel (or XLA composite) it replaces; the 
     ("bi_attention", "mqdet_torch/csrc/bi_attention.cu", "mqdet_tpu/ops/pallas/bi_attention_pallas.py:384"),
     ("bi_attention_dual", "mqdet_torch/csrc/bi_attention.cu", "mqdet_tpu/ops/pallas/bi_attention_pallas.py:107"),
     ("bi_attention_levels", "mqdet_torch/csrc/bi_attention.cu", "mqdet_tpu/ops/pallas/bi_attention_pallas.py:252"),
-    ("ms_deform_attn", "mqdet_torch/csrc/ms_deform_attn.cu", "mqdet_tpu/ops/pallas/msda_pallas.py:455"),
+    ("ms_deform_attn", "mqdet_torch/csrc/ms_deform_attn.cu", "mqdet_tpu/ops/ms_deform_attn.py:47"),
+    ("ms_deform_attn_clip", "mqdet_torch/csrc/ms_deform_attn.cu", "mqdet_tpu/ops/pallas/msda_pallas.py:455"),
 )
 GDINO_800 = [(100, 168), (50, 84), (25, 42), (13, 21)]  # the 800x1344 pyramid
 GLIP_800 = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
@@ -120,14 +134,16 @@ SWEEP_VERSIONS, SWEEP_BLOCK_ROWS = (2, 1, 3, 5, 6), (8, 16)  # version 2 first: 
 
 
 @contextlib.contextmanager
-def switched(name: str, deform=None):
-    """Sets the fusion switches of SWITCHES[name] and MQDET_DEFORM_IMPL
-    (None: unset) for the block."""
-    keys = ("MQDET_FLASH_LEVELS", "MQDET_FLASH_SCORES", "MQDET_DEFORM_IMPL")
+def switched(name: str, deform=None, msda=None):
+    """Sets the fusion switches of SWITCHES[name], MQDET_DEFORM_IMPL and
+    MQDET_MSDA_IMPL (None: unset) for the block."""
+    keys = ("MQDET_FLASH_LEVELS", "MQDET_FLASH_SCORES", "MQDET_DEFORM_IMPL", "MQDET_MSDA_IMPL")
     old = {k: os.environ.pop(k, None) for k in keys}
     os.environ.update(SWITCHES[name])
     if deform is not None:
         os.environ["MQDET_DEFORM_IMPL"] = deform
+    if msda is not None:
+        os.environ["MQDET_MSDA_IMPL"] = msda
     try:
         yield
     finally:
@@ -189,6 +205,35 @@ def msda_bound(b, s, q, nh, hd, levels, p) -> tuple:
     return bound(nbytes, 0.0, 10.0 * pts * hd)
 
 
+def conv_yardstick_ms(torch, x, cout, stride) -> float:
+    """One F.conv2d (cuDNN, bf16, channels_last) of x (B, H, W, C) with a 3x3
+    kernel, pad 1, at the stride: the yardstick of the band kernel's product
+    alone (not of DCN's function: no sampling, no clip). Timed only: the
+    port never calls it."""
+    from mqdet_torch.tools import cuda_time_ms
+
+    xc = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
+    wc = torch.zeros(cout, x.shape[-1], 3, 3, dtype=x.dtype, device=x.device).to(memory_format=torch.channels_last)
+    return cuda_time_ms(lambda: torch.nn.functional.conv2d(xc, wc, stride=stride, padding=1))
+
+
+def clip_share(torch, spatial_shapes, loc) -> float:
+    """Share of the sample points of encoder queries whose pixel the MSDA
+    clip moves (the clipped function's windows, `window_bounds`)."""
+    from mqdet_torch.ops import ms_deform_attn as ms
+
+    bnd = ms.window_bounds(spatial_shapes, loc.device)
+    moved = total = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        x = loc[:, :, :, lvl, :, 0].float() * w - 0.5  # (B, Q, nh, P)
+        y = loc[:, :, :, lvl, :, 1].float() * h - 0.5
+        lo_y, hi_y, lo_x, hi_x = (t[None, :, None, None] for t in bnd[lvl])
+        out = (y < lo_y) | (y > hi_y) | (x < lo_x) | (x > hi_x)
+        moved += int(out.sum())
+        total += out.numel()
+    return moved / total
+
+
 def phase_kernels(torch, seed):
     """Returns ({kernel: [case dict, ...]}, main case first, and the launch
     counts of the sweep path)."""
@@ -245,10 +290,15 @@ def phase_kernels(torch, seed):
             ms_ = cuda_time_ms(lambda: fn(args))
             plain_ms = cuda_time_ms(lambda: plain(args))
             bnd = dcn_bound(b, h, w, c, ho, wo, c)
+            conv = conv_yardstick_ms(torch, args[0], c, stride) if name == "dcn_band" else None
             err = check(f"{name} x{(b, h, w, c)} stride {stride} -> {(ho, wo)}", got, ref,
-                        f"; kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]})")
+                        f"; kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]})"
+                        + (f"; conv_ms {conv!r} (one cuDNN 3x3 conv at the shape: the product's yardstick, "
+                           f"not DCN's function)" if conv is not None else ""))
             del ref, got
             record(name, f"x{(b, h, w, c)} s{stride}", err, ms_, plain_ms, bnd)
+            if conv is not None:
+                results[name][-1]["conv_ms"] = conv
         torch.cuda.empty_cache()
 
     dcn_case(4, 100, 168, 256, 1)
@@ -286,7 +336,11 @@ def phase_kernels(torch, seed):
     for version in (2, 6):
         got = dc.modulated_deform_conv_pallas(*args, stride=2, radius=8, block_rows=16, version=version)
         torch.cuda.synchronize()
-        check(f"dcn_band version {version}, radius 8, stride 2, x (4, 100, 168, 256) -> (50, 84)", got, ref)
+        r8_ms = cuda_time_ms(lambda: dc.modulated_deform_conv_pallas(*args, stride=2, radius=8, block_rows=16,
+                                                                      version=version))
+        check(f"dcn_band version {version}, radius 8, stride 2, x (4, 100, 168, 256) -> (50, 84)", got, ref,
+              f"; kernel {r8_ms!r} ms (geometry {dc.band_geometry(256, 2, 8, 16, version)}: rows, cols, "
+              f"chunk, stages, bytes)")
     del ref, got, args
     torch.cuda.empty_cache()
 
@@ -305,11 +359,13 @@ def phase_kernels(torch, seed):
     plain_ms = {3: cuda_time_ms(lambda: dc.modulated_deform_conv_v3_plain(x0, offs["rand"], m0, wt0, bs0))}
     plain_ms[1] = cuda_time_ms(lambda: dc.modulated_deform_conv_clipped_plain(x0, offs["rand"], m0, wt0, bs0))
     bnd = dcn_bound(4, 100, 168, 256, 100, 168, 256)
+    conv0 = conv_yardstick_ms(torch, x0, 256, 1)
     for rec in recs:
         v = rec["version"]
         if v != 2:
             record(names[v], f"perf_dcn_sweep {rec['regime']} block rows {rec['block_rows']}",
                    regime_err[v, rec["regime"]], rec["ms"], plain_ms[3 if v == 3 else 1], bnd)
+            results[names[v]][-1]["conv_ms"] = conv0
     for rows in results.values():  # the sweep's rand regime at the model's block rows first
         rows.sort(key=lambda r: not r["case"].startswith("perf_dcn_sweep rand block rows 16"))
     del x0, offs, m0, wt0, bs0
@@ -350,6 +406,12 @@ def phase_kernels(torch, seed):
         sdpa(qh, kh, vlh, attn_mask=bias[:, None, None, :].to(q.dtype), scale=1.0)
         sdpa(kh, qh, vvh, scale=1.0)
 
+    band_regs = kernels.ptxas_reports("dcn_band_kernel")
+    notes = kernels.ptxas_notes()
+    say(f"phase 2: dcn_band_kernel ptxas reports (one per version, as built) {band_regs}; ptxas C75xx notes "
+        f"(wgmma serialised) in the build: {notes}")
+    if any(r["spill_stores"] or r["spill_loads"] for r in band_regs) or notes:
+        fail("dcn_band_kernel spills registers, or ptxas serialises a wgmma")
     wgmma_regs = kernels.ptxas_report("bi_attn_wgmma_kernel")
     say(f"phase 2: bi_attn_wgmma_kernel ptxas report {wgmma_regs} (registers at launch; setmaxnreg gives "
         f"the consumer warpgroups 240)")
@@ -402,6 +464,7 @@ def phase_kernels(torch, seed):
         """The streamed form, one launch per level, at a pyramid's levels."""
         sizes = [h * w for h, w in shapes]
         q, k, vv, vl, bias = bi_inputs(b, sum(sizes), t, e, heads)
+        library_ms = cuda_time_ms(lambda: sdpa_pair(q, k, vv, vl, bias, heads))  # over the concatenated levels
         qs = [x.contiguous() for x in q.split(sizes, 1)]
         vvs = [x.contiguous() for x in vv.split(sizes, 1)]
         del q, vv
@@ -417,18 +480,22 @@ def phase_kernels(torch, seed):
         ms_ = cuda_time_ms(lambda: ba.flash_bi_attention_levels(qs, k, vvs, vl, bias, heads))
         plain_ms = cuda_time_ms(lambda: ba.bi_attention_levels_plain(qs, k, vvs, vl, bias, heads))
         bi_check("bi_attention_levels", f"levels {sizes} x (B {b}, E {e}) T {t} heads {heads}",
-                 outs, refs, ms_, plain_ms, bi_bound(b, sum(sizes), t, e))
+                 outs, refs, ms_, plain_ms, bi_bound(b, sum(sizes), t, e), library_ms,
+                 f"; library (two scaled_dot_product_attention calls over the concatenated levels) "
+                 f"{library_ms!r} ms")
 
     for dual in (False, True):
         bi_case(4, 22400, 256, 2048, 8, dual)   # MQ-GLIP-T's VLFuse at 800x1344
         bi_case(4, 22323, 256, 1024, 4, dual)   # MQ-GroundingDINO-T's encoder fusion at 800x1344
     levels_case(4, GLIP_800, 256, 2048, 8)      # MQ-GLIP-T's VLFuse under MQDET_FLASH_LEVELS=stream
 
-    def msda_case(name, b, q, lo, hi, nh=8, hd=32, p=4):
+    def msda_case(name, b, q, lo, hi, nh=8, hd=32, p=4, impl=None, scale=2.0):
         """q None: encoder queries (Q = S), each sampling every level around
-        its own cell centre with N(0, 2 cells) offsets, so samples leave the
-        image near the borders; else Q decoder queries at uniform locations
-        in [lo, hi) of every level."""
+        its own cell centre with N(0, `scale` cells) offsets, so samples leave
+        the image near the borders; else Q decoder queries at uniform
+        locations in [lo, hi) of every level. Under MQDET_MSDA_IMPL `impl`
+        (None: unset): encoder queries take the clipped mode unless `gather`,
+        against `ms_deform_attn_clipped_plain`; the rest the exact mode."""
         shapes = GDINO_800
         s = sum(h * w for h, w in shapes)
         value = torch.randn(b, s, nh, hd, generator=g, device=dev).bfloat16()
@@ -440,40 +507,50 @@ def phase_kernels(torch, seed):
                 .reshape(-1, 2) for h, w in shapes
             ])
             wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=dev)
-            off = torch.randn(b, q, nh, len(shapes), p, 2, generator=g, device=dev) * 2.0
+            off = torch.randn(b, q, nh, len(shapes), p, 2, generator=g, device=dev) * scale
             loc = ref[None, :, None, None, None, :] + off / wh[None, None, None, :, None, :]
-            where = "own cell + N(0, 2 cells)"
+            where = f"own cell + N(0, {scale} cells)"
         else:
             loc = torch.rand(b, q, nh, len(shapes), p, 2, generator=g, device=dev) * (hi - lo) + lo
             where = f"uniform in [{lo}, {hi})"
         attn = torch.rand(b, q, nh, len(shapes), p, generator=g, device=dev)
         attn = attn / attn.sum(dim=(3, 4), keepdim=True)
-        got = ms.ms_deform_attn(value, shapes, loc, attn)
-        torch.cuda.synchronize()
-        ref_out = ms.ms_deform_attn_plain(value.float(), shapes, loc, attn)
-        err, scale = max_err(got, ref_out)
-        del ref_out
-        ms_ = cuda_time_ms(lambda: ms.ms_deform_attn(value, shapes, loc, attn))
-        plain_ms = cuda_time_ms(lambda: ms.ms_deform_attn_plain(value, shapes, loc, attn))
+        with switched("default", msda=impl):
+            clip = ms.clips(value, shapes, loc)
+            plain = ms.ms_deform_attn_clipped_plain if clip else ms.ms_deform_attn_plain
+            counts = launch_counts()
+            got = ms.ms_deform_attn(value, shapes, loc, attn)
+            torch.cuda.synchronize()
+            kernel = "ms_deform_attn_clip" if clip else "ms_deform_attn"
+            if launch_counts()[kernel] != counts[kernel] + 1:
+                fail(f"msda {name}: the call did not launch {kernel}")
+            ref_out = plain(value.float(), shapes, loc, attn)
+            err, scale = max_err(got, ref_out)
+            del ref_out
+            ms_ = cuda_time_ms(lambda: ms.ms_deform_attn(value, shapes, loc, attn))
+            plain_ms = cuda_time_ms(lambda: plain(value, shapes, loc, attn))
         bnd = msda_bound(b, s, q, nh, hd, len(shapes), p)
         ok = bool(torch.isfinite(got).all()) and err <= ERR_BOUND * scale
+        moved = f", the clip moves {clip_share(torch, shapes, loc)!r} of the sample points" if q == s else ""
         say(
-            f"phase 2: msda {name}: value {(b, s, nh, hd)} Q {q} levels {shapes} P {p}, locations "
-            f"{where}: max_abs_err {err!r} (bound {ERR_BOUND * scale!r} = {ERR_BOUND} * max|ref| "
-            f"{scale!r}); kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]}); "
-            f"{'ok' if ok else 'FAIL'}"
+            f"phase 2: msda {name} ({kernel}, MQDET_MSDA_IMPL {impl or 'unset'}): value {(b, s, nh, hd)} Q {q} "
+            f"levels {shapes} P {p}, locations {where}{moved}: max_abs_err {err!r} (bound "
+            f"{ERR_BOUND * scale!r} = {ERR_BOUND} * max|ref| {scale!r}); kernel {ms_!r} ms, plain bf16 "
+            f"{plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]}); {'ok' if ok else 'FAIL'}"
         )
         if not ok:
             fail(f"msda kernel disagrees with its plain version ({name})")
-        record("ms_deform_attn", f"{name} Q {q}", err, ms_, plain_ms, bnd)
+        record(kernel, f"{name} Q {q}", err, ms_, plain_ms, bnd)
         del value, loc, attn, got
         torch.cuda.empty_cache()
 
-    msda_case("encoder", 4, None, None, None)
-    msda_case("decoder", 4, 900, 0.0, 1.0)
+    msda_case("encoder", 4, None, None, None)                  # the clipped mode, the encoder's default
+    msda_case("encoder far", 4, None, None, None, scale=12.0)  # the clip moves most points
+    msda_case("decoder", 4, 900, 0.0, 1.0)                     # the exact mode, the decoder's
     # far: up to a whole map beyond each border, hundreds of cells from any
     # query, far past the TPU kernel's +-4 cell window
     msda_case("decoder far", 4, 900, -1.0, 2.0)
+    msda_case("encoder", 4, None, None, None, impl="gather")   # the exact mode on encoder queries
     return results, sweep_launches
 
 
@@ -586,7 +663,14 @@ def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
     """As phase_reference_glip for MQ-GroundingDINO-T, on the encoder's
     memory and text and on enc_logits (through `debug_outputs`): tensors
     before the top-900 selection, which bf16 may legitimately change. The
-    overlap of the card's selection with the fp32 one is printed."""
+    overlap of the card's selection with the fp32 one is printed. The CPU
+    runs under MQDET_MSDA_IMPL=pallas_interpret, so its encoder computes the
+    clipped function that the card's default route (unset) launches; the
+    share of encoder sample points the clip moves is printed. Returns the
+    card run's launch counts."""
+    import mqdet_torch.models.gdino as tg
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.ops import ms_deform_attn as ms
     from mqdet_torch.utils.builders import synthetic_caption_batch
 
     hw = (256, 256)
@@ -605,9 +689,32 @@ def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
         tensors = [out[k].float().cpu() for k in ("dbg_memory", "dbg_text", "enc_logits")]
         return tensors, out["dbg_topk_idx"].cpu()
 
-    ref, ref_idx = run(model_cpu, "cpu")
-    plain16, _ = run(copy.deepcopy(model_cpu).to(torch.bfloat16), "cpu")
-    card, card_idx = run(model_gpu, torch.device("cuda"))
+    shares, sample = [], tg.ms_deform_attn
+
+    def watched(value, shapes, loc, attn):
+        if ms.is_encoder(value, shapes, loc):
+            shares.append(clip_share(torch, shapes, loc))
+        return sample(value, shapes, loc, attn)
+
+    tg.ms_deform_attn = watched
+    try:
+        with switched("default", msda="pallas_interpret"):
+            ref, ref_idx = run(model_cpu, "cpu")
+            moved = list(shares)
+            plain16, _ = run(copy.deepcopy(model_cpu).to(torch.bfloat16), "cpu")
+    finally:
+        tg.ms_deform_attn = sample
+    g = cfg.GROUNDINGDINO
+    with switched("default"):
+        launch_counts(reset=True)
+        card, card_idx = run(model_gpu, torch.device("cuda"))
+        used = launch_counts()
+    if (used["ms_deform_attn_clip"], used["ms_deform_attn"]) != (g.enc_layers, g.dec_layers):
+        fail(f"MQ-GroundingDINO-T reference run: MSDA launches {used} (predicted {g.enc_layers} clipped, "
+             f"{g.dec_layers} exact)")
+    say(f"phase 3: MQ-GroundingDINO-T at {hw}, CPU under MQDET_MSDA_IMPL=pallas_interpret: the clip moves "
+        f"{moved!r} of the encoder's sample points, layer by layer (fp32 run); card launches "
+        f"{ {k: v for k, v in used.items() if v} }")
     worst = compare_to_reference(torch, "MQ-GroundingDINO-T", ("memory", "text", "enc_logits"),
                                  ref, plain16, card)
     overlap = len(set(ref_idx[0].tolist()) & set(card_idx[0].tolist()))
@@ -618,6 +725,7 @@ def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
         f"plain, {E2E_FLOOR})); top-{ref_idx.shape[1]} selections share {overlap} of "
         f"{ref_idx.shape[1]} indices; ok"
     )
+    return used
 
 
 FAMILIES = (
@@ -722,22 +830,24 @@ def predicted(**counts) -> dict:
 
 
 def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed, parts=None,
-                   switch="default"):
-    """Phase 4 and 5 for one model under the fusion switches SWITCHES[switch],
-    and phase 6 where `parts` is given; returns the launch counts of the
-    counted protocol run (a name of `mqdet_torch.ops.COUNTERS` each)."""
+                   switch="default", deform=None):
+    """Phase 4 and 5 for one model under the fusion switches SWITCHES[switch]
+    and MQDET_DEFORM_IMPL `deform` (None: unset), and phase 6 where `parts`
+    is given; returns the launch counts of the counted protocol run (a name
+    of `mqdet_torch.ops.COUNTERS` each)."""
     from mqdet_torch.engine.predict import make_protocol_fn
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.utils.builders import protocol_inputs
 
     label = label if switch == "default" else f"{label} {switch}"
+    label = label if deform is None else f"{label} MQDET_DEFORM_IMPL={deform}"
     dev = torch.device("cuda")
     hw = (800, 1344)
     cp, groups = 4, -(-31 // 4)
     image, text = protocol_inputs(cfg, make_batch, groups, cp, hw, seed)
     image, text = image.to(dev), [t.to(dev) for t in text]
     protocol = make_protocol_fn(model, hw, cfg)
-    with switched(switch):
+    with switched(switch, deform):
         torch.cuda.reset_peak_memory_stats()
         protocol(image, *text)  # warm-up
         torch.cuda.synchronize()
@@ -833,14 +943,15 @@ def main() -> int:
              "VLFuse": list(tower[0::3]), "head BERT layers": list(tower[1::3]), "DyConv": list(tower[2::3])}
     # default last: its phase 6 (synchronised split) ends a model's runs, because
     # protocols timed right after it read 7-24% slower with the same device busy time
-    for switch, want in (
-        ("stream", predicted(dcn_band=dcn, bi_attention_levels=fuse * levels)),  # one launch per level
-        ("dual", predicted(dcn_band=dcn, bi_attention_dual=fuse)),
-        ("default", predicted(dcn_band=dcn, bi_attention=fuse)),
+    for switch, deform, want in (
+        ("stream", None, predicted(dcn_band=dcn, bi_attention_levels=fuse * levels)),  # one launch per level
+        ("dual", None, predicted(dcn_band=dcn, bi_attention_dual=fuse)),
+        ("default", "window", predicted(dcn_gather_clip=dcn, bi_attention=fuse)),  # K2 in the protocol
+        ("default", None, predicted(dcn_band=dcn, bi_attention=fuse)),
     ):
-        launches[f"MQ-GLIP-T {switch}"] = phase_protocol(
+        launches[f"MQ-GLIP-T {switch}{' ' + deform if deform else ''}"] = phase_protocol(
             torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300, want, args.runs, args.seed,
-            parts if switch == "default" else None, switch,
+            parts if switch == "default" and deform is None else None, switch, deform,
         )
     del model, tower, parts  # nothing of MQ-GLIP-T may stay on the card
     torch.cuda.empty_cache()
@@ -850,9 +961,9 @@ def main() -> int:
     g = cfg.GROUNDINGDINO
     model_cpu = init_params(build_model(cfg), seed=args.seed).eval()
     model = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
-    phase_reference_gdino(torch, cfg, model_cpu, model, args.seed)
+    launches["MQ-GroundingDINO-T reference"] = phase_reference_gdino(torch, cfg, model_cpu, model, args.seed)
     del model_cpu
-    msda, fuse = groups * (g.enc_layers + g.dec_layers), groups * g.enc_layers
+    enc, dec, fuse = groups * g.enc_layers, groups * g.dec_layers, groups * g.enc_layers
     tr = model.transformer
     parts = {"image tower": [model.backbone[0], *model.input_proj], "BERT": [model.bert],
              "fusion": list(tr.encoder.fusion_layers), "text enhancer": list(tr.encoder.text_layers),
@@ -861,8 +972,8 @@ def main() -> int:
              "two-stage heads": [tr.enc_output, tr.enc_output_norm, tr.enc_out_bbox_embed]}
     # the fusion takes one flattened tensor, so MQDET_FLASH_LEVELS does not apply
     for switch, want in (
-        ("dual", predicted(ms_deform_attn=msda, bi_attention_dual=fuse)),
-        ("default", predicted(ms_deform_attn=msda, bi_attention=fuse)),
+        ("dual", predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention_dual=fuse)),
+        ("default", predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention=fuse)),
     ):
         launches[f"MQ-GroundingDINO-T {switch}"] = phase_protocol(
             torch, "MQ-GroundingDINO-T", model, cfg, synthetic_caption_batch, g.num_queries, want,

@@ -16,6 +16,7 @@ COUNTERS = (  # kernel name, module of this package, attribute of its launch cou
     ("bi_attention_dual", "bi_attention", "dual_launch_count"),
     ("bi_attention_levels", "bi_attention", "levels_launch_count"),
     ("ms_deform_attn", "ms_deform_attn", "launch_count"),
+    ("ms_deform_attn_clip", "ms_deform_attn", "clip_launch_count"),
 )
 
 

@@ -41,12 +41,16 @@ _BAND_COUNTER = {1: "band_v1_launch_count", 2: "band_launch_count", 3: "band_v3_
                  5: "band_v5_launch_count", 6: "band_v6_launch_count"}
 
 MAX_WINDOW_RADIUS = 8  # the largest radius the band kernel takes (and `utils/calibrate.py` uses)
-# Mirror of the band kernel's shared-memory layout (csrc/deform_conv.cu): the
-# A/B/C tile union and the per-block tables, then the band buffers; the C
-# entry point refuses a count that differs from its own.
-BAND_OFFSET = 45824
-SMEM_LIMIT = 232448
-BAND_BM = 64  # output positions per block
+# Mirror of the band kernel's shared-memory layout (csrc/deform_conv.cu,
+# `band_layout`); the C entry point refuses a count that differs from its own.
+SMEM_LIMIT = 232448   # dynamic shared memory a block may use
+BAND_BM = 128         # output positions per block
+BAND_N = 256          # output channels per block
+SLAB_BYTES = 8192     # one (tap, 16-channel group) weight slab, 16 x 256 bf16
+TABLE_BYTES = 23760   # the per-block tables
+BAR_BYTES = 160       # the mbarriers
+MAX_STAGES, MIN_STAGES = 8, 4  # the weight ring's stages
+MAX_BOX = 256         # a TMA box's largest side
 
 
 def _sample_patches(x, offset, mask, stride, fold_mask):
@@ -265,27 +269,43 @@ def band_version(version: int) -> int:
 
 
 def band_tile(block_rows: int) -> Tuple[int, int]:
-    """The band kernel's tile (rows, columns) of 64 output positions: rows is
-    block_rows rounded down to a power of two in [1, 64]."""
+    """The band kernel's tile (rows, columns) of 128 output positions: rows is
+    block_rows rounded down to a power of two in [1, 128]."""
     br = 1 << (max(1, min(int(block_rows), BAND_BM)).bit_length() - 1)
     return br, BAND_BM // br
 
 
+def band_layout(version: int, bk: int, band_px: int, stages: int) -> int:
+    """Shared-memory bytes of a band launch (the kernel's `band_layout`): 1024
+    bytes of alignment slack, the bf16 band buffers (one for versions 1 and
+    6, else two), version 6's fp32 band, the weight ring, the tables, the
+    barriers; each buffer a multiple of 1024 bytes."""
+    up = lambda v: -(-v // 1024) * 1024  # noqa: E731
+    nbuf = 1 if version in (1, 6) else 2
+    band32 = up(band_px * bk * 4) if version == 6 else 0
+    return 1024 + nbuf * up(band_px * bk * 2) + band32 + stages * SLAB_BYTES + TABLE_BYTES + BAR_BYTES
+
+
 def band_geometry(c: int, stride: int, radius: int, block_rows: int, version: int):
-    """(rows, cols, chunk, shared-memory bytes) of a band launch: the channel
-    chunk is 32 where the band fits, else 16. Raises ValueError for a radius
-    outside [0, MAX_WINDOW_RADIUS] or a band that does not fit a block."""
+    """(rows, cols, chunk, stages, shared-memory bytes) of a band launch: the
+    largest channel chunk of 64, 32 and 16 that divides C and fits with at
+    least MIN_STAGES weight slabs, then the most stages up to MAX_STAGES.
+    Raises ValueError for a radius outside [0, MAX_WINDOW_RADIUS], a band
+    wider than a TMA box, or one that does not fit a block."""
     if not 0 <= radius <= MAX_WINDOW_RADIUS:
         raise ValueError(f"radius {radius} outside [0, {MAX_WINDOW_RADIUS}]: use the gather kernel")
     br, bw = band_tile(block_rows)
-    px = ((br - 1) * stride + 2 * radius + 4) * ((bw - 1) * stride + 2 * radius + 4)
-    per = {1: 2, 6: 6}.get(band_version(version), 4)  # bytes per (pixel, channel) of the band buffers
-    for bk in (32, 16):
-        nbytes = BAND_OFFSET + px * bk * per
-        if c % bk == 0 and nbytes <= SMEM_LIMIT:
-            return br, bw, bk, nbytes
+    rows, cols = (br - 1) * stride + 2 * radius + 4, (bw - 1) * stride + 2 * radius + 4
+    v = band_version(version)
+    if max(rows, cols) <= MAX_BOX:
+        for bk in (64, 32, 16):
+            if c % bk == 0 and band_layout(v, bk, rows * cols, MIN_STAGES) <= SMEM_LIMIT:
+                stages = max(n for n in range(MIN_STAGES, MAX_STAGES + 1)
+                             if band_layout(v, bk, rows * cols, n) <= SMEM_LIMIT)
+                return br, bw, bk, stages, band_layout(v, bk, rows * cols, stages)
     raise ValueError(
-        f"band of radius {radius}, stride {stride}, tile {br}x{bw} does not fit a block's shared memory (C={c})"
+        f"band of radius {radius}, stride {stride}, tile {br}x{bw} ({rows}x{cols} pixels) does not fit a block's "
+        f"shared memory or a TMA box (C={c})"
     )
 
 
@@ -310,11 +330,13 @@ def band_fast_share(offset: torch.Tensor, stride: int, radius: int, block_rows: 
 def _launch_band(x, offset, mask, weight, bias, stride, radius, block_rows, version) -> torch.Tensor:
     b, h, w, c, ho, wo, cout = _check(x, offset, mask, weight, bias, stride)
     v = band_version(version)
-    br, bw, bk, nbytes = band_geometry(c, stride, radius, block_rows, v)
+    br, bw, bk, stages, nbytes = band_geometry(c, stride, radius, block_rows, v)
+    if cout % BAND_N:  # the kernel's weight slabs are 256 columns wide: zeros past Cout
+        weight = F.pad(weight, (0, BAND_N - cout % BAND_N))
     out = torch.empty(b, ho, wo, cout, dtype=x.dtype, device=x.device)
     code = kernels.lib().mqdet_dcn_band_forward(
         *_pointers(x, offset, mask, weight, bias, out), b, h, w, c, ho, wo, cout, stride, int(radius),
-        br, bw, v, bk, nbytes, ctypes.c_void_p(kernels.stream_ptr(x.device)),
+        br, bw, v, bk, stages, nbytes, ctypes.c_void_p(kernels.stream_ptr(x.device)),
     )
     kernels.check(code, "mqdet_dcn_band_forward")
     globals()[_BAND_COUNTER[v]] += 1

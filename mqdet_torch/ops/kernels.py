@@ -34,7 +34,13 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def sources():
+    """The translation units, one nvcc each."""
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def headers():
+    """The shared headers the sources include: part of the library's hash."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -49,7 +55,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"libmqdet_kernels-{h.hexdigest()[:16]}.so")
@@ -101,7 +107,7 @@ def lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         so.mqdet_dcn_forward.argtypes = [p] * 6 + [i] * 9 + [p]
         so.mqdet_dcn_forward.restype = i
-        so.mqdet_dcn_band_forward.argtypes = [p] * 6 + [i] * 14 + [p]
+        so.mqdet_dcn_band_forward.argtypes = [p] * 6 + [i] * 15 + [p]
         so.mqdet_dcn_band_forward.restype = i
         so.mqdet_bi_attention_forward.argtypes = [p] * 10 + [i] * 6 + [p]
         so.mqdet_bi_attention_forward.restype = i
@@ -109,21 +115,23 @@ def lib() -> ctypes.CDLL:
         so.mqdet_bi_attention_dual_forward.restype = i
         so.mqdet_bi_attention_carry_forward.argtypes = [p] * 9 + [i] * 5 + [p]
         so.mqdet_bi_attention_carry_forward.restype = i
-        so.mqdet_ms_deform_attn_forward.argtypes = [p] * 4 + [ctypes.POINTER(i)] + [i] * 7 + [p]
+        so.mqdet_ms_deform_attn_forward.argtypes = [p] * 4 + [ctypes.POINTER(i)] * 2 + [i] * 8 + [p]
         so.mqdet_ms_deform_attn_forward.restype = i
         _lib = so
     return _lib
 
 
-def ptxas_report(kernel: str) -> dict:
-    """The build log's ptxas report of the first entry function whose
-    mangled name contains `kernel`: {"registers", "spill_stores",
-    "spill_loads", "stack"} (bytes; registers as ptxas allocated them at
-    launch). Raises if the log has no such function."""
+def ptxas_reports(kernel: str) -> list:
+    """The build log's ptxas report of every entry function whose mangled
+    name contains `kernel` (each instantiation of a template): a list of
+    {"registers", "spill_stores", "spill_loads", "stack"} (bytes; registers
+    as ptxas allocated them at launch). Raises if the log has no such
+    function."""
     import re
 
     with open(library_path() + ".log") as f:
         lines = f.read().splitlines()
+    reports = []
     for i, line in enumerate(lines):
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if not entry or kernel not in entry.group(1):
@@ -141,8 +149,22 @@ def ptxas_report(kernel: str) -> dict:
             if used:
                 out["registers"] = int(used.group(1))
         if len(out) == 4:
-            return out
-    raise RuntimeError(f"no ptxas report of an entry function named like {kernel!r}")
+            reports.append(out)
+    if not reports:
+        raise RuntimeError(f"no ptxas report of an entry function named like {kernel!r}")
+    return reports
+
+
+def ptxas_report(kernel: str) -> dict:
+    """The first of `ptxas_reports(kernel)`."""
+    return ptxas_reports(kernel)[0]
+
+
+def ptxas_notes(code: str = "C75") -> list:
+    """The build log's lines that carry a ptxas note of this code prefix
+    (C75xx: wgmma serialised, and why)."""
+    with open(library_path() + ".log") as f:
+        return [line for line in f.read().splitlines() if f"({code}" in line]
 
 
 def check(code: int, name: str) -> None:

@@ -9,25 +9,116 @@ signature and layouts:
 
 per (b, q, head): sum over levels and points of weight * bilinear sample of
 the level's value map at pixel (x * W - 0.5, y * H - 0.5), zero padding
-corner by corner (`F.grid_sample(align_corners=False)`). On a CUDA tensor it
-launches the kernel of `csrc/ms_deform_attn.cu` (bf16 value and output, fp32
-locations and weights, fp32 accumulation) or raises; on a CPU tensor it runs
-the plain PyTorch version below, the JAX package's gather composite
-(`ms_deform_attn_sample`). Neither clips the sampling offsets: the TPU
-kernel's +-R cell window exists only for the TPU.
+corner by corner (`F.grid_sample(align_corners=False)`).
+
+Two functions, chosen at call time by `MQDET_MSDA_IMPL` with the JAX
+package's rule (`mqdet_tpu/ops/ms_deform_attn.py:124-134`):
+
+- **clipped** (the function of the TPU's encoder kernel K5,
+  `mqdet_tpu/ops/pallas/msda_pallas.py::ms_deform_attn_encoder`): for
+  encoder queries (Q == S == sum of H * W; query q is pixel (yq, xq) of its
+  level lq) each sample pixel is clamped per axis to a window around the
+  query, by the (lq, lv) pair's rule of `clip_pairs`: a coarser-or-equal
+  level at an exact ratio k of DEFAULT_RADIUS_FOR_K to
+  [b0 - R, b0 + R + 1], b0 = floor((yq + 0.5) / k - 0.5); a finer level at
+  an exact ratio f of FINER_REFF_BY_F to [c - FINER_RV, c + FINER_RV + 1],
+  c = f (yq + 0.5) - 0.5; every other pair exact. Taken when the variable is
+  unset or starts with `pallas` and the queries are encoder queries, on a
+  CUDA tensor; under `pallas_interpret` on any device (the CPU runs the
+  clipped plain version).
+- **exact** (the gather composite, `ms_deform_attn_sample`): everything
+  else: `gather`, decoder queries, and a CPU tensor unless
+  `pallas_interpret`, as the JAX package's CPU backend does.
+
+On a CUDA tensor both launch the kernel of `csrc/ms_deform_attn.cu` (bf16
+value and output, fp32 locations and weights, fp32 accumulation; the clipped
+function as its own mode, counted as `ms_deform_attn_clip`) or raise; on a
+CPU tensor they run the plain PyTorch versions below.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import os
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from mqdet_torch.ops import kernels
 
-launch_count = 0  # kernel launches since the caller last reset it
+launch_count = 0       # exact kernel launches since the caller last reset it
+clip_launch_count = 0  # launches of its clipped mode ("ms_deform_attn_clip")
 MAX_LEVELS = 4    # the kernel's level table (csrc/ms_deform_attn.cu)
 HEAD_WIDTHS = (8, 32)  # the kernel's instantiations: the tiny config's and MQ-GroundingDINO-T's
+
+# The port's copy of the TPU kernel's window rule (mqdet_tpu/ops/pallas/msda_pallas.py:69, :240-242):
+# the clip radius in value pixels by exact coarser ratio k, and for finer levels the radius
+# around the sampling centre and the ratios f that clip.
+DEFAULT_RADIUS_FOR_K = {1: 4, 2: 4, 4: 2, 8: 2}
+FINER_RV = 3
+FINER_REFF_BY_F = {2: 2, 4: 1}
+EXACT, COARSE, FINER = 0, 1, 2  # pair modes (the kernel's table holds the same numbers)
+
+
+def clip_pairs(spatial_shapes: Sequence[Tuple[int, int]]) -> Dict[Tuple[int, int], Tuple[int, int, int]]:
+    """{(lq, lv): (mode, k or f, R or FINER_RV)} for every pair of levels,
+    by `ms_deform_attn_encoder`'s rule: lv >= lq at an exact integer ratio
+    k = Hq / Hv = Wq / Wv in DEFAULT_RADIUS_FOR_K is COARSE with R =
+    DEFAULT_RADIUS_FOR_K[k]; lv < lq at an exact f = Hv / Hq = Wv / Wq in
+    FINER_REFF_BY_F is FINER; every other pair is EXACT (0, 0, 0)."""
+    shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    out = {}
+    for lq, (hq, wq) in enumerate(shapes):
+        for lv, (hv, wv) in enumerate(shapes):
+            rule = (EXACT, 0, 0)
+            if lv >= lq:
+                if hv and wv and hq % hv == 0 and wq % wv == 0 and hq // hv == wq // wv \
+                        and hq // hv in DEFAULT_RADIUS_FOR_K:
+                    rule = (COARSE, hq // hv, DEFAULT_RADIUS_FOR_K[hq // hv])
+            elif hv % hq == 0 and wv % wq == 0 and hv // hq == wv // wq and hv // hq in FINER_REFF_BY_F:
+                rule = (FINER, hv // hq, FINER_RV)
+            out[lq, lv] = rule
+    return out
+
+
+def is_encoder(value: torch.Tensor, spatial_shapes, sampling_locations: torch.Tensor) -> bool:
+    """Q == S == sum of the levels' H * W: the queries are the pyramid's pixels."""
+    return sampling_locations.shape[1] == value.shape[1] == sum(int(h) * int(w) for h, w in spatial_shapes)
+
+
+def clips(value: torch.Tensor, spatial_shapes, sampling_locations: torch.Tensor) -> bool:
+    """The dispatch rule of the module docstring: whether this call computes the clipped function."""
+    impl = os.environ.get("MQDET_MSDA_IMPL", "pallas")
+    on_accel = value.device.type != "cpu" or impl == "pallas_interpret"
+    return impl.startswith("pallas") and on_accel and is_encoder(value, spatial_shapes, sampling_locations)
+
+
+def window_bounds(spatial_shapes, device) -> torch.Tensor:
+    """(L, 4, S) fp32 [y_lo, y_hi, x_lo, x_hi]: the window of every encoder
+    query (flat over the pyramid) in the pixels of value level lv, +-inf
+    where its pair is exact."""
+    shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    s = sum(h * w for h, w in shapes)
+    pairs = clip_pairs(shapes)
+    out = torch.empty(len(shapes), 4, s, dtype=torch.float32, device=device)
+    out[:, 0::2] = -float("inf")
+    out[:, 1::2] = float("inf")
+    start = 0
+    for lq, (hq, wq) in enumerate(shapes):
+        yq = torch.arange(hq, device=device, dtype=torch.float32)[:, None].expand(hq, wq).reshape(-1)
+        xq = torch.arange(wq, device=device, dtype=torch.float32)[None, :].expand(hq, wq).reshape(-1)
+        for lv in range(len(shapes)):
+            mode, k, r = pairs[lq, lv]
+            if mode == EXACT:
+                continue
+            for axis, qc in ((0, yq), (2, xq)):
+                if mode == COARSE:
+                    lo = torch.floor((qc + 0.5) / k - 0.5) - r
+                else:
+                    lo = k * (qc + 0.5) - 0.5 - r
+                out[lv, axis, start:start + hq * wq] = lo
+                out[lv, axis + 1, start:start + hq * wq] = lo + (2 * r + 1)
+        start += hq * wq
+    return out
 
 
 def _bilinear_sample(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -58,9 +149,11 @@ def ms_deform_attn_plain(
     spatial_shapes: Sequence[Tuple[int, int]],
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
+    bounds: torch.Tensor = None,
 ) -> torch.Tensor:
     """Plain PyTorch MSDA, level by level (the gather composite). Accumulates
-    in fp32; returns value.dtype."""
+    in fp32; returns value.dtype. `bounds` (`window_bounds`) clamps each
+    query's sample pixels per level and axis."""
     b, s, nh, hd = value.shape
     q = sampling_locations.shape[1]
     p = sampling_locations.shape[4]
@@ -71,6 +164,10 @@ def ms_deform_attn_plain(
         loc = sampling_locations[:, :, :, lvl].float()  # (B, Q, nh, P, 2)
         x = (loc[..., 0] * w - 0.5).permute(0, 2, 1, 3).reshape(b * nh, q * p)
         y = (loc[..., 1] * h - 0.5).permute(0, 2, 1, 3).reshape(b * nh, q * p)
+        if bounds is not None:
+            per_pt = lambda t: t[:, None].expand(q, p).reshape(1, q * p)  # noqa: E731
+            y = torch.minimum(torch.maximum(y, per_pt(bounds[lvl, 0])), per_pt(bounds[lvl, 1]))
+            x = torch.minimum(torch.maximum(x, per_pt(bounds[lvl, 2])), per_pt(bounds[lvl, 3]))
         sampled = _bilinear_sample(v_l, x, y).reshape(b * nh, q, p, hd)
         wgt = attention_weights[:, :, :, lvl].float().permute(0, 2, 1, 3).reshape(b * nh, q, p)
         out += (sampled * wgt[..., None]).sum(dim=2)
@@ -78,8 +175,17 @@ def ms_deform_attn_plain(
     return out.reshape(b, nh, q, hd).permute(0, 2, 1, 3).reshape(b, q, nh * hd).to(value.dtype)
 
 
-def _launch(value, spatial_shapes, loc, attn) -> torch.Tensor:
-    global launch_count
+def ms_deform_attn_clipped_plain(value, spatial_shapes, sampling_locations, attention_weights) -> torch.Tensor:
+    """The clipped function (K5's) for encoder queries: the gather composite
+    at the locations clamped to each (lq, lv) pair's window."""
+    if not is_encoder(value, spatial_shapes, sampling_locations):
+        raise ValueError("the clipped function is defined for encoder queries (Q == S) only")
+    return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights,
+                                window_bounds(spatial_shapes, value.device))
+
+
+def _launch(value, spatial_shapes, loc, attn, clip=False) -> torch.Tensor:
+    global launch_count, clip_launch_count
     if value.dim() != 4:
         raise ValueError(f"value must be (B, S, nh, hd), got {tuple(value.shape)}")
     b, s, nh, hd = value.shape
@@ -112,13 +218,19 @@ def _launch(value, spatial_shapes, loc, attn) -> torch.Tensor:
             raise ValueError("kernel needs 16-byte aligned tensors")
     out = torch.empty(b, q, nh * hd, dtype=value.dtype, device=value.device)
     hw = (ctypes.c_int * (2 * n_levels))(*[v for hw_ in shapes for v in hw_])
+    rule = clip_pairs(shapes)
+    pairs = (ctypes.c_int * (3 * n_levels ** 2))(*[v for lq in range(n_levels) for lv in range(n_levels)
+                                                   for v in rule[lq, lv]]) if clip else None
     ptr = ctypes.c_void_p
     code = kernels.lib().mqdet_ms_deform_attn_forward(
         ptr(value.data_ptr()), ptr(loc.data_ptr()), ptr(attn.data_ptr()), ptr(out.data_ptr()),
-        hw, b, s, q, nh, hd, n_levels, p, ptr(kernels.stream_ptr(value.device)),
+        hw, pairs, b, s, q, nh, hd, n_levels, p, int(clip), ptr(kernels.stream_ptr(value.device)),
     )
     kernels.check(code, "mqdet_ms_deform_attn_forward")
-    launch_count += 1
+    if clip:
+        clip_launch_count += 1
+    else:
+        launch_count += 1
     return out
 
 
@@ -129,8 +241,10 @@ def ms_deform_attn(
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
     """See module docstring."""
-    if value.device.type == "cpu":
-        return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
-    if value.device.type != "cuda":
+    if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no MSDA kernel for device {value.device}")
-    return _launch(value, spatial_shapes, sampling_locations, attention_weights)
+    clip = clips(value, spatial_shapes, sampling_locations)
+    if value.device.type == "cpu":
+        plain = ms_deform_attn_clipped_plain if clip else ms_deform_attn_plain
+        return plain(value, spatial_shapes, sampling_locations, attention_weights)
+    return _launch(value, spatial_shapes, sampling_locations, attention_weights, clip)

@@ -78,7 +78,8 @@ def build_variants() -> dict:
         with open(src, "w") as f:
             f.write(variant_source(name))
         procs[name] = subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", os.path.join(out, f"{name}.so"), src],
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC, "-shared", "-o",
+             os.path.join(out, f"{name}.so"), src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():

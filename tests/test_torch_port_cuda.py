@@ -111,6 +111,7 @@ BAND_CASES = [  # (B, H, W, C, Cout), radius, block_rows: partial tiles at the r
     ((1, 5, 7, 16, 8), 2, 8),       # smaller than one tile
     ((4, 7, 11, 256, 256), 3, 16),  # the 800x1344 pyramid's last level
     ((1, 40, 50, 32, 64), 5, 4),
+    ((4, 21, 37, 64, 256), 2, 16),  # B 4, ragged 16 x 8 tiles, a full 256-channel block
 ]
 
 
@@ -128,6 +129,27 @@ def test_dcn_band_kernel_matches_plain(dev, version, stride, case):
     torch.cuda.synchronize()
     assert getattr(tdc, counter) == n0 + 1
     assert got.shape == (shape[0], -(-shape[1] // stride), -(-shape[2] // stride), shape[4])
+    assert _close(got, _clip_ref(args, stride, radius))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 2, 3, 5, 6])
+@pytest.mark.parametrize("stride,radius", [(1, 2), (2, 2), (2, 8), (1, 0)])
+def test_dcn_band_kernel_at_the_band_edge(dev, version, stride, radius):
+    """Every offset exactly +-radius: each sample's corners reach the band's
+    first and last rows and columns (the last ones with weight 0), at ragged
+    tiles, B 1."""
+    b, h, w, c, cout = 1, 19, 29, 64, 256
+    ho, wo = -(-h // stride), -(-w // stride)
+    g = torch.Generator(device=dev).manual_seed(100 * version + radius)
+    x = torch.randn(b, h, w, c, generator=g, device=dev).bfloat16()
+    off = (radius * torch.sign(torch.randn(b, ho, wo, 18, generator=g, device=dev))).bfloat16()
+    mask = torch.rand(b, ho, wo, 9, generator=g, device=dev).bfloat16()
+    wt = (torch.randn(3, 3, c, cout, generator=g, device=dev) * 0.1).bfloat16()
+    bias = torch.randn(cout, generator=g, device=dev).bfloat16()
+    args = (x, off, mask, wt, bias)
+    got = tdc.modulated_deform_conv_pallas(*args, stride=stride, radius=radius, block_rows=8, version=version)
+    torch.cuda.synchronize()
     assert _close(got, _clip_ref(args, stride, radius))
 
 
@@ -152,8 +174,10 @@ def test_dcn_band_refuses_what_it_does_not_take(dev):
     args = _dcn_clip_inputs(dev, (1, 9, 9, 32, 32), 2, 8, seed=0)
     with pytest.raises(ValueError):  # past MAX_WINDOW_RADIUS
         tdc.modulated_deform_conv_pallas(*args, stride=2, radius=9)
-    with pytest.raises(ValueError):  # a 64 x 1 tile's band at radius 8, stride 2 exceeds shared memory
+    with pytest.raises(ValueError):  # a 64 x 2 tile's band at radius 8, stride 2 exceeds shared memory
         tdc.modulated_deform_conv_pallas(*args, stride=2, radius=8, block_rows=64)
+    with pytest.raises(ValueError):  # a 128 x 1 tile's band is taller than a TMA box
+        tdc.modulated_deform_conv_pallas(*args, stride=2, radius=2, block_rows=128)
     small = _dcn_clip_inputs(dev, (1, 9, 9, 8, 8), 1, 2, seed=0)
     with pytest.raises(ValueError):  # C = 8 is not a multiple of the 16-channel chunk
         tdc.modulated_deform_conv_pallas(*small, stride=1, radius=2)
@@ -346,7 +370,9 @@ def _msda(dev, b, shapes, q, lo, hi, nh=8, hd=32, p=4, seed=0):
     (2, [(9, 7), (5, 4)], 33, (-0.3, 1.3), 8),
     (1, [(16, 16), (8, 8), (4, 4)], None, (0.0, 1.0), 32),
 ])
-def test_msda_kernel_matches_plain(dev, case):
+def test_msda_kernel_matches_plain(dev, monkeypatch, case):
+    """The exact mode (`gather`, which encoder queries take only under it)."""
+    monkeypatch.setenv("MQDET_MSDA_IMPL", "gather")
     b, shapes, q, (lo, hi), hd = case
     value, loc, attn = _msda(dev, b, shapes, q, lo, hi, hd=hd)
     n0 = tms.launch_count
@@ -360,6 +386,36 @@ def test_msda_kernel_matches_plain(dev, case):
     alone = tms.ms_deform_attn(value[-1:].contiguous(), shapes, loc[-1:].contiguous(), attn[-1:].contiguous())
     torch.cuda.synchronize()
     assert torch.equal(alone[0], got[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, level shapes, loc range, hd): encoder queries (Q = S) at uniform locations,
+    # far outside every window and up to a map beyond each border
+    (1, GDINO_800, (-1.0, 2.0), 32),
+    (2, [(16, 16), (8, 8), (4, 4), (2, 2)], (-0.5, 1.5), 32),   # k 1/2/4/8, f 2/4/8
+    (2, [(12, 20), (6, 10), (3, 5), (2, 3)], (-0.5, 1.5), 8),   # non-exact ratios
+])
+def test_msda_clip_kernel_matches_clipped_plain(dev, monkeypatch, case):
+    """The clipped mode (MQDET_MSDA_IMPL unset, encoder queries) against
+    `ms_deform_attn_clipped_plain`; `gather` launches the exact mode against
+    the exact plain version; the two differ (the clip binds)."""
+    b, shapes, (lo, hi), hd = case
+    value, loc, attn = _msda(dev, b, shapes, None, lo, hi, hd=hd, seed=b + hd)
+    monkeypatch.delenv("MQDET_MSDA_IMPL", raising=False)
+    counts = (tms.launch_count, tms.clip_launch_count)
+    got = tms.ms_deform_attn(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert (tms.launch_count, tms.clip_launch_count) == (counts[0], counts[1] + 1)
+    ref = tms.ms_deform_attn_clipped_plain(value.float(), shapes, loc, attn)
+    assert got.shape == ref.shape and _close(got, ref)
+    monkeypatch.setenv("MQDET_MSDA_IMPL", "gather")
+    exact = tms.ms_deform_attn(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert (tms.launch_count, tms.clip_launch_count) == (counts[0] + 1, counts[1] + 1)
+    exact_ref = tms.ms_deform_attn_plain(value.float(), shapes, loc, attn)
+    assert _close(exact, exact_ref)
+    assert (exact_ref - ref).abs().max().item() > 0.1
 
 
 @pytest.mark.cuda

@@ -169,37 +169,108 @@ def test_band_block_rows_follow_the_level_height(monkeypatch):
 
 def test_band_geometry_fits_every_radius_up_to_the_limit():
     """Every radius 0..MAX_WINDOW_RADIUS at both strides, for the block rows
-    the model uses, fits one block's shared memory (the chunk shrinks to 16
-    where 32 does not fit); past the limit the launcher raises."""
+    the model uses and every version, fits one block's shared memory with at
+    least MIN_STAGES weight slabs (the chunk shrinks from 64 channels to 32
+    and 16 where it must), as a TMA box (sides <= 256, inner bytes a
+    multiple of 16); past the limit the launcher raises."""
     for radius in range(tdc.MAX_WINDOW_RADIUS + 1):
         for stride in (1, 2):
             for block_rows in (8, 16):
                 for version in (1, 2, 3, 5, 6):
-                    br, bw, bk, nbytes = tdc.band_geometry(256, stride, radius, block_rows, version)
-                    assert br * bw == 64 and bk in (16, 32) and nbytes <= tdc.SMEM_LIMIT
-    assert tdc.band_geometry(256, 1, 2, 16, 2)[:3] == (16, 4, 32)
-    assert tdc.band_geometry(256, 2, 8, 16, 6)[2] == 16
+                    br, bw, bk, stages, nbytes = tdc.band_geometry(256, stride, radius, block_rows, version)
+                    rows, cols = (br - 1) * stride + 2 * radius + 4, (bw - 1) * stride + 2 * radius + 4
+                    assert br * bw == tdc.BAND_BM == 128 and bk in (16, 32, 64) and (bk * 2) % 16 == 0
+                    assert tdc.MIN_STAGES <= stages <= tdc.MAX_STAGES and max(rows, cols, bk) <= tdc.MAX_BOX
+                    assert nbytes == tdc.band_layout(version, bk, rows * cols, stages) <= tdc.SMEM_LIMIT
+    assert tdc.band_geometry(256, 1, 2, 16, 2)[:4] == (16, 8, 64, 8)  # GLIP's level 0
+    assert tdc.band_geometry(256, 2, 8, 16, 6)[2] == 16  # the largest band, 50 x 34 pixels
     with pytest.raises(ValueError):
         tdc.band_geometry(256, 1, tdc.MAX_WINDOW_RADIUS + 1, 8, 2)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # a 64 x 2 tile: 146 x 22 pixels, two buffers exceed shared memory
         tdc.band_geometry(256, 2, 8, 64, 2)
-    assert [tdc.band_tile(n) for n in (1, 8, 12, 16, 100)] == [(1, 64), (8, 8), (8, 8), (16, 4), (64, 1)]
+    with pytest.raises(ValueError):  # a 128 x 1 tile: 274 rows, more than a TMA box
+        tdc.band_geometry(256, 2, 2, 128, 1)
     assert [tdc.band_version(v) for v in (0, 1, 2, 3, 4, 5, 6, 7)] == [1, 1, 2, 3, 1, 5, 6, 1]
+
+
+def test_band_tile_holds_128_positions():
+    """block_rows rounded down to a power of two, times 128 / rows columns:
+    GLIP's 16 (the 100-row level) and 8 give 16 x 8 and 8 x 16."""
+    assert [tdc.band_tile(n) for n in (1, 8, 12, 16, 100, 300)] == [
+        (1, 128), (8, 16), (8, 16), (16, 8), (64, 2), (128, 1)]
+    assert all(r * c == 128 for r, c in map(tdc.band_tile, range(1, 200)))
+
+
+def _band_kernel_model(x, off, mask, wt, bias, stride, radius, block_rows):
+    """A plain fp32 model of one band launch: per tile, the zero-padded band
+    of (br-1)*stride + 2r + 4 rows and columns, the table's top-left corner
+    index and four weights times the mask, the blend in corner order, and the
+    product summed in the kernel's K order: 16-channel group, then tap."""
+    b, h, w, c = x.shape
+    ho, wo = off.shape[1:3]
+    cout = wt.shape[-1]
+    br, bw = tdc.band_tile(block_rows)
+    rows, cols = (br - 1) * stride + 2 * radius + 4, (bw - 1) * stride + 2 * radius + 4
+    pad = 2 * radius + 4 + max(br, bw) * stride
+    xp = np.zeros((b, h + 2 * pad, w + 2 * pad, c), np.float32)
+    xp[:, pad:pad + h, pad:pad + w] = x
+    out = np.zeros((b, ho, wo, cout), np.float32)
+    py, px = np.divmod(np.arange(br * bw), bw)
+    for bi in range(b):
+        for oy0 in range(0, ho, br):
+            for ox0 in range(0, wo, bw):
+                iy0, ix0 = oy0 * stride - 1 - radius, ox0 * stride - 1 - radius
+                band = xp[bi, pad + iy0:pad + iy0 + rows, pad + ix0:pad + ix0 + cols].reshape(rows * cols, c)
+                oy, ox = oy0 + py, ox0 + px
+                live = (oy < ho) & (ox < wo)
+                o = off[bi, np.minimum(oy, ho - 1), np.minimum(ox, wo - 1)].reshape(-1, 9, 2)
+                mk = mask[bi, np.minimum(oy, ho - 1), np.minimum(ox, wo - 1)] * live[:, None]
+                tap = np.arange(9)
+                rel_y = np.clip(o[..., 0], -radius, radius) + (tap // 3 - 1)
+                rel_x = np.clip(o[..., 1], -radius, radius) + (tap % 3 - 1)
+                fy, fx = np.floor(rel_y), np.floor(rel_x)
+                ly, lx = rel_y - fy, rel_x - fx
+                idx = ((py * stride)[:, None] + fy.astype(int) + 1 + radius) * cols \
+                    + (px * stride)[:, None] + fx.astype(int) + 1 + radius
+                wts = [(1 - ly) * (1 - lx), (1 - ly) * lx, ly * (1 - lx), ly * lx]
+                corners = [idx, idx + 1, idx + cols, idx + cols + 1]
+                a = np.zeros((br * bw, 9, c), np.float32)
+                for q in range(4):
+                    a += (wts[q] * mk)[..., None] * band[corners[q]]
+                acc = np.zeros((br * bw, cout), np.float32)
+                for g in range(c // 16):
+                    for t in range(9):
+                        acc += a[:, t, 16 * g:16 * g + 16] @ wt[t // 3, t % 3, 16 * g:16 * g + 16]
+                keep = np.nonzero(live)[0]
+                out[bi, oy[keep], ox[keep]] = acc[keep] + bias
+    return out
+
+
+@pytest.mark.parametrize("block_rows", [8, 16])
+@pytest.mark.parametrize("stride,radius", [(1, 2), (2, 2), (1, 0), (2, 8)])
+def test_band_kernel_k_order_model_equals_the_clipped_plain_version(stride, radius, block_rows):
+    """The kernel's tile, band indexing and K order, modelled in fp32 on ragged
+    tiles (13 x 21 output at stride 1), offsets x3 and exactly at +-radius:
+    equal to the clipped plain version up to fp32 rounding."""
+    args = _inputs(np.random.default_rng(7 * stride + radius + block_rows), 2, 13, 21, 32, 24, stride, radius)
+    want = tdc.modulated_deform_conv_clipped_plain(*map(torch.from_numpy, args), stride=stride, radius=radius)
+    got = _band_kernel_model(*args, stride, radius, block_rows)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-4, rtol=1e-5)
 
 
 def test_band_fast_share_follows_the_kernels_rule():
     """The share of (tile, tap) pairs whose clipped floor(rel) is uniform
     over the tile's positions inside the grid, against a loop."""
     rng = np.random.default_rng(4)
-    off = (np.kron(rng.standard_normal((2, 3, 2, 18)), np.ones((1, 5, 7, 1)))[:, :13, :11]
-           + rng.standard_normal((2, 13, 11, 18)) * 0.05).astype(np.float32)
+    off = (np.kron(rng.standard_normal((2, 2, 2, 18)), np.ones((1, 8, 16, 1)))[:, :13, :27]
+           + rng.standard_normal((2, 13, 27, 18)) * 0.05).astype(np.float32)
     br, bw = tdc.band_tile(8)
-    fl = np.floor(np.clip(off.reshape(2, 13, 11, 9, 2), -2, 2)
+    fl = np.floor(np.clip(off.reshape(2, 13, 27, 9, 2), -2, 2)
                   + np.array([[ky - 1, kx - 1] for ky in range(3) for kx in range(3)]))
     fast = []
     for b in range(2):
         for y0 in range(0, 13, br):
-            for x0 in range(0, 11, bw):
+            for x0 in range(0, 27, bw):
                 t = fl[b, y0:y0 + br, x0:x0 + bw].reshape(-1, 9, 2)
                 fast += list((t.max(0) == t.min(0)).all(-1))
     want = float(np.mean(fast))

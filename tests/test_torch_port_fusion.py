@@ -310,10 +310,10 @@ def test_launch_counts_read_and_reset_every_kernel_counter(monkeypatch):
         monkeypatch.setattr(importlib.import_module(f"mqdet_torch.ops.{mod}"), attr, 3)
     counts = launch_counts()
     assert list(counts) == [name for name, _, _ in chip_smoke.KERNELS]  # one name per kernel JSON entry
-    assert set(counts.values()) == {3} and len(counts) == 11
+    assert set(counts.values()) == {3} and len(counts) == 12
     assert set(launch_counts(reset=True).values()) == {0}
     assert (deform_conv.launch_count, deform_conv.band_launch_count, tba.dual_launch_count,
-            ms_deform_attn.launch_count) == (0, 0, 0, 0)
+            ms_deform_attn.launch_count, ms_deform_attn.clip_launch_count) == (0, 0, 0, 0, 0)
 
 
 def _tool(*argv):

@@ -305,6 +305,54 @@ def test_forward_head_matches(pair):
     close(got["aux_boxes"][0], want["aux_boxes"][0], err_msg="aux_boxes")
 
 
+def test_forward_head_matches_jax_with_the_msda_clip(pair, monkeypatch):
+    """encode_image + forward_head on both sides under
+    MQDET_MSDA_IMPL=pallas_interpret (JAX: the TPU encoder kernel in
+    interpret mode; the port: its clipped plain version), with the encoder's
+    sampling offsets scaled x40 so that the clip binds (the exact route's
+    memory differs by more than 1e-3, ten times the tolerance): the
+    encoder's memory, enc_logits and the final boxes."""
+    import copy
+
+    import flax
+
+    jmodel, params, tmodel = pair[:3]
+    scale = 40.0
+    jp = flax.core.unfreeze(copy.deepcopy(params))
+    so = jp["params"]["enc_layer_0"]["self_attn"]["sampling_offsets"]
+    so["kernel"], so["bias"] = so["kernel"] * scale, so["bias"] * scale
+    tm = copy.deepcopy(tmodel)
+    with torch.no_grad():
+        for layer in tm.transformer.encoder.layers:
+            layer.self_attn.sampling_offsets.weight.mul_(scale)
+            layer.self_attn.sampling_offsets.bias.mul_(scale)
+    b = captions(pair[4], 2, seed=9)
+    image = np.random.default_rng(10).standard_normal((1,) + HW + (3,)).astype(np.float32)
+    text = [b[k] for k in ("input_ids", "attention_mask", "queries", "query_mask")]
+    jdbg = jmodel.clone(debug_outputs=True)
+    cls = type(jdbg)
+
+    def jfn(p, x, *t):
+        return jdbg.apply(p, jdbg.apply(p, x, method=cls.encode_image), *t, method=cls.forward_head)
+
+    def port():
+        tm.debug_outputs = True
+        with torch.no_grad():
+            return tm.forward_head(tm.encode_image(nchw(image)), *map(torch.from_numpy, text))
+
+    monkeypatch.setenv("MQDET_MSDA_IMPL", "pallas_interpret")
+    want = jax.jit(jfn)(jp, jnp.asarray(image), *map(jnp.asarray, text))
+    got = port()
+    close(got["dbg_memory"], want["dbg_memory"], err_msg="memory")
+    close(got["pred_boxes"], want["pred_boxes"], err_msg="pred_boxes")
+    w = np.asarray(want["enc_logits"])
+    np.testing.assert_array_equal(np.isfinite(got["enc_logits"].numpy()), np.isfinite(w))
+    close(torch.nan_to_num(got["enc_logits"], neginf=0.0), np.nan_to_num(w, neginf=0.0), atol=1e-3)
+    monkeypatch.setenv("MQDET_MSDA_IMPL", "gather")
+    exact = port()["dbg_memory"].numpy()
+    assert np.abs(exact - np.asarray(want["dbg_memory"])).max() > 1e-3  # 10x the tolerance above
+
+
 def test_protocol_matches_jax(pair):
     """make_protocol_fn for G = 2 groups of CP = 2 chunks, one 96x96 image:
     boxes, scores, labels and validity of every query slot."""

@@ -11,6 +11,8 @@ the Pallas kernel in interpret mode, as the JAX package's own tests run it.
 The wrappers launch a kernel only for CUDA tensors; the kernels themselves
 are tested on a card by tests/test_torch_port_cuda.py.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -229,21 +231,26 @@ def test_wrappers_take_the_plain_path_only_on_cpu():
 
 
 def test_kernel_library_name_tracks_the_sources(tmp_path, monkeypatch):
-    """The build is keyed by a hash of csrc/*.cu: an edited source gives a
-    new library path (no nvcc needed to check)."""
+    """The build is keyed by a hash of csrc/*.cu and the headers they
+    include, csrc/*.cuh: an edited source or header gives a new library path
+    (no nvcc needed to check)."""
     import shutil
 
     from mqdet_torch.ops import kernels
 
     before = kernels.library_path()
-    assert len(kernels.sources()) == 3
-    for src in kernels.sources():
+    assert len(kernels.sources()) == 3 and [os.path.basename(h) for h in kernels.headers()] == ["hopper.cuh"]
+    for src in kernels.sources() + kernels.headers():
         shutil.copy(src, tmp_path)
     monkeypatch.setattr(kernels, "CSRC", str(tmp_path))
     assert kernels.library_path() == before
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("\n// edit\n")
+    edited = kernels.library_path()
+    assert edited != before
     with open(tmp_path / "deform_conv.cu", "a") as f:
         f.write("\n// edit\n")
-    assert kernels.library_path() != before
+    assert kernels.library_path() not in (before, edited)
 
 
 def _msda_inputs(rng, shapes, q, lo, hi, b=2, nh=2, hd=8, p=3):
