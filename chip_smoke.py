@@ -37,14 +37,19 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      yardstick; K3 also against `bi_attention_tiled_plain` (the plain model of
      its decomposition) at the kernel's S; K3 and K3b must be bitwise equal;
      the streamed (per-level,
-     carried-state) bi-attention at GLIP's 800x1344 pyramid (16800, 4200,
-     1050, 273 and 77 rows), with the same two calls over the concatenated
-     levels as its `library_ms`; MSDA at the 800x1344 GroundingDINO pyramid
+     carried-state) bi-attention (K4: per level the wgmma kernel, then the
+     combine merging its partials with the carried state) at GLIP's 800x1344
+     pyramid (16800, 4200, 1050, 273 and 77 rows), also against
+     `bi_attention_levels_tiled_plain` (the plain model of its
+     decomposition), with the same two calls over the concatenated levels as
+     its `library_ms`; MSDA at the 800x1344 GroundingDINO pyramid
      (100x168, 50x84, 25x42, 13x21; 8 heads of 32, 4 levels x 4 points, B 4):
      encoder queries (Q = S) on the default route, the clipped mode
-     (`ms_deform_attn_clip`, K5's window-clipped function) against
-     `ms_deform_attn_clipped_plain`, near their cells and 12 cells out (the
-     share of sample points the clip moves printed), and under
+     (`ms_deform_attn_clip`, K5's window-clipped function on the band
+     kernel) against `ms_deform_attn_clipped_plain`, near their cells, 12
+     cells out and on their windows' edges (the share of sample points the
+     clip moves printed; the band kernel's ptxas reports without a spill or
+     a stack frame), and under
      MQDET_MSDA_IMPL=gather on the exact mode; decoder queries (Q = 900) and
      locations far off the image on the exact mode;
   3. per model, a small-input reference check: the full-width model on a
@@ -477,29 +482,62 @@ def phase_kernels(torch, seed):
         outs = (torch.cat(ovs, 1), ol)
         refs = (torch.cat(rvs, 1), rl)
         del rvs
+        tvs, tl = ba.bi_attention_levels_tiled_plain(
+            [x.float() for x in qs], k.float(), [x.float() for x in vvs], vl.float(), bias, heads
+        )
+        errs = [max_err(o, r) for o, r in zip(outs, (torch.cat(tvs, 1), tl))]
+        splits = [ba.l_splits(b, heads, t, n) for n in sizes]
+        ok = all(err <= ERR_BOUND * scale for err, scale in errs)
+        say(f"phase 2: bi_attention_levels against bi_attention_levels_tiled_plain (fp32, S {splits} per "
+            f"level): max_abs_err out_v {errs[0][0]!r}, out_l {errs[1][0]!r} (bounds {ERR_BOUND * errs[0][1]!r}, "
+            f"{ERR_BOUND * errs[1][1]!r}); {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("bi_attention_levels disagrees with the plain model of its decomposition")
+        del tvs, tl
         ms_ = cuda_time_ms(lambda: ba.flash_bi_attention_levels(qs, k, vvs, vl, bias, heads))
         plain_ms = cuda_time_ms(lambda: ba.bi_attention_levels_plain(qs, k, vvs, vl, bias, heads))
         bi_check("bi_attention_levels", f"levels {sizes} x (B {b}, E {e}) T {t} heads {heads}",
                  outs, refs, ms_, plain_ms, bi_bound(b, sum(sizes), t, e), library_ms,
                  f"; library (two scaled_dot_product_attention calls over the concatenated levels) "
-                 f"{library_ms!r} ms")
+                 f"{library_ms!r} ms; S {splits} per level")
+        results["bi_attention_levels"][-1]["splits"] = splits
 
     for dual in (False, True):
         bi_case(4, 22400, 256, 2048, 8, dual)   # MQ-GLIP-T's VLFuse at 800x1344
         bi_case(4, 22323, 256, 1024, 4, dual)   # MQ-GroundingDINO-T's encoder fusion at 800x1344
     levels_case(4, GLIP_800, 256, 2048, 8)      # MQ-GLIP-T's VLFuse under MQDET_FLASH_LEVELS=stream
 
+    band_regs = kernels.ptxas_reports("msda_band_kernel")
+    say(f"phase 2: msda_band_kernel ptxas reports (one per head width, as built) {band_regs}")
+    if any(r["spill_stores"] or r["spill_loads"] or r["stack"] for r in band_regs):
+        fail("msda_band_kernel spills registers or has a stack frame")
+
     def msda_case(name, b, q, lo, hi, nh=8, hd=32, p=4, impl=None, scale=2.0):
         """q None: encoder queries (Q = S), each sampling every level around
         its own cell centre with N(0, `scale` cells) offsets, so samples leave
-        the image near the borders; else Q decoder queries at uniform
-        locations in [lo, hi) of every level. Under MQDET_MSDA_IMPL `impl`
-        (None: unset): encoder queries take the clipped mode unless `gather`,
-        against `ms_deform_attn_clipped_plain`; the rest the exact mode."""
+        the image near the borders; q "edge": encoder queries whose samples
+        lie on their windows' edges (exactly c - R or c + R + 1, or 0.25
+        past them, clamped onto them; pairs without a window anywhere within
+        2 pixels of the map); else Q decoder queries at uniform locations in
+        [lo, hi) of every level. Under MQDET_MSDA_IMPL `impl` (None: unset):
+        encoder queries take the clipped mode unless `gather`, against
+        `ms_deform_attn_clipped_plain`; the rest the exact mode."""
         shapes = GDINO_800
         s = sum(h * w for h, w in shapes)
         value = torch.randn(b, s, nh, hd, generator=g, device=dev).bfloat16()
-        if q is None:
+        if q == "edge":
+            q = s
+            bnd = ms.window_bounds(shapes, dev)
+            loc = torch.empty(b, q, nh, len(shapes), p, 2, device=dev)
+            past = 0.25 * (torch.arange(p, device=dev) % 2)
+            for lv, (h, w) in enumerate(shapes):
+                for axis, size, lo_, hi_ in ((0, w, bnd[lv, 2], bnd[lv, 3]), (1, h, bnd[lv, 0], bnd[lv, 1])):
+                    side = torch.rand(b, q, nh, p, generator=g, device=dev) < 0.5
+                    edge = torch.where(side, lo_[None, :, None, None] - past, hi_[None, :, None, None] + past)
+                    anywhere = torch.rand(b, q, nh, p, generator=g, device=dev) * (size + 4) - 2
+                    loc[:, :, :, lv, :, axis] = (torch.where(torch.isfinite(edge), edge, anywhere) + 0.5) / size
+            where = "on the window edges"
+        elif q is None:
             q = s
             ref = torch.cat([
                 torch.stack(torch.meshgrid((torch.arange(w, device=dev) + 0.5) / w,
@@ -546,6 +584,7 @@ def phase_kernels(torch, seed):
 
     msda_case("encoder", 4, None, None, None)                  # the clipped mode, the encoder's default
     msda_case("encoder far", 4, None, None, None, scale=12.0)  # the clip moves most points
+    msda_case("encoder edge", 4, "edge", None, None)             # every sample on a window edge
     msda_case("decoder", 4, 900, 0.0, 1.0)                     # the exact mode, the decoder's
     # far: up to a whole map beyond each border, hundreds of cells from any
     # query, far past the TPU kernel's +-4 cell window
@@ -730,8 +769,8 @@ def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
 
 FAMILIES = (
     ("dcn kernels", ("dcn_forward_kernel", "dcn_band_kernel")),
-    ("bi-attention kernels", ("bi_attn_wgmma_kernel", "bi_attn_combine_kernel", "bi_attn_carry_kernel")),
-    ("msda kernel", ("msda_forward_kernel",)),
+    ("bi-attention kernels", ("bi_attn_wgmma_kernel", "bi_attn_combine_kernel")),
+    ("msda kernels", ("msda_forward_kernel", "msda_band_kernel")),
     ("convolutions", ("conv", "fprop", "implicit")),
     ("matmuls", ("gemm", "nvjet", "cutlass", "xmma")),
     ("copies", ("copy",)),

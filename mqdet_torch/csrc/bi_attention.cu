@@ -55,353 +55,27 @@
 // are all masked gives the uniform average. Both C entry points (K3 and K3b)
 // launch the same kernels, so their outputs are bitwise equal.
 //
-// K4 (mqdet_bi_attention_carry_forward): ONE launch per FPN level,
-// bi_attn_carry_kernel, on WMMA bf16 without pipelining. Its 1-D grid holds
-// two block roles over this level's rows only: the T/64 x heads x B l tiles
-// first (l_tile: 64 text rows load their rows of the carried fp32 state (m,
-// den, acc of shapes (B, H, T), (B, H, T), (B, H, T, D)), run the online
-// softmax over the level with a 64 x D accumulator in shared memory,
-// recomputing s^T = k . q^T, and store the state back unnormalised, in
-// place; the wrapper takes out_l = acc / den after the last level), then the
-// N/64 x heads x B v tiles (v_tile: a 64-row tile of q against all T, the
-// row softmax with bias_l, out_v = p . vl).
+// K4 (mqdet_bi_attention_carry_forward): one call per FPN level, the same
+// two kernels. The levels are one attention over their concatenation: the v
+// blocks of a level cover its rows against all T as in K3; its l blocks
+// split the level's rows into l_splits ranges whose partials go to scratch,
+// and the combine merges them with the carried fp32 state (m, den, acc of
+// shapes (B, H, T), (B, H, T), (B, H, T, D)) as one more partial, weight
+// e^(m_carry - M). It writes the merged state back in place, unnormalised,
+// on every level but the last, and out_l = acc / den in bf16 on the last.
+// The first level reads no carry. What bounds K4 is K3's bound over the
+// concatenated rows; the tile is K3's, so it inherits K3's design.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int D = 256;        // head width (E / heads); the only width compiled
 constexpr float NEG = -1e30f;
-
-// ---- K4: WMMA tiles ------------------------------------------------------
-
-constexpr int TILE = 64;      // rows of q (v tile) / rows of text (l tile) per block
-constexpr int THREADS = 256;  // 8 warps
-constexpr int LDH = D + 8;    // bf16 leading dimension of a 64 x D (or 64 x T) tile
-constexpr int LDS = D + 4;    // fp32 leading dimension of a 64 x T (or 64 x D) tile
-constexpr int LDT = TILE + 4; // fp32 leading dimension of a 64 x 64 score tile
-constexpr int LDE = TILE + 8; // bf16 leading dimension of a 64 x 64 probability tile
-
-// v tile shared memory: [q tile, later p] [k / vl chunk] [scores, later out staging]
-constexpr size_t V_QP = 0;
-constexpr size_t V_KV = V_QP + sizeof(__nv_bfloat16) * TILE * LDH;
-constexpr size_t V_S = V_KV + sizeof(__nv_bfloat16) * TILE * LDH;
-constexpr size_t V_SMEM = V_S + sizeof(float) * TILE * LDS;
-
-// l tile shared memory: [k tile] [q / vv chunk] [score tile] [prob tile] [acc] [stats]
-constexpr size_t L_K = 0;
-constexpr size_t L_X = L_K + sizeof(__nv_bfloat16) * TILE * LDH;
-constexpr size_t L_S = L_X + sizeof(__nv_bfloat16) * TILE * LDH;
-constexpr size_t L_E = L_S + sizeof(float) * TILE * LDT;
-constexpr size_t L_ACC = L_E + sizeof(__nv_bfloat16) * TILE * LDE;
-constexpr size_t L_STAT = L_ACC + sizeof(float) * TILE * LDS;
-constexpr size_t L_SMEM = L_STAT + sizeof(float) * 3 * TILE;
-
-// a launch that holds both roles
-constexpr size_t FUSED_SMEM = V_SMEM > L_SMEM ? V_SMEM : L_SMEM;
-
-// Copy rows [r0, r0 + 64) x columns [col0, col0 + D) of a row-major (rows, ld)
-// bf16 matrix into a shared tile with leading dimension LDH; rows >= rows are 0.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long r0, long long rows, long long ld,
-                                          long long col0) {
-  for (int v = threadIdx.x; v < TILE * (D / 8); v += THREADS) {
-    const int r = v / (D / 8);
-    const int c = (v % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + col0 + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
-}
-
-// out_v rows [n0, n0 + 64) of head h, batch row b.
-__device__ __forceinline__ void v_tile(unsigned char* smem,
-                                       const __nv_bfloat16* __restrict__ q,   // (B, N, E) pre-scaled
-                                       const __nv_bfloat16* __restrict__ k,   // (B, T, E)
-                                       const __nv_bfloat16* __restrict__ vl,  // (B, T, E)
-                                       const float* __restrict__ bias,        // (B, T)
-                                       __nv_bfloat16* __restrict__ out_v,     // (B, N, E)
-                                       int N, int T, int E, long long n0, int h, int b) {
-  __nv_bfloat16* qp = reinterpret_cast<__nv_bfloat16*>(smem + V_QP);
-  __nv_bfloat16* kv = reinterpret_cast<__nv_bfloat16*>(smem + V_KV);
-  float* s = reinterpret_cast<float*>(smem + V_S);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long col0 = (long long)h * D;
-  const __nv_bfloat16* qb = q + (long long)b * N * E;
-  const __nv_bfloat16* kb = k + (long long)b * T * E;
-  const __nv_bfloat16* vlb = vl + (long long)b * T * E;
-
-  load_tile(qp, qb, n0, N, E, col0);
-
-  // scores s[64, T] = q_tile . k^T, one 64-column chunk of T at a time
-  const int rf = warp >> 1;         // row fragment 0..3
-  const int cf0 = (warp & 1) * 2;   // two column fragments
-  for (int t0 = 0; t0 < T; t0 += TILE) {
-    __syncthreads();
-    load_tile(kv, kb, t0, T, E, col0);
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, qp + rf * 16 * LDH + kk, LDH);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bm;
-        wmma::load_matrix_sync(bm, kv + (cf0 + j) * 16 * LDH + kk, LDH);
-        wmma::mma_sync(acc[j], a, bm, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(s + rf * 16 * LDS + t0 + (cf0 + j) * 16, acc[j], LDS,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // row softmax over T with the additive text bias; p overwrites the q tile
-  const float* bias_b = bias + (long long)b * T;
-  for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-    float mx = NEG;
-    for (int c = lane; c < T; c += 32) mx = fmaxf(mx, s[r * LDS + c] + bias_b[c]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int c = lane; c < T; c += 32) {
-      const float e = expf(s[r * LDS + c] + bias_b[c] - mx);
-      s[r * LDS + c] = e;
-      sum += e;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float inv = 1.f / sum;
-    for (int c = lane; c < T; c += 32) qp[r * LDH + c] = __float2bfloat16(s[r * LDS + c] * inv);
-  }
-
-  // out tile [64, D] = p . vl; warp w owns columns [32 w, 32 w + 32)
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(o[i][j], 0.f);
-  for (int t0 = 0; t0 < T; t0 += TILE) {
-    __syncthreads();
-    load_tile(kv, vlb, t0, T, E, col0);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TILE; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bm[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bm[j], kv + kk * LDH + warp * 32 + j * 16, LDH);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, qp + i * 16 * LDH + t0 + kk, LDH);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(o[i][j], a, bm[j], o[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(s + i * 16 * LDS + warp * 32 + j * 16, o[i][j], LDS,
-                              wmma::mem_row_major);
-  __syncthreads();
-  __nv_bfloat16* ob = out_v + (long long)b * N * E;
-  for (int v = threadIdx.x; v < TILE * (D / 8); v += THREADS) {
-    const int r = v / (D / 8);
-    const int c = (v % (D / 8)) * 8;
-    if (n0 + r < N) {
-      __align__(16) __nv_bfloat162 packed[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        packed[j] = __floats2bfloat162_rn(s[r * LDS + c + 2 * j], s[r * LDS + c + 2 * j + 1]);
-      *reinterpret_cast<uint4*>(ob + (n0 + r) * E + col0 + c) =
-          *reinterpret_cast<const uint4*>(packed);
-    }
-  }
-}
-
-// Text rows [t0, t0 + 64) of head h, batch row b, over all N rows of this
-// level's q / vv: start from the carried state's rows and store them back
-// unnormalised.
-__device__ __forceinline__ void l_tile(unsigned char* smem,
-                                       const __nv_bfloat16* __restrict__ q,   // (B, N, E) pre-scaled
-                                       const __nv_bfloat16* __restrict__ k,   // (B, T, E)
-                                       const __nv_bfloat16* __restrict__ vv,  // (B, N, E)
-                                       float* __restrict__ acc_st,            // (B, H, T, D)
-                                       float* __restrict__ den_st,            // (B, H, T)
-                                       float* __restrict__ m_st,              // (B, H, T)
-                                       int N, int T, int E, int heads, int t0, int h, int b) {
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(smem + L_K);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L_X);
-  float* st = reinterpret_cast<float*>(smem + L_S);
-  __nv_bfloat16* ep = reinterpret_cast<__nv_bfloat16*>(smem + L_E);
-  float* acc = reinterpret_cast<float*>(smem + L_ACC);
-  float* m_run = reinterpret_cast<float*>(smem + L_STAT);
-  float* den = m_run + TILE;
-  float* alpha = den + TILE;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long col0 = (long long)h * D;
-  const long long srow = ((long long)b * heads + h) * T + t0;  // first state row
-  const __nv_bfloat16* qb = q + (long long)b * N * E;
-  const __nv_bfloat16* vvb = vv + (long long)b * N * E;
-
-  load_tile(kt, k + (long long)b * T * E, t0, T, E, col0);
-  for (int v = threadIdx.x; v < TILE * (D / 4); v += THREADS) {
-    const int r = v / (D / 4);
-    const int c = (v % (D / 4)) * 4;
-    *reinterpret_cast<float4*>(acc + r * LDS + c) =
-        *reinterpret_cast<const float4*>(acc_st + (srow + r) * D + c);
-  }
-  if (threadIdx.x < TILE) {
-    m_run[threadIdx.x] = m_st[srow + threadIdx.x];
-    den[threadIdx.x] = den_st[srow + threadIdx.x];
-  }
-
-  const int rf = warp >> 1;
-  const int cf0 = (warp & 1) * 2;
-  for (long long n0 = 0; n0 < N; n0 += TILE) {
-    __syncthreads();  // previous chunk's readers of xs are done
-    load_tile(xs, qb, n0, N, E, col0);
-    __syncthreads();
-    {  // st[64 text, 64 vision] = k_tile . q_chunk^T
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc[2];
-      wmma::fill_fragment(sc[0], 0.f);
-      wmma::fill_fragment(sc[1], 0.f);
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, kt + rf * 16 * LDH + kk, LDH);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bm;
-          wmma::load_matrix_sync(bm, xs + (cf0 + j) * 16 * LDH + kk, LDH);
-          wmma::mma_sync(sc[j], a, bm, sc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(st + rf * 16 * LDT + (cf0 + j) * 16, sc[j], LDT,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-    // online softmax statistics over the vision axis; masked tail rows give 0
-    for (int r = warp * 8; r < warp * 8 + 8; ++r) {
-      const bool ok0 = n0 + lane < N;
-      const bool ok1 = n0 + lane + 32 < N;
-      const float s0 = ok0 ? st[r * LDT + lane] : NEG;
-      const float s1 = ok1 ? st[r * LDT + lane + 32] : NEG;
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_run[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float e0 = ok0 ? expf(s0 - m_new) : 0.f;
-      const float e1 = ok1 ? expf(s1 - m_new) : 0.f;
-      ep[r * LDE + lane] = __float2bfloat16(e0);
-      ep[r * LDE + lane + 32] = __float2bfloat16(e1);
-      float sum = e0 + e1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      __syncwarp();
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        alpha[r] = a;
-        den[r] = den[r] * a + sum;
-        m_run[r] = m_new;
-      }
-    }
-    __syncthreads();
-    load_tile(xs, vvb, n0, N, E, col0);
-    for (int i = threadIdx.x; i < TILE * D; i += THREADS) {
-      const int r = i / D;
-      acc[r * LDS + (i % D)] *= alpha[r];
-    }
-    __syncthreads();
-    {  // acc[64, D] += e . vv_chunk; warp w owns columns [32 w, 32 w + 32)
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(o[i][j], acc + i * 16 * LDS + warp * 32 + j * 16, LDS,
-                                 wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < TILE; kk += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bm[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bm[j], xs + kk * LDH + warp * 32 + j * 16, LDH);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, ep + i * 16 * LDE + kk, LDE);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(o[i][j], a, bm[j], o[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(acc + i * 16 * LDS + warp * 32 + j * 16, o[i][j], LDS,
-                                  wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  for (int v = threadIdx.x; v < TILE * (D / 4); v += THREADS) {
-    const int r = v / (D / 4);
-    const int c = (v % (D / 4)) * 4;
-    *reinterpret_cast<float4*>(acc_st + (srow + r) * D + c) =
-        *reinterpret_cast<const float4*>(acc + r * LDS + c);
-  }
-  if (threadIdx.x < TILE) {
-    m_st[srow + threadIdx.x] = m_run[threadIdx.x];
-    den_st[srow + threadIdx.x] = den[threadIdx.x];
-  }
-}
-
-// One block of K4's 1-D grid: the (T/64) x heads x B l tiles first, then
-// the ceil(N/64) x heads x B v tiles.
-__global__ void __launch_bounds__(THREADS)
-bi_attn_carry_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ vv, const __nv_bfloat16* __restrict__ vl,
-                     const float* __restrict__ bias, float* __restrict__ acc,
-                     float* __restrict__ den, float* __restrict__ m,
-                     __nv_bfloat16* __restrict__ out_v, int B, int N, int T, int E, int heads) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int l_tiles = T / TILE;
-  const long long n_l = (long long)l_tiles * heads * B;
-  long long idx = blockIdx.x;
-  if (idx < n_l) {
-    const int t0 = (int)(idx % l_tiles) * TILE;
-    const long long rest = idx / l_tiles;
-    l_tile(smem, q, k, vv, acc, den, m, N, T, E, heads, t0, (int)(rest % heads),
-           (int)(rest / heads));
-    return;
-  }
-  idx -= n_l;
-  const long long v_tiles = (N + TILE - 1) / TILE;
-  const long long rest = idx / v_tiles;
-  v_tile(smem, q, k, vl, bias, out_v, N, T, E, (idx % v_tiles) * TILE, (int)(rest % heads),
-         (int)(rest / heads));
-}
 
 // ---- K3 / K3b: the flash-attention tile on wgmma and TMA -----------------
 
@@ -699,16 +373,29 @@ bi_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   }
 }
 
-// out_l rows [t0, t0 + 16) of head h, batch row b, from the S partials:
-// out_l = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) den_s, M = max_s m_s.
-// 256 threads: 64 groups of 4 columns x 4 rows at a time.
+// Rows [t0, t0 + 16) of head h, batch row b, from the S partials and,
+// where carry_in, the carried state as one more partial:
+//   M = max(m_carry, max_s m_s), w = e^(m - M) for the carry and each partial,
+//   den = w_c den_c + sum_s w_s den_s, acc = w_c acc_c + sum_s w_s acc_s.
+// With out_l it writes out_l = acc / den (bf16); without, the merged state
+// (M, den, acc) back into the carry, unnormalised, in place (each thread
+// reads and writes only its own elements). 256 threads: 64 groups of 4
+// columns x 4 rows at a time.
 constexpr int COMBINE_ROWS = 16;
+
+struct Carry {
+  float* acc;  // (B, H, T, D)
+  float* den;  // (B, H, T)
+  float* m;    // (B, H, T)
+  int in;      // read it as a partial (0: the first level, or K3's call)
+};
 
 __global__ void __launch_bounds__(256)
 bi_attn_combine_kernel(const float* __restrict__ acc, const float* __restrict__ den,
-                       const float* __restrict__ m, __nv_bfloat16* __restrict__ out_l, int B,
-                       int T, int E, int heads, int splits) {
+                       const float* __restrict__ m, const Carry carry,
+                       __nv_bfloat16* __restrict__ out_l, int B, int T, int E, int heads, int splits) {
   __shared__ float w[MAX_SPLITS][COMBINE_ROWS];
+  __shared__ float wc[COMBINE_ROWS];
   __shared__ float inv[COMBINE_ROWS];
   const int t0 = blockIdx.x * COMBINE_ROWS, h = blockIdx.y, b = blockIdx.z;
   const long long plane = (long long)B * heads * T;  // rows of one split
@@ -716,20 +403,37 @@ bi_attn_combine_kernel(const float* __restrict__ acc, const float* __restrict__ 
   const int rows = min(COMBINE_ROWS, T - t0);
   if (threadIdx.x < rows) {
     const long long r = row0 + threadIdx.x;
-    float mx = NEG;
+    const float mc = carry.in ? carry.m[r] : NEG;
+    float mx = mc;
     for (int s = 0; s < splits; ++s) mx = fmaxf(mx, m[s * plane + r]);
     float sum = 0.f;
+    if (carry.in) {
+      const float c = exp2f((mc - mx) * LOG2E);
+      wc[threadIdx.x] = c;
+      sum = c * carry.den[r];
+    }
     for (int s = 0; s < splits; ++s) {
       const float ws = exp2f((m[s * plane + r] - mx) * LOG2E);
       w[s][threadIdx.x] = ws;
       sum += ws * den[s * plane + r];
     }
-    inv[threadIdx.x] = 1.f / sum;
+    if (out_l != nullptr) {
+      inv[threadIdx.x] = 1.f / sum;
+    } else {
+      carry.m[r] = mx;
+      carry.den[r] = sum;
+    }
   }
   __syncthreads();
   const int c = 4 * (threadIdx.x & 63);
   for (int r = threadIdx.x >> 6; r < rows; r += 4) {
+    const long long off = (row0 + r) * D + c;  // this row's columns in the carry
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (carry.in) {
+      const float ws = wc[r];
+      const float4 x = *reinterpret_cast<const float4*>(carry.acc + off);
+      a = make_float4(ws * x.x, ws * x.y, ws * x.z, ws * x.w);
+    }
 #pragma unroll 4
     for (int s = 0; s < splits; ++s) {
       const float ws = w[s][r];
@@ -738,6 +442,10 @@ bi_attn_combine_kernel(const float* __restrict__ acc, const float* __restrict__ 
       a.y += ws * x.y;
       a.z += ws * x.z;
       a.w += ws * x.w;
+    }
+    if (out_l == nullptr) {
+      *reinterpret_cast<float4*>(carry.acc + off) = a;
+      continue;
     }
     const float iv = inv[r];
     uint2 packed;
@@ -750,18 +458,9 @@ bi_attn_combine_kernel(const float* __restrict__ acc, const float* __restrict__ 
 cudaError_t configure() {
   static bool configured = false;
   if (configured) return cudaSuccess;
-  const struct {
-    const void* fn;
-    size_t bytes;
-  } kernels[] = {
-      {(const void*)bi_attn_carry_kernel, FUSED_SMEM},
-      {(const void*)bi_attn_wgmma_kernel, FA_SMEM},
-  };
-  for (const auto& kn : kernels) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kn.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kn.bytes);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err =
+      cudaFuncSetAttribute(bi_attn_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FA_SMEM);
+  if (err != cudaSuccess) return err;
   configured = true;
   return cudaSuccess;
 }
@@ -779,10 +478,12 @@ bool tensor_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// K3 and K3b: the wgmma kernel (both roles), then the combine.
+// The wgmma kernel (both roles) over N rows of q / vv, then the combine: K3
+// and K3b with no carry, one level of K4 with one. out_l null: the merged
+// state stays in the carry.
 int flash_forward(const void* q, const void* k, const void* vv, const void* vl, const void* bias,
-                  void* out_v, void* out_l, void* part_acc, void* part_den, void* part_m, int B,
-                  int N, int T, int E, int heads, int splits, void* stream) {
+                  void* out_v, void* out_l, void* part_acc, void* part_den, void* part_m,
+                  const Carry& carry, int B, int N, int T, int E, int heads, int splits, void* stream) {
   if (splits < 1 || splits > MAX_SPLITS) return (int)cudaErrorInvalidValue;
   cudaError_t err = configure();
   if (err != cudaSuccess) return (int)err;
@@ -804,7 +505,7 @@ int flash_forward(const void* q, const void* k, const void* vv, const void* vl, 
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((T + COMBINE_ROWS - 1) / COMBINE_ROWS), (unsigned)heads, (unsigned)B);
-  bi_attn_combine_kernel<<<grid, 256, 0, s>>>(args.part_acc, args.part_den, args.part_m,
+  bi_attn_combine_kernel<<<grid, 256, 0, s>>>(args.part_acc, args.part_den, args.part_m, carry,
                                             reinterpret_cast<__nv_bfloat16*>(out_l), B, T, E,
                                             heads, splits);
   return (int)cudaGetLastError();
@@ -814,9 +515,9 @@ int flash_forward(const void* q, const void* k, const void* vv, const void* vl, 
 
 // C interface (loaded with ctypes). Each requires E / heads == 256,
 // T % 64 == 0, T <= 256, N >= 1; the Python wrapper checks. Each returns
-// cudaGetLastError() after its launches. K3 and K3b take the l side's
-// scratch (part_acc (S, B, H, T, D), part_den and part_m (S, B, H, T), fp32)
-// and S = splits, 1 <= S <= 64.
+// cudaGetLastError() after its launches, and takes the l side's scratch
+// (part_acc (S, B, H, T, D), part_den and part_m (S, B, H, T), fp32) and
+// S = splits, 1 <= S <= 64.
 
 // K3: out_v and out_l.
 extern "C" int mqdet_bi_attention_forward(const void* q, const void* k, const void* vv,
@@ -824,8 +525,8 @@ extern "C" int mqdet_bi_attention_forward(const void* q, const void* k, const vo
                                           void* out_l, void* part_acc, void* part_den,
                                           void* part_m, int B, int N, int T, int E, int heads,
                                           int splits, void* stream) {
-  return flash_forward(q, k, vv, vl, bias, out_v, out_l, part_acc, part_den, part_m, B, N, T, E,
-                       heads, splits, stream);
+  return flash_forward(q, k, vv, vl, bias, out_v, out_l, part_acc, part_den, part_m, Carry{}, B, N, T,
+                       E, heads, splits, stream);
 }
 
 // K3b: the dual-score form, the same kernels (the port's l side always
@@ -835,24 +536,23 @@ extern "C" int mqdet_bi_attention_dual_forward(const void* q, const void* k, con
                                                void* out_l, void* part_acc, void* part_den,
                                                void* part_m, int B, int N, int T, int E,
                                                int heads, int splits, void* stream) {
-  return flash_forward(q, k, vv, vl, bias, out_v, out_l, part_acc, part_den, part_m, B, N, T, E,
-                       heads, splits, stream);
+  return flash_forward(q, k, vv, vl, bias, out_v, out_l, part_acc, part_den, part_m, Carry{}, B, N, T,
+                       E, heads, splits, stream);
 }
 
-// K4: one FPN level's out_v, and the carried l-side state (acc (B, H, T, D),
-// den and m (B, H, T), fp32) updated in place, in one launch.
+// K4, one FPN level of N rows: its out_v, and the carried l-side state (acc
+// (B, H, T, D), den and m (B, H, T), fp32) merged with this level's S
+// partials. `first`: the carry holds nothing yet and is only written. out_l
+// non-null (the last level): out_l = acc / den is written and the carry is
+// left as it was; null: the merged state is written back into the carry.
 extern "C" int mqdet_bi_attention_carry_forward(const void* q, const void* k, const void* vv,
-                                                const void* vl, const void* bias, void* acc,
-                                                void* den, void* m, void* out_v, int B, int N,
-                                                int T, int E, int heads, void* stream) {
-  cudaError_t err = configure();
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((long long)(T / TILE + (N + TILE - 1) / TILE) * heads * B);
-  bi_attn_carry_kernel<<<blocks, THREADS, FUSED_SMEM, reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(q), reinterpret_cast<const __nv_bfloat16*>(k),
-      reinterpret_cast<const __nv_bfloat16*>(vv), reinterpret_cast<const __nv_bfloat16*>(vl),
-      reinterpret_cast<const float*>(bias), reinterpret_cast<float*>(acc),
-      reinterpret_cast<float*>(den), reinterpret_cast<float*>(m),
-      reinterpret_cast<__nv_bfloat16*>(out_v), B, N, T, E, heads);
-  return (int)cudaGetLastError();
+                                                const void* vl, const void* bias, void* out_v,
+                                                void* part_acc, void* part_den, void* part_m,
+                                                void* carry_acc, void* carry_den, void* carry_m,
+                                                void* out_l, int B, int N, int T, int E, int heads,
+                                                int splits, int first, void* stream) {
+  const Carry carry{reinterpret_cast<float*>(carry_acc), reinterpret_cast<float*>(carry_den),
+                    reinterpret_cast<float*>(carry_m), first ? 0 : 1};
+  return flash_forward(q, k, vv, vl, bias, out_v, out_l, part_acc, part_den, part_m, carry, B, N, T, E,
+                       heads, splits, stream);
 }

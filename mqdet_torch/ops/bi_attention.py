@@ -32,9 +32,13 @@ tensor it runs its plain PyTorch version below.
 The flat form's kernel (both formulations launch the same one) is a
 flash-attention tile run for both sides: the v side over T in 64-token
 chunks, the l side over `l_splits` contiguous ranges of N (`split_ranges`)
-whose fp32 partials (m, den, acc) a second kernel combines. Two plain models
-of that decomposition, for the tests and `chip_smoke.py` only:
-`bi_attention_tiled_plain` and `combine_l_partials`.
+whose fp32 partials (m, den, acc) a second kernel combines. The levels form
+runs the same two kernels per level: the level's rows split into
+`l_splits` ranges, and the combine merges their partials with the carried
+state (`merge_l_partials`), writing out_l on the last level. The plain
+models of those decompositions, for the tests and `chip_smoke.py` only:
+`bi_attention_tiled_plain`, `bi_attention_levels_tiled_plain`,
+`combine_l_partials` and `merge_l_partials`.
 """
 from __future__ import annotations
 
@@ -193,14 +197,25 @@ def _flash_rows(qh, kh, vh, bias):
     return m, den, acc
 
 
-def combine_l_partials(m: torch.Tensor, den: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    """Plain version of the combine kernel: the S partials m, den (S, B, H,
-    T) and acc (S, B, H, T, D), fp32 and unnormalised, give out_l (B, T, E)
-    in fp32 = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) den_s, M = max_s
-    m_s. A partial (NEG, 0, 0) weighs 0."""
-    w = torch.exp(m - m.amax(dim=0))
-    out = (w[..., None] * acc).sum(dim=0) / (w * den).sum(dim=0)[..., None]
-    return _merge(out)
+def merge_l_partials(m, den, acc, carry=None):
+    """Plain version of the combine kernel's merge: the S partials m, den
+    (S, B, H, T) and acc (S, B, H, T, D), fp32 and unnormalised, and the
+    carried state `carry` = (m, den, acc) of one partial's shapes (or None)
+    as one more partial, give the merged state (M, den, acc), unnormalised:
+    weights e^(m - M), M the max over all of them. A partial (NEG, 0, 0)
+    weighs 0."""
+    if carry is not None:
+        m, den, acc = (torch.cat([c[None], x]) for c, x in zip(carry, (m, den, acc)))
+    top = m.amax(dim=0)
+    w = torch.exp(m - top)
+    return top, (w * den).sum(dim=0), (w[..., None] * acc).sum(dim=0)
+
+
+def combine_l_partials(m, den, acc, carry=None) -> torch.Tensor:
+    """Plain version of the combine kernel's output: out_l (B, T, E) in fp32
+    = acc / den of `merge_l_partials(m, den, acc, carry)`."""
+    _, den, acc = merge_l_partials(m, den, acc, carry)
+    return _merge(acc / den[..., None])
 
 
 def bi_attention_tiled_plain(q, k, vv, vl, bias_l, num_heads, splits):
@@ -212,34 +227,74 @@ def bi_attention_tiled_plain(q, k, vv, vl, bias_l, num_heads, splits):
     qh, kh, vvh, vlh = (_heads(x, h) for x in (q, k, vv, vl))
     _, den, acc = _flash_rows(qh, kh, vlh, bias_l)
     out_v = _merge(acc / den[..., None]).to(q.dtype)
+    return out_v, combine_l_partials(*_l_partials(kh, qh, vvh, splits)).to(k.dtype)
+
+
+def _l_partials(kh, qh, vvh, splits):
+    """The l side's partials of one run of the flat kernel: an online softmax
+    over each of `split_ranges(N, splits)`, stacked (S, B, H, T[, D])."""
     parts = [_flash_rows(kh, qh[:, :, lo:hi], vvh[:, :, lo:hi], None)
-             for lo, hi in split_ranges(q.shape[1], splits)]
-    m, den, acc = (torch.stack(x) for x in zip(*parts))
-    return out_v, combine_l_partials(m, den, acc).to(k.dtype)
+             for lo, hi in split_ranges(qh.shape[2], splits)]
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def bi_attention_levels_tiled_plain(qs, k, vvs, vl, bias_l, num_heads, splits=None):
+    """Plain model of the levels form's decomposition: per level, the v side
+    as in `bi_attention_tiled_plain` and the l side's partials over the
+    level's `l_splits` ranges (or `splits` on every level), merged with the
+    carried state (none before the first level); out_l from the last merge."""
+    h = num_heads
+    kh, vlh = _heads(k, h), _heads(vl, h)
+    b, _, t, _ = kh.shape
+    out_vs, carry = [], None
+    for q, vv in zip(qs, vvs):
+        qh, vvh = _heads(q, h), _heads(vv, h)
+        _, den, acc = _flash_rows(qh, kh, vlh, bias_l)
+        out_vs.append(_merge(acc / den[..., None]).to(q.dtype))
+        s = l_splits(b, h, t, q.shape[1]) if splits is None else splits
+        carry = merge_l_partials(*_l_partials(kh, qh, vvh, s), carry)
+    _, den, acc = carry
+    return out_vs, _merge(acc / den[..., None]).to(k.dtype)
+
+
+def _check_tensor(x, device):
+    if x.device != device:
+        raise ValueError("all inputs must be on one device")
+    if not x.is_contiguous():
+        raise ValueError("kernel takes contiguous tensors")
+    if x.data_ptr() % 16:
+        raise ValueError("kernel needs 16-byte aligned tensors")
+
+
+def _check_rows(q, vv, k, num_heads):
+    """Raises on a q / vv pair (one call's, or one level's) the kernels do
+    not take beside k (B, T, E)."""
+    b, n, e = q.shape
+    if e % num_heads or e // num_heads != HEAD_DIM:
+        raise ValueError(f"kernel takes head width {HEAD_DIM}, got {e}/{num_heads}")
+    if n < 1 or vv.shape != q.shape or k.shape[0] != b or k.shape[2] != e:
+        raise ValueError("bad shapes")
+    for x in (q, vv):
+        _check_tensor(x, k.device)
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"kernel takes bfloat16, got {x.dtype}")
 
 
 def _check(q, k, vv, vl, bias_l, num_heads):
     """Raises on what the kernels do not take; returns bias_l as (B, T) f32."""
-    b, n, e = q.shape
-    t = k.shape[1]
-    if e % num_heads or e // num_heads != HEAD_DIM:
-        raise ValueError(f"kernel takes head width {HEAD_DIM}, got {e}/{num_heads}")
+    b, t, _ = k.shape
     if t % 64 or not 0 < t <= 256:
         raise ValueError(f"kernel takes T a multiple of 64 up to 256, got {t}")
-    if n < 1 or vv.shape != q.shape or k.shape != (b, t, e) or vl.shape != k.shape:
+    if vl.shape != k.shape:
         raise ValueError("bad shapes")
+    _check_rows(q, vv, k, num_heads)
     if bias_l is None:
-        bias_l = torch.zeros(b, t, dtype=torch.float32, device=q.device)
+        bias_l = torch.zeros(b, t, dtype=torch.float32, device=k.device)
     if bias_l.shape != (b, t) or bias_l.dtype != torch.float32:
         raise ValueError("bias_l must be (B, T) float32")
-    for x in (q, k, vv, vl, bias_l):
-        if x.device != q.device:
-            raise ValueError("all inputs must be on one device")
-        if not x.is_contiguous():
-            raise ValueError("kernel takes contiguous tensors")
-        if x.data_ptr() % 16:
-            raise ValueError("kernel needs 16-byte aligned tensors")
-    for x in (q, k, vv, vl):
+    for x in (k, vl, bias_l):
+        _check_tensor(x, k.device)
+    for x in (k, vl):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"kernel takes bfloat16, got {x.dtype}")
     return bias_l
@@ -276,33 +331,43 @@ def _launch(q, k, vv, vl, bias_l, num_heads, dual, splits=None):
     return out_v, out_l
 
 
-def _launch_levels(qs, k, vvs, vl, bias_l, num_heads):
+def _launch_levels(qs, k, vvs, vl, bias_l, num_heads, splits=None):
+    """One C call per level (the flat kernel over the level's rows, then the
+    combine with the carry); `splits` overrides each level's `l_splits`."""
     global levels_launch_count
     if not qs or len(qs) != len(vvs):
         raise ValueError("need one q and one vv per level")
     b, t, e = k.shape
-    bias = bias_l
-    for q, vv in zip(qs, vvs):
-        bias = _check(q, k, vv, vl, bias, num_heads)
+    bias = _check(qs[0], k, vvs[0], vl, bias_l, num_heads)
+    for q, vv in zip(qs[1:], vvs[1:]):
+        _check_rows(q, vv, k, num_heads)
     h = num_heads
-    acc = torch.zeros(b, h, t, HEAD_DIM, dtype=torch.float32, device=k.device)
-    den = torch.zeros(b, h, t, dtype=torch.float32, device=k.device)
-    m = torch.full((b, h, t), NEG, dtype=torch.float32, device=k.device)
+    ss = [l_splits(b, h, t, q.shape[1]) if splits is None else int(splits) for q in qs]
+    if not all(1 <= s <= MAX_SPLITS for s in ss):
+        raise ValueError(f"splits must be in [1, {MAX_SPLITS}], got {ss}")
+    f32 = dict(dtype=torch.float32, device=k.device)
+    part_acc = torch.empty(max(ss), b, h, t, HEAD_DIM, **f32)  # reused level after level
+    part_den = torch.empty(max(ss), b, h, t, **f32)
+    part_m = torch.empty_like(part_den)
+    carry_acc = torch.empty(b, h, t, HEAD_DIM, **f32)  # written by the first level
+    carry_den = torch.empty(b, h, t, **f32)
+    carry_m = torch.empty_like(carry_den)
+    out_l = torch.empty_like(k)
     p = ctypes.c_void_p
+    fn = kernels.lib().mqdet_bi_attention_carry_forward
+    k_, vl_, bias_ = (p(x.data_ptr()) for x in (k, vl, bias))  # the same for every level
+    scratch = [p(x.data_ptr()) for x in (part_acc, part_den, part_m, carry_acc, carry_den, carry_m)]
     stream = p(kernels.stream_ptr(k.device))
     out_vs = []
-    for q, vv in zip(qs, vvs):
+    for i, (q, vv, s) in enumerate(zip(qs, vvs, ss)):
         out_v = torch.empty_like(q)
-        code = kernels.lib().mqdet_bi_attention_carry_forward(
-            p(q.data_ptr()), p(k.data_ptr()), p(vv.data_ptr()), p(vl.data_ptr()),
-            p(bias.data_ptr()), p(acc.data_ptr()), p(den.data_ptr()), p(m.data_ptr()),
-            p(out_v.data_ptr()), b, q.shape[1], t, e, h, stream,
-        )
+        last = i == len(qs) - 1
+        code = fn(p(q.data_ptr()), k_, p(vv.data_ptr()), vl_, bias_, p(out_v.data_ptr()), *scratch,
+                  p(out_l.data_ptr() if last else None), b, q.shape[1], t, e, h, s, int(i == 0), stream)
         kernels.check(code, "mqdet_bi_attention_carry_forward")
         levels_launch_count += 1
         out_vs.append(out_v)
-    out_l = (acc / den[..., None]).to(k.dtype)
-    return out_vs, _merge(out_l)
+    return out_vs, out_l
 
 
 def _device(x: torch.Tensor) -> str:
@@ -324,7 +389,7 @@ def flash_bi_attention(q, k, vv, vl, bias_l, num_heads, dual_scores=None):
 
 
 def flash_bi_attention_levels(qs, k, vvs, vl, bias_l, num_heads):
-    """See module docstring: one kernel launch per level on the card."""
+    """See module docstring: one call of the two kernels per level on the card."""
     if _device(k) == "cpu":
         return bi_attention_levels_plain(qs, k, vvs, vl, bias_l, num_heads)
     return _launch_levels(qs, k, vvs, vl, bias_l, num_heads)

@@ -113,9 +113,9 @@ def lib() -> ctypes.CDLL:
         so.mqdet_bi_attention_forward.restype = i
         so.mqdet_bi_attention_dual_forward.argtypes = [p] * 10 + [i] * 6 + [p]
         so.mqdet_bi_attention_dual_forward.restype = i
-        so.mqdet_bi_attention_carry_forward.argtypes = [p] * 9 + [i] * 5 + [p]
+        so.mqdet_bi_attention_carry_forward.argtypes = [p] * 13 + [i] * 7 + [p]
         so.mqdet_bi_attention_carry_forward.restype = i
-        so.mqdet_ms_deform_attn_forward.argtypes = [p] * 4 + [ctypes.POINTER(i)] * 2 + [i] * 8 + [p]
+        so.mqdet_ms_deform_attn_forward.argtypes = [p] * 4 + [ctypes.POINTER(i)] * 3 + [i] * 8 + [p]
         so.mqdet_ms_deform_attn_forward.restype = i
         _lib = so
     return _lib

@@ -30,17 +30,21 @@ package's rule (`mqdet_tpu/ops/ms_deform_attn.py:124-134`):
   else: `gather`, decoder queries, and a CPU tensor unless
   `pallas_interpret`, as the JAX package's CPU backend does.
 
-On a CUDA tensor both launch the kernel of `csrc/ms_deform_attn.cu` (bf16
-value and output, fp32 locations and weights, fp32 accumulation; the clipped
-function as its own mode, counted as `ms_deform_attn_clip`) or raise; on a
-CPU tensor they run the plain PyTorch versions below.
+On a CUDA tensor both launch a kernel of `csrc/ms_deform_attn.cu` (bf16
+value and output, fp32 locations and weights, fp32 accumulation): the exact
+function `msda_forward_kernel`, the clipped one `msda_band_kernel` (counted
+as `ms_deform_attn_clip`), which stages each tile's band of the value levels
+in shared memory by the rule of `msda_band_geometry`; or raise. On a CPU
+tensor they run the plain PyTorch versions below.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from mqdet_torch.ops import kernels
@@ -57,6 +61,9 @@ DEFAULT_RADIUS_FOR_K = {1: 4, 2: 4, 4: 2, 8: 2}
 FINER_RV = 3
 FINER_REFF_BY_F = {2: 2, 4: 1}
 EXACT, COARSE, FINER = 0, 1, 2  # pair modes (the kernel's table holds the same numbers)
+GATHER, BAND, WHOLE = 0, 1, 2   # the band kernel's staging of a pair
+MSDA_BAND_BYTES = 24576         # a staged band's cap (csrc/ms_deform_attn.cu MAX_BAND_BYTES)
+TILE_ROWS = 8                   # the band kernel's tile: 8 query rows (one per warp) ...
 
 
 def clip_pairs(spatial_shapes: Sequence[Tuple[int, int]]) -> Dict[Tuple[int, int], Tuple[int, int, int]]:
@@ -78,6 +85,61 @@ def clip_pairs(spatial_shapes: Sequence[Tuple[int, int]]) -> Dict[Tuple[int, int
                 rule = (FINER, hv // hq, FINER_RV)
             out[lq, lv] = rule
     return out
+
+
+def msda_tile(hd: int) -> Tuple[int, int]:
+    """(rows, columns) of query pixels in one block of the band kernel: a
+    warp per row, 32 / (hd / 8) queries of hd / 8 lanes each per warp."""
+    return TILE_ROWS, 32 // (hd // 8)
+
+
+def _coarse_cell(y: int, k: int) -> int:
+    """c(y) = floor((y + 0.5) / k - 0.5), in fp32 as the kernel computes it."""
+    f32 = np.float32
+    return int(np.floor(f32(f32(y + 0.5) / f32(k)) - f32(0.5)))
+
+
+def msda_band_geometry(spatial_shapes, hd: int) -> Dict[Tuple[int, int], Tuple[int, int, int]]:
+    """The band kernel's rule, {(lq, lv): (stage, rows, cols)} (the table the
+    host hands the kernel): a COARSE pair of `clip_pairs` (ratio k, radius R)
+    is a BAND of rows [c(y_first) - R, c(y_last) + R + 2] for a tile's query
+    rows y_first..y_last (`msda_tile`; c(y) = floor((y + 0.5) / k - 0.5); the
+    largest over the tiles, cut at nothing: rows past the map read zeros), and
+    columns likewise; an EXACT pair is WHOLE when its value level fits; FINER
+    pairs, and any band over MSDA_BAND_BYTES or 256 pixels on a side, GATHER
+    (0, 0, 0). Cached by shapes and head width: the launcher asks per call."""
+    return dict(_band_geometry(tuple((int(h), int(w)) for h, w in spatial_shapes), int(hd)))
+
+
+@functools.lru_cache(maxsize=64)
+def _band_geometry(shapes, hd):
+    th, tw = msda_tile(hd)
+    pairs = clip_pairs(shapes)
+    out = {}
+    for (lq, lv), (mode, k, r) in pairs.items():
+        (hq, wq), (hv, wv) = shapes[lq], shapes[lv]
+        rule = (GATHER, 0, 0)
+        if mode == COARSE:
+            def extent(n, t):
+                return max(_coarse_cell(y0 + t - 1, k) - _coarse_cell(y0, k) for y0 in range(0, n, t)) + 2 * r + 3
+            rule = (BAND, extent(hq, th), extent(wq, tw))
+        elif mode == EXACT:
+            rule = (WHOLE, hv, wv)
+        stage, rows, cols = rule
+        if stage != GATHER and (rows * cols * hd * 2 > MSDA_BAND_BYTES or max(rows, cols) > 256):
+            rule = (GATHER, 0, 0)
+        out[lq, lv] = rule
+    return tuple(out.items())
+
+
+def msda_band_origin(spatial_shapes, lq: int, lv: int, ty0: int, tx0: int) -> Tuple[int, int]:
+    """The value pixel (row, column) of a staged band's first element for the
+    tile whose first query pixel is (ty0, tx0): (c(ty0) - R, c(tx0) - R) for
+    a BAND, (0, 0) for a WHOLE level."""
+    mode, k, r = clip_pairs(spatial_shapes)[lq, lv]
+    if mode != COARSE:
+        return 0, 0
+    return _coarse_cell(ty0, k) - r, _coarse_cell(tx0, k) - r
 
 
 def is_encoder(value: torch.Tensor, spatial_shapes, sampling_locations: torch.Tensor) -> bool:
@@ -144,6 +206,19 @@ def _bilinear_sample(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch
     return out
 
 
+def sample_pixels(sampling_locations, lvl: int, h: int, w: int, bounds=None):
+    """(x, y), each (B, Q, nh, P) fp32: the pixel coordinates of level lvl's
+    samples (loc * (W, H) - 0.5), clamped to each query's window where
+    `bounds` (`window_bounds`) is given."""
+    loc = sampling_locations[:, :, :, lvl].float()  # (B, Q, nh, P, 2)
+    x, y = loc[..., 0] * w - 0.5, loc[..., 1] * h - 0.5
+    if bounds is not None:
+        per_q = lambda t: t[None, :, None, None]  # noqa: E731
+        y = torch.minimum(torch.maximum(y, per_q(bounds[lvl, 0])), per_q(bounds[lvl, 1]))
+        x = torch.minimum(torch.maximum(x, per_q(bounds[lvl, 2])), per_q(bounds[lvl, 3]))
+    return x, y
+
+
 def ms_deform_attn_plain(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -161,13 +236,8 @@ def ms_deform_attn_plain(
     start = 0
     for lvl, (h, w) in enumerate(spatial_shapes):
         v_l = value[:, start : start + h * w].permute(0, 2, 1, 3).reshape(b * nh, h, w, hd)
-        loc = sampling_locations[:, :, :, lvl].float()  # (B, Q, nh, P, 2)
-        x = (loc[..., 0] * w - 0.5).permute(0, 2, 1, 3).reshape(b * nh, q * p)
-        y = (loc[..., 1] * h - 0.5).permute(0, 2, 1, 3).reshape(b * nh, q * p)
-        if bounds is not None:
-            per_pt = lambda t: t[:, None].expand(q, p).reshape(1, q * p)  # noqa: E731
-            y = torch.minimum(torch.maximum(y, per_pt(bounds[lvl, 0])), per_pt(bounds[lvl, 1]))
-            x = torch.minimum(torch.maximum(x, per_pt(bounds[lvl, 2])), per_pt(bounds[lvl, 3]))
+        x, y = (t.permute(0, 2, 1, 3).reshape(b * nh, q * p)
+                for t in sample_pixels(sampling_locations, lvl, h, w, bounds))
         sampled = _bilinear_sample(v_l, x, y).reshape(b * nh, q, p, hd)
         wgt = attention_weights[:, :, :, lvl].float().permute(0, 2, 1, 3).reshape(b * nh, q, p)
         out += (sampled * wgt[..., None]).sum(dim=2)
@@ -218,13 +288,17 @@ def _launch(value, spatial_shapes, loc, attn, clip=False) -> torch.Tensor:
             raise ValueError("kernel needs 16-byte aligned tensors")
     out = torch.empty(b, q, nh * hd, dtype=value.dtype, device=value.device)
     hw = (ctypes.c_int * (2 * n_levels))(*[v for hw_ in shapes for v in hw_])
-    rule = clip_pairs(shapes)
-    pairs = (ctypes.c_int * (3 * n_levels ** 2))(*[v for lq in range(n_levels) for lv in range(n_levels)
-                                                   for v in rule[lq, lv]]) if clip else None
+    pairs = bands = None
+    if clip:
+        table = (ctypes.c_int * (3 * n_levels ** 2))
+        grid = [(lq, lv) for lq in range(n_levels) for lv in range(n_levels)]
+        rule, geometry = clip_pairs(shapes), msda_band_geometry(shapes, hd)
+        pairs = table(*[v for key in grid for v in rule[key]])
+        bands = table(*[v for key in grid for v in geometry[key]])
     ptr = ctypes.c_void_p
     code = kernels.lib().mqdet_ms_deform_attn_forward(
         ptr(value.data_ptr()), ptr(loc.data_ptr()), ptr(attn.data_ptr()), ptr(out.data_ptr()),
-        hw, pairs, b, s, q, nh, hd, n_levels, p, int(clip), ptr(kernels.stream_ptr(value.device)),
+        hw, pairs, bands, b, s, q, nh, hd, n_levels, p, int(clip), ptr(kernels.stream_ptr(value.device)),
     )
     kernels.check(code, "mqdet_ms_deform_attn_forward")
     if clip:

@@ -7,7 +7,12 @@ score forms, at tests/test_ops.py's shapes (b 2, n 700, e 256, 2 heads, q
 scaled 0.1, a random text mask) with T 64, 128 and 256: atol 2e-3 in fp32,
 that test's bound. S 7 at n 700 leaves the last range without rows. The
 masks cover a wholly masked first 64-token chunk (bias -9e15) and a batch
-item whose every token is masked (the uniform average). And `l_splits`: at
+item whose every token is masked (the uniform average). The levels form's
+decomposition (K4: per level the flat kernel's split l side, merged with the
+carried state by the combine) as `bi_attention_levels_tiled_plain` against
+`bi_attention_levels_plain` and the JAX `flash_bi_attention_levels` in
+interpret mode, at the JAX test's levels and with levels smaller than one
+128-row tile. And `l_splits`: at
 GLIP's and GroundingDINO's shapes every N row lies in exactly one range and
 the l blocks fill two waves of 132 SMs. And that `tools/perf_bi_attention`'s
 diagnostic builds still apply to the kernel source.
@@ -91,6 +96,57 @@ def test_combine_weighs_a_split_without_rows_zero():
     more = tba.combine_l_partials(torch.cat([m, m[-1:]]), torch.cat([den, den[-1:]]),
                                   torch.cat([acc, acc[-1:]]))
     assert torch.equal(more, out)
+
+
+def test_carried_merge_is_one_more_partial():
+    """The combine's carry is one more partial: merging S partials with a
+    carry equals merging S + 1 partials, and an empty carry (NEG, 0, 0)
+    changes no bit of the output (fp32)."""
+    q, k, vv, vl, _ = map(torch.from_numpy, inputs(128, "first"))
+    qh, kh, vvh = (tba._heads(x, H) for x in (q, k, vv))
+    m, den, acc = tba._l_partials(kh, qh, vvh, 4)
+    carry = (m[0], den[0], acc[0])
+    for got, want in zip(tba.merge_l_partials(m[1:], den[1:], acc[1:], carry), tba.merge_l_partials(m, den, acc)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    empty = (torch.full_like(m[0], tba.NEG), torch.zeros_like(den[0]), torch.zeros_like(acc[0]))
+    assert torch.equal(tba.combine_l_partials(m, den, acc, empty), tba.combine_l_partials(m, den, acc))
+
+
+LEVELS = {"jax test": [420, 180, 70, 30], "under one tile": [77, 5], "tails": [129, 64, 1]}
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize("levels", list(LEVELS))
+def test_levels_tiled_plain_matches_levels_plain_and_jax_interpret(levels, splits):
+    """K4's decomposition (forced 1 or 3 ranges per level, or l_splits') at
+    T 128: against `bi_attention_levels_plain` at atol 1e-5 (fp32, another
+    order of sums) and against the JAX levels kernel in interpret mode at
+    atol 2e-3 (tests/test_ops.py's bound)."""
+    from mqdet_tpu.ops.pallas.bi_attention_pallas import flash_bi_attention_levels
+
+    sizes = LEVELS[levels]
+    rng = np.random.default_rng(sum(sizes) + (splits or 0))
+    n = sum(sizes)
+    q = (rng.standard_normal((B, n, E)) * 0.1).astype(np.float32)
+    vv = rng.standard_normal((B, n, E)).astype(np.float32)
+    k, vl = (rng.standard_normal((B, 128, E)).astype(np.float32) for _ in range(2))
+    keep = rng.uniform(0, 1, (B, 128)) > 0.25
+    keep[0, :64] = False
+    bias = np.where(keep, 0.0, -9e15).astype(np.float32)
+    cut = np.cumsum(sizes)[:-1]
+    qs, vvs = np.split(q, cut, axis=1), np.split(vv, cut, axis=1)
+    tq, tvv = [torch.from_numpy(x.copy()) for x in qs], [torch.from_numpy(x.copy()) for x in vvs]
+    tk, tvl, tb = map(torch.from_numpy, (k, vl, bias))
+    tvs, tl = tba.bi_attention_levels_tiled_plain(tq, tk, tvv, tvl, tb, H, splits)
+    rvs, rl = tba.bi_attention_levels_plain(tq, tk, tvv, tvl, tb, H)
+    for got, want in zip(tvs + [tl], rvs + [rl]):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    if splits is None:  # the JAX kernel once per level set
+        jvs, jl = flash_bi_attention_levels([jnp.asarray(x) for x in qs], jnp.asarray(k),
+                                            [jnp.asarray(x) for x in vvs], jnp.asarray(vl), jnp.asarray(bias),
+                                            num_heads=H, interpret=True)
+        for got, want in zip(tvs + [tl], list(jvs) + [jl]):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3)
 
 
 @pytest.mark.parametrize("shape", [(4, 8, 256, 22400), (4, 4, 256, 22323)], ids=["glip", "gdino"])

@@ -326,6 +326,43 @@ def test_bi_attention_levels_kernel_matches_plain(dev, b, sizes, t, heads):
     assert _close(torch.cat(gvs, 1), fv) and _close(gl, fl)
 
 
+LEVEL_CASES = [(2, [420, 180, 70, 30], 128, 2), (1, [1050, 273, 77], 256, 8), (2, [129, 64, 1], 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sizes,t,heads", LEVEL_CASES)
+def test_bi_attention_levels_split_invariance(dev, b, sizes, t, heads):
+    """K4 with one l range per level against the automatic l_splits: the
+    split count changes only rounding (2e-2 * max|ref|), and each level's
+    out_v, which no split touches, is bitwise equal."""
+    q, k, vv, vl, bias = _bi_inputs(dev, b, sum(sizes), t, heads, 3 * len(sizes))
+    qs = [x.contiguous() for x in q.split(sizes, 1)]
+    vvs = [x.contiguous() for x in vv.split(sizes, 1)]
+    auto = tba._launch_levels(qs, k, vvs, vl, bias, heads)
+    one = tba._launch_levels(qs, k, vvs, vl, bias, heads, splits=1)
+    torch.cuda.synchronize()
+    _, rl = tba.bi_attention_levels_plain([x.float() for x in qs], k.float(), [x.float() for x in vvs],
+                                          vl.float(), bias, heads)
+    assert all(torch.equal(x, y) for x, y in zip(auto[0], one[0]))
+    assert (auto[1].float() - one[1].float()).abs().max().item() <= BOUND * rl.abs().max().item()
+    assert _close(auto[1], rl) and _close(one[1], rl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sizes,t,heads", LEVEL_CASES)
+def test_bi_attention_levels_kernel_matches_tiled_plain(dev, b, sizes, t, heads):
+    """K4 against the plain model of its decomposition
+    (`bi_attention_levels_tiled_plain`, fp32, the kernel's l_splits)."""
+    q, k, vv, vl, bias = _bi_inputs(dev, b, sum(sizes), t, heads, 5 * len(sizes))
+    qs = [x.contiguous() for x in q.split(sizes, 1)]
+    vvs = [x.contiguous() for x in vv.split(sizes, 1)]
+    gvs, gl = tba.flash_bi_attention_levels(qs, k, vvs, vl, bias, heads)
+    torch.cuda.synchronize()
+    tvs, tl = tba.bi_attention_levels_tiled_plain([x.float() for x in qs], k.float(), [x.float() for x in vvs],
+                                                  vl.float(), bias, heads)
+    assert all(_close(g, r) for g, r in zip(gvs, tvs)) and _close(gl, tl)
+
+
 @pytest.mark.cuda
 def test_dual_and_levels_kernels_refuse_what_they_do_not_take(dev):
     q, k, vv, vl, bias = _bi_inputs(dev, 2, 200, 64, 1, 0)
@@ -439,3 +476,56 @@ def test_msda_kernel_refuses_what_it_does_not_take(dev):
         tms.ms_deform_attn(value, shapes, loc, attn[:, :4].contiguous())
     with pytest.raises(ValueError):  # not contiguous
         tms.ms_deform_attn(value, shapes, loc.transpose(1, 2).contiguous().transpose(1, 2), attn)
+
+
+def _msda_edge(dev, b, shapes, hd=32, p=4, seed=0):
+    """Encoder queries whose sample pixels lie exactly on their windows'
+    edges (c - R, c + R + 1: the hi corner of weight 0 is the band's last
+    row) or 0.25 past them (clamped onto them), per point alternately;
+    pairs without a window sample anywhere within 2 pixels of the map."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = sum(h * w for h, w in shapes)
+    value = torch.randn(b, s, 8, hd, generator=g, device=dev).bfloat16()
+    bnd = tms.window_bounds(shapes, dev)
+    loc = torch.empty(b, s, 8, len(shapes), p, 2, device=dev)
+    for lv, (h, w) in enumerate(shapes):
+        for axis, size, (lo, hi) in ((0, w, (bnd[lv, 2], bnd[lv, 3])), (1, h, (bnd[lv, 0], bnd[lv, 1]))):
+            side = torch.rand(b, s, 8, p, generator=g, device=dev) < 0.5
+            past = 0.25 * (torch.arange(p, device=dev) % 2)  # odd points 0.25 beyond the edge
+            edge = torch.where(side, lo[None, :, None, None] - past, hi[None, :, None, None] + past)
+            anywhere = torch.rand(b, s, 8, p, generator=g, device=dev) * (size + 4) - 2
+            pix = torch.where(torch.isfinite(edge), edge, anywhere)
+            loc[:, :, :, lv, :, axis] = (pix + 0.5) / size
+    attn = torch.rand(b, s, 8, len(shapes), p, generator=g, device=dev)
+    return value, loc, attn / attn.sum(dim=(3, 4), keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [GDINO_800, [(100, 168), (50, 84)], [(21, 35), (11, 18)]])
+def test_msda_clip_kernel_at_the_window_edges(dev, monkeypatch, shapes):
+    """The band kernel with every sample on a window edge, at pyramids whose
+    8 x 8 tiles end mid-map (168 = 21 tiles, 100 = 12.5): against
+    `ms_deform_attn_clipped_plain` in fp32."""
+    monkeypatch.delenv("MQDET_MSDA_IMPL", raising=False)
+    value, loc, attn = _msda_edge(dev, 2, shapes, seed=len(shapes))
+    n0 = tms.clip_launch_count
+    got = tms.ms_deform_attn(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert tms.clip_launch_count == n0 + 1
+    assert bool(torch.isfinite(got).all()) and _close(got, tms.ms_deform_attn_clipped_plain(value.float(), shapes,
+                                                                                             loc, attn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [8, 32])
+def test_msda_clip_kernel_items_are_independent(dev, monkeypatch, hd):
+    """The band kernel's batch items are independent: the last item alone
+    gives the same rows bit for bit (its tensor maps and tiles per item)."""
+    monkeypatch.delenv("MQDET_MSDA_IMPL", raising=False)
+    shapes = [(25, 42), (13, 21), (7, 11), (4, 6)]
+    value, loc, attn = _msda(dev, 3, shapes, None, -0.2, 1.2, hd=hd, seed=hd)
+    got = tms.ms_deform_attn(value, shapes, loc, attn)
+    alone = tms.ms_deform_attn(value[-1:].contiguous(), shapes, loc[-1:].contiguous(), attn[-1:].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], got[-1])
+    assert _close(got, tms.ms_deform_attn_clipped_plain(value.float(), shapes, loc, attn))

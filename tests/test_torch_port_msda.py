@@ -5,7 +5,9 @@ the JAX package, on the CPU.
 Inputs are numpy arrays from a seed, fp32 on both sides. The JAX kernel runs
 in interpret mode under `MQDET_MSDA_IMPL=pallas_interpret`, as the JAX
 package's own tests run it; atol 2e-5 is their bound for it. The kernel's
-clipped mode is tested on a card by tests/test_torch_port_cuda.py.
+clipped mode is tested on a card by tests/test_torch_port_cuda.py; here its
+band rule (`msda_band_geometry`, `msda_band_origin`) is held against the
+clamped coordinates of `ms_deform_attn_clipped_plain`.
 """
 import jax
 import jax.numpy as jnp
@@ -165,3 +167,111 @@ def test_rule_table_copy_matches_jax():
     assert tms.DEFAULT_RADIUS_FOR_K == msda_pallas.DEFAULT_RADIUS_FOR_K
     assert tms.FINER_RV == msda_pallas.FINER_RV
     assert tms.FINER_REFF_BY_F == msda_pallas.FINER_REFF_BY_F
+
+
+def _edge_locations(shapes, rng):
+    """Encoder queries (B 1, nh 1) with 8 points per level, in value pixels:
+    exactly at the window's lo and hi corners, 0.3 past them (the clamp puts
+    them on the edge), at mixed edges, at the centre (fractional for FINER
+    pairs), and two anywhere within 3 pixels of the map; as locations."""
+    bnd = tms.window_bounds(shapes, "cpu")
+    s = bnd.shape[2]
+    loc = np.zeros((1, s, 1, len(shapes), 8, 2), np.float32)
+    for lv, (h, w) in enumerate(shapes):
+        ylo, yhi, xlo, xhi = (t.numpy().astype(np.float64) for t in bnd[lv])
+        far = ~np.isfinite(ylo)  # exact pairs: no window
+        ylo, xlo = np.where(far, -1.0, ylo), np.where(far, -1.0, xlo)
+        yhi, xhi = np.where(far, h, yhi), np.where(far, w, xhi)
+        pts = [(ylo, xlo), (yhi, xhi), (ylo - 0.3, xhi + 0.3), (yhi + 0.3, xlo - 0.3), (ylo, xhi),
+               ((ylo + yhi) / 2, (xlo + xhi) / 2)]
+        pts += [(rng.uniform(-3, h + 3, s), rng.uniform(-3, w + 3, s)) for _ in range(2)]
+        for i, (y, x) in enumerate(pts):
+            loc[0, :, 0, lv, i] = np.stack([(x + 0.5) / w, (y + 0.5) / h], -1)
+    return torch.from_numpy(loc)
+
+
+@pytest.mark.parametrize("hd", [8, 32])
+@pytest.mark.parametrize("shapes", [GDINO_800, [(16, 16), (8, 8), (4, 4), (2, 2)], [(12, 20), (6, 10), (3, 5), (2, 3)]])
+def test_band_rule_holds_every_clamped_corner(shapes, hd):
+    """Every corner the clipped function reads: on a BAND pair all four
+    corners of every clamped sample (a zero-weight corner too: the kernel
+    reads it without a test) lie inside the tile's band; on a WHOLE pair
+    every corner inside the map does; FINER pairs and bands over the cap
+    GATHER. Edges exactly at c - R and c + R + 1, FINER fractional centres,
+    queries at the maps' borders and tiles that end past them."""
+    loc = _edge_locations(shapes, np.random.default_rng(hd))
+    geometry, pairs = tms.msda_band_geometry(shapes, hd), tms.clip_pairs(shapes)
+    bnd = tms.window_bounds(shapes, "cpu")
+    th, tw = tms.msda_tile(hd)
+    start = 0
+    for lq, (hq, wq) in enumerate(shapes):
+        yq = torch.arange(hq)[:, None].expand(hq, wq).reshape(-1)
+        xq = torch.arange(wq)[None, :].expand(hq, wq).reshape(-1)
+        ty0, tx0 = yq // th * th, xq // tw * tw
+        for lv, (h, w) in enumerate(shapes):
+            stage, rows, cols = geometry[lq, lv]
+            mode = pairs[lq, lv][0]
+            x, y = (t[0, start:start + hq * wq, 0] for t in tms.sample_pixels(loc, lv, h, w, bnd))  # (n, P)
+            cy0, cx0 = torch.floor(y).long(), torch.floor(x).long()
+            if stage == tms.GATHER:
+                assert mode == tms.FINER or (mode == tms.EXACT and h * w * hd * 2 > tms.MSDA_BAND_BYTES)
+                continue
+            origins = {(a, c): tms.msda_band_origin(shapes, lq, lv, a, c)
+                       for a, c in set(zip(ty0.tolist(), tx0.tolist()))}
+            oy = torch.tensor([origins[a, c][0] for a, c in zip(ty0.tolist(), tx0.tolist())])[:, None]
+            ox = torch.tensor([origins[a, c][1] for a, c in zip(ty0.tolist(), tx0.tolist())])[:, None]
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    cy, cx = cy0 + dy, cx0 + dx
+                    inside = (cy >= oy) & (cy < oy + rows) & (cx >= ox) & (cx < ox + cols)
+                    if stage == tms.BAND:
+                        assert mode == tms.COARSE and bool(inside.all()), (lq, lv, dy, dx)
+                    else:
+                        in_map = (cy >= 0) & (cy < h) & (cx >= 0) & (cx < w)
+                        assert (rows, cols) == (h, w) and bool(inside[in_map].all()), (lq, lv)
+        start += hq * wq
+
+
+def test_band_rule_at_gdino_800():
+    """At MQ-GroundingDINO-T's 800x1344 pyramid, hd 32: the three COARSE
+    ratios are bands (18 x 18 at k 1, 15 x 15 at k 2, 9 x 9 at k 4 for an
+    8 x 8 tile), every pair with the 13x21 level but (3, 3) is the whole
+    level, the FINER and the large exact pairs gather; and the staged pairs
+    take about 92% of the encoder's samples (16 per query and head)."""
+    geometry = tms.msda_band_geometry(GDINO_800, 32)
+    assert tms.msda_tile(32) == (8, 8) and tms.msda_tile(8) == (8, 32)
+    assert geometry[0, 0] == geometry[3, 3] == (tms.BAND, 18, 18)
+    assert geometry[0, 1] == (tms.BAND, 15, 15) and geometry[0, 2] == (tms.BAND, 9, 9)
+    assert all(geometry[lq, 3] == (tms.WHOLE, 13, 21) for lq in range(3))
+    assert {key for key, rule in geometry.items() if rule[0] == tms.GATHER} == {
+        (1, 0), (2, 0), (2, 1), (3, 0), (3, 1), (3, 2)}
+    sizes = [h * w for h, w in GDINO_800]
+    staged = sum(sizes[lq] for (lq, _), rule in geometry.items() if rule[0] != tms.GATHER)
+    assert 0.90 < staged / (4 * sum(sizes)) < 0.94
+    assert tms.msda_band_origin(GDINO_800, 0, 1, 8, 16) == (3 - 4, 7 - 4)  # c(8) = 3, c(16) = 7 at k 2
+
+
+@pytest.mark.parametrize("variant", ["no_tma", "no_band_reads", "no_point_loads", "no_gather"])
+def test_band_tool_variants_apply_to_the_kernel_source(variant):
+    """Each diagnostic build of `tools/perf_msda_band` cuts its part out of
+    the current csrc/ms_deform_attn.cu (it raises when the source moved on)."""
+    import os
+
+    from mqdet_torch.ops import kernels
+    from mqdet_torch.tools import perf_msda_band
+
+    with open(os.path.join(kernels.CSRC, "ms_deform_attn.cu")) as f:
+        src = f.read()
+    cut = perf_msda_band.variant_source(variant)
+    assert cut != src and "msda_band_kernel" in cut
+
+
+def test_band_tool_fails_without_a_card():
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "mqdet_torch.tools.perf_msda_band"], cwd=repo,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and out.stdout == "" and "no CUDA device" in out.stderr
