@@ -16,22 +16,24 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      kernel and of the plain version (bf16, same inputs), CUDA events, and
      the bound (the least time the card could take: bytes moved over
      3.35 TB/s or operations over their peak rate, whichever is larger).
-     DCN at the GLIP levels (offsets x3, so the +-2 clip bites): the exact
-     kernel, its clipped mode (K2) and the band kernel (K1, version 2, on
-     wgmma and TMA), the band beside `conv_ms`, one cuDNN 3x3 convolution at
-     the shape (the yardstick of its product alone, not of DCN's function);
+     DCN at the GLIP levels (offsets x3, so the +-2 clip bites): the gather
+     kernel (`dcn_gather_kernel`, on wgmma and TMA) in its exact mode and its
+     clipped mode (K2), and the band kernel (K1, version 2, on wgmma and
+     TMA), each beside `conv_ms`, one cuDNN 3x3 convolution at the shape (the
+     yardstick of the product alone, not of DCN's function);
      at the level-0 shape under perf_dcn_sweep's two offset regimes, versions
      1, 3 and 5 against the plain version, 5 and 6 and x_tiles 2 and 3
      bitwise equal to version 2, and version 5's fast-path share; the band at
      radius 8, stride 2 (the largest band); then the sweep path itself
      (mqdet_torch.tools.perf_dcn_sweep, versions 1, 2, 3, 5, 6 at block rows
-     8 and 16), its launches counted; the band kernel's ptxas reports (no
-     spill, and no C75xx note in the build: a serialised wgmma fails the
-     run). Bi-attention, K3 and K3b (one wgmma
-     kernel and the combine behind both entry points), at GLIP's (4, 22400,
-     2048) with 8 heads and GroundingDINO's (4, 22323, 1024) with 4 heads, T
-     256, with the l side's split count S, the kernel's registers and spill
-     bytes from the ptxas report, its TFLOP/s on the 8 B N T E it computes,
+     8 and 16), its launches counted; the band and gather kernels' ptxas
+     reports (no spill, no stack frame for the gather kernel, and no C75xx
+     note in the build: a serialised wgmma fails the run). Bi-attention, K3
+     and K3b (one wgmma kernel and the combine behind both entry points),
+     at GLIP's (4, 22400, 2048) with 8 heads and GroundingDINO's (4, 22323,
+     1024) with 4 heads, T 256, with the l side's split count S, the
+     kernel's registers and spill bytes from the ptxas report, its TFLOP/s
+     on the 8 B N T E it computes,
      its share of the bound, and `library_ms`: two scaled_dot_product_attention
      calls (v side with the bias as attn_mask, l side), timed only, as the
      yardstick; K3 also against `bi_attention_tiled_plain` (the plain model of
@@ -81,8 +83,9 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      of the right shape. Then p50 over --runs timed runs and the peak device
      memory of the protocol. The same runs first under the switches, with
      phase 5 for each: MQ-GLIP-T under stream (240 level launches, 5 per
-     stage, and no pair launch), under dual (48 dual launches) and under
-     MQDET_DEFORM_IMPL=window (624 K2 launches), MQ-GroundingDINO-T under
+     stage, and no pair launch), under dual (48 dual launches), under
+     MQDET_DEFORM_IMPL=window (624 K2 launches) and under
+     MQDET_DEFORM_IMPL=gather (624 exact launches), MQ-GroundingDINO-T under
      dual (48; its fusion takes one flattened tensor, so stream does not
      apply);
   5. per protocol run, one run under torch.profiler: device busy time,
@@ -295,15 +298,14 @@ def phase_kernels(torch, seed):
             ms_ = cuda_time_ms(lambda: fn(args))
             plain_ms = cuda_time_ms(lambda: plain(args))
             bnd = dcn_bound(b, h, w, c, ho, wo, c)
-            conv = conv_yardstick_ms(torch, args[0], c, stride) if name == "dcn_band" else None
+            conv = conv_yardstick_ms(torch, args[0], c, stride)
             err = check(f"{name} x{(b, h, w, c)} stride {stride} -> {(ho, wo)}", got, ref,
                         f"; kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]})"
-                        + (f"; conv_ms {conv!r} (one cuDNN 3x3 conv at the shape: the product's yardstick, "
-                           f"not DCN's function)" if conv is not None else ""))
+                        + f"; conv_ms {conv!r} (one cuDNN 3x3 conv at the shape: the product's yardstick, "
+                        f"not DCN's function)")
             del ref, got
             record(name, f"x{(b, h, w, c)} s{stride}", err, ms_, plain_ms, bnd)
-            if conv is not None:
-                results[name][-1]["conv_ms"] = conv
+            results[name][-1]["conv_ms"] = conv
         torch.cuda.empty_cache()
 
     dcn_case(4, 100, 168, 256, 1)
@@ -412,11 +414,14 @@ def phase_kernels(torch, seed):
         sdpa(kh, qh, vvh, scale=1.0)
 
     band_regs = kernels.ptxas_reports("dcn_band_kernel")
+    gather_regs = kernels.ptxas_report("dcn_gather_kernel")
     notes = kernels.ptxas_notes()
-    say(f"phase 2: dcn_band_kernel ptxas reports (one per version, as built) {band_regs}; ptxas C75xx notes "
-        f"(wgmma serialised) in the build: {notes}")
-    if any(r["spill_stores"] or r["spill_loads"] for r in band_regs) or notes:
-        fail("dcn_band_kernel spills registers, or ptxas serialises a wgmma")
+    say(f"phase 2: dcn_band_kernel ptxas reports (one per version, as built) {band_regs}; dcn_gather_kernel "
+        f"{gather_regs}; ptxas C75xx notes (wgmma serialised) in the build: {notes}")
+    if any(r["spill_stores"] or r["spill_loads"] for r in band_regs + [gather_regs]) or notes:
+        fail("dcn_band_kernel or dcn_gather_kernel spills registers, or ptxas serialises a wgmma")
+    if gather_regs["stack"]:
+        fail("dcn_gather_kernel has a stack frame")
     wgmma_regs = kernels.ptxas_report("bi_attn_wgmma_kernel")
     say(f"phase 2: bi_attn_wgmma_kernel ptxas report {wgmma_regs} (registers at launch; setmaxnreg gives "
         f"the consumer warpgroups 240)")
@@ -768,7 +773,7 @@ def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
 
 
 FAMILIES = (
-    ("dcn kernels", ("dcn_forward_kernel", "dcn_band_kernel")),
+    ("dcn kernels", ("dcn_gather_kernel", "dcn_band_kernel")),
     ("bi-attention kernels", ("bi_attn_wgmma_kernel", "bi_attn_combine_kernel")),
     ("msda kernels", ("msda_forward_kernel", "msda_band_kernel")),
     ("convolutions", ("conv", "fprop", "implicit")),
@@ -986,6 +991,7 @@ def main() -> int:
         ("stream", None, predicted(dcn_band=dcn, bi_attention_levels=fuse * levels)),  # one launch per level
         ("dual", None, predicted(dcn_band=dcn, bi_attention_dual=fuse)),
         ("default", "window", predicted(dcn_gather_clip=dcn, bi_attention=fuse)),  # K2 in the protocol
+        ("default", "gather", predicted(dcn=dcn, bi_attention=fuse)),  # the exact mode in the protocol
         ("default", None, predicted(dcn_band=dcn, bi_attention=fuse)),
     ):
         launches[f"MQ-GLIP-T {switch}{' ' + deform if deform else ''}"] = phase_protocol(

@@ -6,19 +6,59 @@
 // samples of its positions on chip and multiplies them in bf16 with fp32
 // accumulation; the bias is added and the output written once, in bf16.
 //
-// dcn_forward_kernel: the 4-corner gather straight from device memory, on
-// WMMA, a block per 64 positions x 128 output channels.
+// dcn_gather_kernel: the 4-corner gather straight from device memory, for
+// any radius and any C % 8 == 0, in two modes:
 //   * radius < 0: exact, unclipped sampling, the function of
-//     mqdet_tpu/ops/deform_conv.py::modulated_deform_conv (zero outside the
-//     image). It replaces that XLA gather composite.
+//     mqdet_tpu/ops/deform_conv.py::modulated_deform_conv (zero for a sample
+//     at or beyond one pixel outside the image). It replaces that XLA gather
+//     composite.
 //   * radius >= 0: each (dy, dx) is clamped to [-radius, radius] before the
-//     tap is added (rel = clip(offset) + tap), the function of
+//     tap is added (rel = clip(offset) + tap; each corner outside the image
+//     is zero), the function of
 //     mqdet_tpu/ops/pallas/deform_conv_gather_pallas.py::_kernel (K2), which
 //     it replaces. The gather index absorbs the stride.
-//   Per tap it loads C in 32-channel chunks: 4 corner reads of 16 bytes per
-//   (position, 8 channels), mostly hits in L2 since neighbouring positions read
-//   neighbouring pixels. What bounds it: the gather latency it does not hide
-//   (one k-step in flight). It is off the default path.
+//   What bounds it on the H100: not the product (0.080 ms at level 0, as for
+//   the band kernel below), nor the bytes (9 taps x 4 corners x 2 C bytes
+//   per position, 1.24 GB at level 0 for C = 256, from L1 and L2), but the
+//   latency of the corner loads one gather warpgroup keeps in flight
+//   (tools/perf_dcn_band: without the product it runs about as long, with
+//   smooth offsets as with random ones). The design keeps that latency off
+//   the tensor cores' path:
+//   * A block owns 128 positions of the flat m = (b, oy, ox) (a ragged tail
+//     is masked) x 256 output channels, so each sample is built once per
+//     position for Cout <= 256.
+//   * Warp specialisation, 384 threads: a gather warpgroup fills A stages,
+//     two consumer warpgroups each hold an m64n256 fp32 accumulator in
+//     registers. No setmaxnreg: ptxas compiles every region within the
+//     launch bound's 168 registers (an m64n256 wgmma needs 154; at 512
+//     threads, 128, it refuses), so raising the consumers' count buys them
+//     nothing, and the gather warps keep 168 for loads in flight.
+//   * The K loop runs tap by tap, within a tap over 64-channel chunks, within
+//     a chunk over its four 16-channel groups: one stage per (tap, chunk),
+//     one m64n256k16 wgmma per group, A and B both from shared memory.
+//   * A stage holds the A tile, 128 positions x 64 bf16 written by the
+//     gather warps in the 128-byte-swizzled K-major layout that wgmma reads
+//     (16 KB), and the weight rows of (tap, chunk), 64 x 256 as four
+//     128-byte-swizzled 64-column panels (32 KB), loaded by TMA from a 3-D
+//     map over (Cout, C, 9) whose out-of-bounds zero fill gives zero rows
+//     past C and zero columns past Cout. The ring has 3 stages (2 to 4
+//     measured alike) with full / empty mbarriers; one gather thread issues
+//     a stage's weight loads as the stage frees up.
+//   * A gather thread owns one 8-channel group of 8 positions: per position
+//     four 16-byte corner loads (four positions' sixteen in flight at once;
+//     a software pipeline that kept two or one positions' loads in flight
+//     across the blend ran slower, and eight positions' spill), the blend in
+//     fp32 in corner order, one 16-byte store. The eight
+//     threads of a position read one 128-byte line of each corner and write
+//     one 128-byte row of the stage.
+//   * Per block, a table of every (tap, position)'s top-left pixel, its
+//     four bilinear weights times the mask (zero for a corner outside the
+//     image, and for the whole sample where the exact mode drops it) and
+//     which of its corners lie in the image is built once. Every corner in
+//     the image is loaded, whatever its weight, so a pixel's inf or NaN
+//     reaches the output as 0 * inf does in the plain versions; no corner
+//     outside it is.
+//   * The epilogue adds the bias in registers and writes bf16.
 //
 // dcn_band_kernel<VERSION>: the clipped DCNv2 of
 // mqdet_tpu/ops/pallas/deform_conv_pallas.py::_mdc_pallas_core (K1, and the
@@ -76,245 +116,13 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BM = 64;        // output positions per block
-constexpr int BN = 128;       // output channels per block
-constexpr int THREADS = 256;  // 8 warps as 2 (M) x 4 (N), 32 x 32 each
-constexpr int B_LD = BN + 8;  // padded leading dimensions (bf16 / float)
-constexpr int C_LD = BN + 4;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
-
-template <int BK>
-struct SmemAB {
-  __nv_bfloat16 a[BM * (BK + 8)];
-  __nv_bfloat16 b[BK * B_LD];
-};
-
-template <int BK>
-union SmemTile {
-  SmemAB<BK> ab;
-  float c[BM * C_LD];
-};
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ void zero_acc(Acc (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-}
-
-// B tile: BK rows (input channels c0.. of one tap) of the (9*C, Cout) weight, BN columns
-template <int BK>
-__device__ __forceinline__ void load_weight_tile(__nv_bfloat16* sb, const __nv_bfloat16* __restrict__ weight,
-                                                 int tap, int c0, int C, int Cout, int n0, int tid) {
-  for (int v = tid; v < BK * (BN / 8); v += THREADS) {
-    const int row = v / (BN / 8);
-    const int vec = v % (BN / 8);
-    const int c = c0 + row;
-    const int n = n0 + vec * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (c < C && n < Cout)
-      val = *reinterpret_cast<const uint4*>(weight + ((long long)tap * C + c) * Cout + n);
-    *reinterpret_cast<uint4*>(&sb[row * B_LD + vec * 8]) = val;
-  }
-}
-
-template <int BK>
-__device__ __forceinline__ void mma_tile(Acc (&acc)[2][2], const __nv_bfloat16* sa, const __nv_bfloat16* sb,
-                                         int warp_m, int warp_n) {
-  constexpr int A_LD = BK + 8;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(af[i], sa + (warp_m * 32 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(bf[j], sb + kk * B_LD + warp_n * 32 + j * 16, B_LD);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-  }
-}
-
-// Epilogue: stage the fp32 tile through shared memory, add bias, store bf16.
-// row_of(r) is the output row (flat b, oy, ox) of tile row r, or -1.
-template <int BK, typename RowOf>
-__device__ __forceinline__ void store_tile(Acc (&acc)[2][2], SmemTile<BK>& sm, RowOf row_of,
-                                           const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                                           int Cout, int n0, int warp_m, int warp_n, int tid) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sm.c + (warp_m * 32 + i * 16) * C_LD + warp_n * 32 + j * 16, acc[i][j], C_LD,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int v = tid; v < BM * (BN / 8); v += THREADS) {
-    const int row = v / (BN / 8);
-    const int vec = v % (BN / 8);
-    const long long m = row_of(row);
-    const int n = n0 + vec * 8;
-    if (m >= 0 && n < Cout) {
-      __align__(16) __nv_bfloat162 packed[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float a0 = sm.c[row * C_LD + vec * 8 + 2 * j];
-        float a1 = sm.c[row * C_LD + vec * 8 + 2 * j + 1];
-        if (bias != nullptr) {
-          a0 += __bfloat162float(bias[n + 2 * j]);
-          a1 += __bfloat162float(bias[n + 2 * j + 1]);
-        }
-        packed[j] = __floats2bfloat162_rn(a0, a1);
-      }
-      *reinterpret_cast<uint4*>(out + m * Cout + n) = *reinterpret_cast<const uint4*>(packed);
-    }
-  }
-}
-
-constexpr int GATHER_BK = 32;
-
-__global__ void __launch_bounds__(THREADS)
-dcn_forward_kernel(const __nv_bfloat16* __restrict__ x,       // (B, H, W, C)
-                   const __nv_bfloat16* __restrict__ offset,  // (B, Ho, Wo, 18) (dy, dx) per tap
-                   const __nv_bfloat16* __restrict__ mask,    // (B, Ho, Wo, 9)
-                   const __nv_bfloat16* __restrict__ weight,  // (9 * C, Cout)
-                   const __nv_bfloat16* __restrict__ bias,    // (Cout,) or null
-                   __nv_bfloat16* __restrict__ out,           // (B, Ho, Wo, Cout)
-                   int B, int H, int W, int C, int Ho, int Wo, int Cout, int stride, int radius) {
-  constexpr int BK = GATHER_BK;
-  constexpr int A_LD = BK + 8;
-  __shared__ __align__(128) unsigned char smem_raw[sizeof(SmemTile<BK>)];
-  SmemTile<BK>& sm = *reinterpret_cast<SmemTile<BK>*>(smem_raw);
-  __shared__ int s_idx[4][BM];    // element offset of each bilinear corner in x, -1 if absent
-  __shared__ float s_wt[4][BM];   // its bilinear weight times the modulation mask
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int warp_m = warp >> 2;  // 0..1
-  const int warp_n = warp & 3;   // 0..3
-  const long long hw_out = (long long)Ho * Wo;
-  const long long M = (long long)B * hw_out;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  Acc acc[2][2];
-  zero_acc(acc);
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int ky = tap / 3;
-    const int kx = tap % 3;
-    __syncthreads();  // the previous tap's readers of s_idx / s_wt are done
-    if (tid < BM) {
-      const long long m = m0 + tid;
-      int idx[4] = {-1, -1, -1, -1};
-      float wt[4] = {0.f, 0.f, 0.f, 0.f};
-      if (m < M) {
-        const int b = (int)(m / hw_out);
-        const int r = (int)(m - (long long)b * hw_out);
-        const int oy = r / Wo;
-        const int ox = r - oy * Wo;
-        const float dy = __bfloat162float(offset[m * 18 + 2 * tap]);
-        const float dx = __bfloat162float(offset[m * 18 + 2 * tap + 1]);
-        const float mk = __bfloat162float(mask[m * 9 + tap]);
-        bool live;
-        int y0 = 0, x0 = 0;
-        float ly = 0.f, lx = 0.f;
-        if (radius >= 0) {  // clipped: rel = clip(offset) + tap; corners outside the image are 0
-          const float rad = (float)radius;
-          const float rely = fminf(fmaxf(dy, -rad), rad) + (float)(ky - 1);
-          const float relx = fminf(fmaxf(dx, -rad), rad) + (float)(kx - 1);
-          const float fy = floorf(rely);
-          const float fx = floorf(relx);
-          y0 = oy * stride + (int)fy;
-          x0 = ox * stride + (int)fx;
-          ly = rely - fy;
-          lx = relx - fx;
-          live = true;
-        } else {  // exact: zero for samples at or beyond one pixel outside the image
-          const float y = (float)(oy * stride - 1 + ky) + dy;
-          const float xx = (float)(ox * stride - 1 + kx) + dx;
-          live = y > -1.f && y < (float)H && xx > -1.f && xx < (float)W;
-          if (live) {
-            const float y0f = floorf(y);
-            const float x0f = floorf(xx);
-            y0 = (int)y0f;
-            x0 = (int)x0f;
-            ly = y - y0f;
-            lx = xx - x0f;
-          }
-        }
-        if (live) {
-          const float cw[4] = {(1.f - ly) * (1.f - lx), (1.f - ly) * lx, ly * (1.f - lx), ly * lx};
-          const int cy[4] = {y0, y0, y0 + 1, y0 + 1};
-          const int cx[4] = {x0, x0 + 1, x0, x0 + 1};
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (cy[q] >= 0 && cy[q] < H && cx[q] >= 0 && cx[q] < W) {
-              idx[q] = ((b * H + cy[q]) * W + cx[q]) * C;
-              wt[q] = cw[q] * mk;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        s_idx[q][tid] = idx[q];
-        s_wt[q][tid] = wt[q];
-      }
-    }
-    __syncthreads();
-
-    for (int c0 = 0; c0 < C; c0 += BK) {
-      {  // A tile: one 8-channel vector of one position per thread
-        const int row = tid >> 2;
-        const int c = c0 + (tid & 3) * 8;
-        float v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = 0.f;
-        if (c < C) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int base = s_idx[q][row];
-            if (base >= 0) {
-              const float w = s_wt[q][row];
-              const uint4 raw = *reinterpret_cast<const uint4*>(x + base + c);
-              const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                const float2 f = __bfloat1622float2(p[j]);
-                v[2 * j] += w * f.x;
-                v[2 * j + 1] += w * f.y;
-              }
-            }
-          }
-        }
-        __align__(16) __nv_bfloat162 packed[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) packed[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-        *reinterpret_cast<uint4*>(&sm.ab.a[row * A_LD + (tid & 3) * 8]) = *reinterpret_cast<const uint4*>(packed);
-      }
-      load_weight_tile<BK>(sm.ab.b, weight, tap, c0, C, Cout, n0, tid);
-      __syncthreads();
-      mma_tile<BK>(acc, sm.ab.a, sm.ab.b, warp_m, warp_n);
-      __syncthreads();
-    }
-  }
-
-  store_tile<BK>(acc, sm, [&](int row) { return m0 + row < M ? m0 + row : -1LL; }, bias, out, Cout, n0,
-                 warp_m, warp_n, tid);
-}
 
 // ---- the band kernel ---------------------------------------------------------
 
@@ -739,20 +547,278 @@ int launch_band(const CUtensorMap& tx, const CUtensorMap& tw, const BandArgs& ar
   return (int)cudaGetLastError();
 }
 
+// ---- the gather kernel -------------------------------------------------------
+
+constexpr int GATHER_THREADS = 384;  // the gather warpgroup, then two consumer warpgroups
+constexpr int GATHERERS = 128;
+constexpr int CHUNK = 64;                                // input channels per stage (128 bytes a position)
+constexpr int A_BYTES = BAND_M * CHUNK * 2;              // 128 positions x 64 bf16, 16 KB
+constexpr int W_PANEL_BYTES = CHUNK * 128;               // 64 weight rows x 64 columns, 8 KB
+constexpr int W_BYTES = (BAND_N / 64) * W_PANEL_BYTES;   // 64 rows x 256 columns, 32 KB
+constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
+constexpr int GATHER_STAGES = 3;  // the ring: 2, 3 and 4 ran alike (tools/perf_dcn_band); 3 leaves L1 more room
+// Dynamic shared memory, in bytes from a 1024-aligned base: the stages (A
+// tile, then the weight panels), the table (s_pix, s_gw, s_in), the full /
+// empty barriers; GATHER_SMEM adds the 1024 bytes of slack that align the base.
+constexpr int GATHER_TABLE = GATHER_STAGES * STAGE_BYTES;
+constexpr int GATHER_BARS = GATHER_TABLE + 9 * BAND_M * (4 + 16 + 1);
+constexpr int GATHER_SMEM = 1024 + GATHER_BARS + 2 * GATHER_STAGES * 8;
+static_assert(GATHER_BARS % 8 == 0 && GATHER_SMEM <= SMEM_LIMIT, "the gather kernel's shared memory");
+
+struct GatherArgs {
+  const __nv_bfloat16* x;       // (B, H, W, C)
+  const __nv_bfloat16* offset;  // (B, Ho, Wo, 18) (dy, dx) per tap
+  const __nv_bfloat16* mask;    // (B, Ho, Wo, 9)
+  const __nv_bfloat16* bias;    // (Cout,) or null
+  __nv_bfloat16* out;           // (B, Ho, Wo, Cout)
+  int H, W, C, Ho, Wo, Cout, stride, radius, M;
+};
+
+__global__ void __launch_bounds__(GATHER_THREADS, 1)
+dcn_gather_kernel(const __grid_constant__ CUtensorMap tm_w,  // weight (3, 3, C, Cout) as a 3-D map (Cout, C, 9)
+                  const GatherArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  int* s_pix = reinterpret_cast<int*>(gbase + GATHER_TABLE);
+  float4* s_gw = reinterpret_cast<float4*>(s_pix + 9 * BAND_M);
+  unsigned char* s_in = reinterpret_cast<unsigned char*>(s_gw + 9 * BAND_M);
+  const uint32_t full = base + GATHER_BARS, empty = full + 8 * GATHER_STAGES;  // [GATHER_STAGES] each
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BAND_M;
+  const int n0 = blockIdx.y * BAND_N;
+  const int nchunks = (a.C + CHUNK - 1) / CHUNK;
+
+  if (tid == 0) {
+    for (int s = 0; s < GATHER_STAGES; ++s) {
+      mbar_init(full + 8 * s, GATHERERS + 1);  // every gather thread, and the weight's expect_tx
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  // ---- the table: top-left pixel, four corner weights and which corners lie
+  // in the image, for every (tap, position) ----
+  const int hw_out = a.Ho * a.Wo;
+  for (int e = tid; e < 9 * BAND_M; e += GATHER_THREADS) {
+    const int tap = e / BAND_M;
+    const int m = m0 + (e - tap * BAND_M);
+    const int ky = tap / 3, kx = tap % 3;
+    int pix = 0;
+    float4 gw = make_float4(0.f, 0.f, 0.f, 0.f);
+    unsigned in = 0;  // bit q: corner q lies in the image (of a sample the mode keeps)
+    if (m < a.M) {
+      const int b = m / hw_out;
+      const int r = m - b * hw_out;
+      const int oy = r / a.Wo;
+      const int ox = r - oy * a.Wo;
+      const float dy = __bfloat162float(a.offset[(long long)m * 18 + 2 * tap]);
+      const float dx = __bfloat162float(a.offset[(long long)m * 18 + 2 * tap + 1]);
+      const float mk = __bfloat162float(a.mask[(long long)m * 9 + tap]);
+      bool live;
+      int y0 = 0, x0 = 0;
+      float ly = 0.f, lx = 0.f;
+      if (a.radius >= 0) {  // clipped: rel = clip(offset) + tap; corners outside the image are 0
+        const float rad = (float)a.radius;
+        const float rely = fminf(fmaxf(dy, -rad), rad) + (float)(ky - 1);
+        const float relx = fminf(fmaxf(dx, -rad), rad) + (float)(kx - 1);
+        const float fy = floorf(rely);
+        const float fx = floorf(relx);
+        y0 = oy * a.stride + (int)fy;
+        x0 = ox * a.stride + (int)fx;
+        ly = rely - fy;
+        lx = relx - fx;
+        live = true;
+      } else {  // exact: zero for samples at or beyond one pixel outside the image
+        const float y = (float)(oy * a.stride - 1 + ky) + dy;
+        const float xx = (float)(ox * a.stride - 1 + kx) + dx;
+        live = y > -1.f && y < (float)a.H && xx > -1.f && xx < (float)a.W;
+        if (live) {
+          const float y0f = floorf(y);
+          const float x0f = floorf(xx);
+          y0 = (int)y0f;
+          x0 = (int)x0f;
+          ly = y - y0f;
+          lx = xx - x0f;
+        }
+      }
+      if (live) {
+        const bool in_y0 = y0 >= 0 && y0 < a.H, in_y1 = y0 + 1 >= 0 && y0 + 1 < a.H;
+        const bool in_x0 = x0 >= 0 && x0 < a.W, in_x1 = x0 + 1 >= 0 && x0 + 1 < a.W;
+        pix = (b * a.H + y0) * a.W + x0;  // may lie outside the image: only corners inside are read
+        in = (in_y0 && in_x0) | (in_y0 && in_x1) << 1 | (in_y1 && in_x0) << 2 | (in_y1 && in_x1) << 3;
+        gw = make_float4(in_y0 && in_x0 ? (1.f - ly) * (1.f - lx) * mk : 0.f,
+                         in_y0 && in_x1 ? (1.f - ly) * lx * mk : 0.f,
+                         in_y1 && in_x0 ? ly * (1.f - lx) * mk : 0.f,
+                         in_y1 && in_x1 ? ly * lx * mk : 0.f);
+      }
+    }
+    s_pix[e] = pix;
+    s_gw[e] = gw;
+    s_in[e] = (unsigned char)in;
+  }
+  __syncthreads();
+
+  if (tid < GATHERERS) {
+    // ---- gather warps: A stages, and each stage's weight by TMA ----
+    const int j = tid & 7;    // 8-channel group of the chunk
+    const int p0 = tid >> 3;  // positions p0 + 16 i, i = 0 .. 7
+    const int dq[4] = {0, 1, a.W, a.W + 1};
+    int slot = 0;
+    uint32_t phase = 0;
+    for (int tap = 0; tap < 9; ++tap) {
+      for (int k = 0; k < nchunks; ++k) {
+        mbar_wait(empty + 8 * slot, phase ^ 1u);
+        const uint32_t st = base + slot * STAGE_BYTES;
+        if (tid == 0) {
+          mbar_expect_tx(full + 8 * slot, W_BYTES);
+#pragma unroll
+          for (int pn = 0; pn < BAND_N / 64; ++pn)
+            tma_load(st + A_BYTES + pn * W_PANEL_BYTES, &tm_w, full + 8 * slot, n0 + 64 * pn, k * CHUNK, tap);
+        }
+        const int c = k * CHUNK + 8 * j;
+        const bool live_c = c < a.C;
+#pragma unroll
+        for (int h = 0; h < 8; h += 4) {
+          uint4 cv[4][4];
+          float wq[4][4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {  // four positions' corner loads in flight together
+            const int e = tap * BAND_M + p0 + 16 * (h + u);
+            const int pix = s_pix[e];
+            const float4 g4 = s_gw[e];
+            const unsigned in = s_in[e];
+            wq[u][0] = g4.x; wq[u][1] = g4.y; wq[u][2] = g4.z; wq[u][3] = g4.w;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              cv[u][q] = make_uint4(0u, 0u, 0u, 0u);
+              if (live_c && (in >> q & 1u))  // every corner in the image, whatever its weight
+                cv[u][q] = __ldg(reinterpret_cast<const uint4*>(a.x + (pix + dq[q]) * a.C + c));
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            float v[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) v[i] = 0.f;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&cv[u][q]);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float2 f = __bfloat1622float2(b2[i]);
+                v[2 * i] += wq[u][q] * f.x;
+                v[2 * i + 1] += wq[u][q] * f.y;
+              }
+            }
+            const int p = p0 + 16 * (h + u);
+            *reinterpret_cast<uint4*>(gbase + (st - base) + p * 128 + ((j ^ (p & 7)) << 4)) =
+                make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                           pack_bf16(v[6], v[7]));
+          }
+        }
+        fence_async_smem();  // the stores, before the consumers' wgmma reads them
+        mbar_arrive(full + 8 * slot);
+        if (++slot == GATHER_STAGES) {
+          slot = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 positions x 256 output channels each ----
+    const int cw = (tid - GATHERERS) >> 7;  // consumer warpgroup: positions 64 cw ..
+    const int warp = (tid & 127) >> 5, lane = tid & 31;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int slot = 0, prev = -1;
+    uint32_t phase = 0;
+    for (int s = 0; s < 9 * nchunks; ++s) {
+      mbar_wait(full + 8 * slot, phase);
+      const uint32_t st = base + slot * STAGE_BYTES;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < CHUNK / GROUP; ++kk)
+        wgmma_ss(acc, sw128_desc(st + cw * 64 * 128 + kk * 32, 0, 1024),
+                 sw128_desc(st + A_BYTES + kk * GROUP * 128, W_PANEL_BYTES, 1024));
+      wg_commit();
+      wg_wait1();  // the previous stage's products are done: its stage is free
+      if (prev >= 0) mbar_arrive(empty + 8 * prev);
+      prev = slot;
+      if (++slot == GATHER_STAGES) {
+        slot = 0;
+        phase ^= 1u;
+      }
+    }
+    wg_wait0();
+    fence_regs(acc);
+
+    // ---- epilogue: bias in registers, bf16 out ----
+    const int col = 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + cw * 64 + 16 * warp + (lane >> 2) + 8 * i;
+      if (m >= a.M) continue;
+      __nv_bfloat16* orow = a.out + (long long)m * a.Cout;
+#pragma unroll
+      for (int jn = 0; jn < BAND_N / 8; ++jn) {
+        const int n = n0 + 8 * jn + col;
+        if (n >= a.Cout) continue;
+        float v0 = acc[4 * jn + 2 * i], v1 = acc[4 * jn + 2 * i + 1];
+        if (a.bias != nullptr) {
+          v0 += __bfloat162float(a.bias[n]);
+          v1 += __bfloat162float(a.bias[n + 1]);
+        }
+        *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16(v0, v1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled for the gather kernel's weight: (3, 3, C, Cout) bf16
+// as (Cout, C, 9) in 64 x 64 x 1 boxes, 128-byte swizzle; coordinates past C
+// or Cout read as zeros.
+bool gather_weight_map(CUtensorMap* tw, const void* weight, int C, int Cout) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)Cout, (cuuint64_t)C, 9};
+  const cuuint64_t strides[2] = {(cuuint64_t)Cout * 2, (cuuint64_t)C * Cout * 2};
+  const cuuint32_t box[3] = {64, CHUNK, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(weight), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 // C interface (loaded with ctypes). Each returns cudaGetLastError() after the launch.
-extern "C" int mqdet_dcn_forward(const void* x, const void* offset, const void* mask,
-                                 const void* weight, const void* bias, void* out, int B, int H,
-                                 int W, int C, int Ho, int Wo, int Cout, int stride, int radius,
-                                 void* stream) {
+
+// The gather kernel: exact for radius < 0, else offsets clipped to +-radius.
+extern "C" int mqdet_dcn_forward(const void* x, const void* offset, const void* mask, const void* weight,
+                                 const void* bias, void* out, int B, int H, int W, int C, int Ho, int Wo,
+                                 int Cout, int stride, int radius, void* stream) {
   const long long M = (long long)B * Ho * Wo;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
-  dcn_forward_kernel<<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<const __nv_bfloat16*>(offset),
-      reinterpret_cast<const __nv_bfloat16*>(mask), reinterpret_cast<const __nv_bfloat16*>(weight),
-      reinterpret_cast<const __nv_bfloat16*>(bias), reinterpret_cast<__nv_bfloat16*>(out), B, H, W,
-      C, Ho, Wo, Cout, stride, radius);
+  if ((stride != 1 && stride != 2) || C < 8 || C % 8 != 0 || Cout < 8 || Cout % 8 != 0 || M >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  CUtensorMap tw;
+  if (!gather_weight_map(&tw, weight, C, Cout)) return (int)cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(dcn_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GATHER_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const GatherArgs args{reinterpret_cast<const __nv_bfloat16*>(x), reinterpret_cast<const __nv_bfloat16*>(offset),
+                        reinterpret_cast<const __nv_bfloat16*>(mask), reinterpret_cast<const __nv_bfloat16*>(bias),
+                        reinterpret_cast<__nv_bfloat16*>(out), H, W, C, Ho, Wo, Cout, stride, radius, (int)M};
+  dim3 grid((unsigned)((M + BAND_M - 1) / BAND_M), (unsigned)((Cout + BAND_N - 1) / BAND_N));
+  dcn_gather_kernel<<<grid, GATHER_THREADS, GATHER_SMEM, reinterpret_cast<cudaStream_t>(stream)>>>(tw, args);
   return (int)cudaGetLastError();
 }
 

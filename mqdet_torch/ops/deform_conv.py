@@ -5,10 +5,11 @@ kernels. The public functions keep the JAX package's signatures (without
 `interpret`) and NHWC layout: x (B,H,W,C), offset (B,Ho,Wo,18) as (dy, dx) per
 tap, mask (B,Ho,Wo,9), weight (3,3,C,Cout), bias (Cout,) or None.
 
-    modulated_deform_conv            exact sampling; kernel `dcn`
-    modulated_deform_conv_window     offsets clipped to +-radius; kernel
-    modulated_deform_conv_pallas_gather  `dcn_gather_clip` (the clipped mode
-                                     of the exact kernel, the TPU's K2)
+    modulated_deform_conv            exact sampling; the gather kernel
+                                     `dcn_gather_kernel`, counted as `dcn`
+    modulated_deform_conv_window     offsets clipped to +-radius; the same
+    modulated_deform_conv_pallas_gather  kernel's clipped mode, counted as
+                                     `dcn_gather_clip` (the TPU's K2)
     modulated_deform_conv_pallas     offsets clipped to +-radius; the band
                                      kernel `dcn_band` (K1), versions
                                      1/3/5/6 (K1b) and the x_tiles wrapper

@@ -1,5 +1,5 @@
 """Command-line tools of the port (run with `python -m mqdet_torch.tools.<name>`),
-and the two measurement helpers they share with `chip_smoke.py`."""
+and the measurement helpers they share with `chip_smoke.py`."""
 import statistics
 import subprocess
 
@@ -29,3 +29,21 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def loop_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device ms of one call of fn over `iters` calls issued back to
+    back between two CUDA events, after `warmup` calls: the device's time,
+    without the host's work between single calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

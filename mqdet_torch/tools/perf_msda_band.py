@@ -43,7 +43,7 @@ import os
 import subprocess
 import sys
 
-from mqdet_torch.tools import card
+from mqdet_torch.tools import card, loop_ms
 
 ITERS, WARMUP = 20, 3
 SHAPES = [(100, 168), (50, 84), (25, 42), (13, 21)]  # the 800x1344 pyramid
@@ -160,23 +160,6 @@ def call(so, args, route=None):
     return out
 
 
-def loop_ms(fn) -> float:
-    """Mean device ms of one call over ITERS calls issued back to back
-    between two CUDA events, after WARMUP calls."""
-    import torch
-
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(ITERS):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / ITERS
-
-
 def main() -> int:
     import torch
 
@@ -208,7 +191,8 @@ def main() -> int:
     name = card()
     order = list(runs) + list(runs)[::-1]
     for variant in order:
-        print(json.dumps({"variant": variant, "ms": loop_ms(runs[variant]), "card": name}), flush=True)
+        print(json.dumps({"variant": variant, "ms": loop_ms(runs[variant], ITERS, WARMUP), "card": name}),
+              flush=True)
     return 0
 
 

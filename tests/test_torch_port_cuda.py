@@ -32,9 +32,17 @@ def _close(got, ref):
     return (got.float() - ref).abs().max().item() <= BOUND * ref.abs().max().item()
 
 
+GATHER_SHAPES = [  # (B, H, W, C, Cout)
+    (2, 13, 21, 64, 136), (1, 5, 7, 8, 8), (4, 7, 11, 256, 256),
+    (1, 3, 43, 40, 24),     # M = 129 at stride 1: one position past a tile; C = 40, a chunk's tail
+    (1, 15, 17, 264, 264),  # M = 255; C past four 64-channel chunks; Cout past one column block
+    (2, 9, 10, 40, 512),    # two full column blocks
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stride", [1, 2])
-@pytest.mark.parametrize("shape", [(2, 13, 21, 64, 136), (1, 5, 7, 8, 8), (4, 7, 11, 256, 256)])
+@pytest.mark.parametrize("shape", GATHER_SHAPES)
 def test_dcn_kernel_matches_plain(dev, stride, shape):
     b, h, w, c, cout = shape
     ho, wo = -(-h // stride), -(-w // stride)
@@ -92,7 +100,10 @@ def _clip_ref(args, stride, radius):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stride", [1, 2])
-@pytest.mark.parametrize("shape,radius", [((2, 13, 21, 64, 136), 1), ((1, 5, 7, 8, 8), 2), ((4, 7, 11, 256, 256), 8)])
+@pytest.mark.parametrize("shape,radius", [
+    ((2, 13, 21, 64, 136), 1), ((1, 5, 7, 8, 8), 2), ((4, 7, 11, 256, 256), 8),
+    ((1, 3, 43, 40, 24), 0), ((1, 15, 17, 264, 264), 11), ((2, 9, 10, 40, 512), 2), ((1, 15, 17, 264, 24), 11),
+])
 def test_dcn_clip_kernel_matches_plain(dev, stride, shape, radius):
     """K2: the gather kernel's clipped mode, through both entry points."""
     args = _dcn_clip_inputs(dev, shape, stride, radius, seed=radius)
@@ -103,6 +114,80 @@ def test_dcn_clip_kernel_matches_plain(dev, stride, shape, radius):
     assert tdc.clip_launch_count == n0 + 2
     assert torch.equal(got, again)
     assert _close(got, _clip_ref(args, stride, radius))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [None, 11])
+def test_dcn_gather_samples_outside_the_image_give_the_bias(dev, radius):
+    """Offsets of +40 put every sample past the image's bottom right (in the
+    clipped mode at radius 11: rel >= 10 on a 5 x 7 image): the output is
+    the bias, bitwise."""
+    args = list(_dcn_clip_inputs(dev, (2, 5, 7, 40, 136), 1, 0, seed=3))
+    args[1] = torch.full_like(args[1], 40.0)
+    got = tdc._launch(*args, 1, radius)
+    torch.cuda.synchronize()
+    assert torch.equal(got, args[4].expand_as(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [None, 2])
+def test_dcn_gather_batch_items_are_independent(dev, radius):
+    """Each item of a batch of 3 (tiles straddle the items: 9 x 10 positions
+    each) gives its own launch's bits, and changing item 1's input leaves
+    items 0 and 2 as they were."""
+    args = list(_dcn_clip_inputs(dev, (3, 9, 10, 64, 136), 1, 2, seed=4))
+    whole = tdc._launch(*args, 1, radius)
+    for i in range(3):
+        alone = tdc._launch(args[0][i:i + 1].clone(), args[1][i:i + 1].clone(), args[2][i:i + 1].clone(),
+                            args[3], args[4], 1, radius)
+        torch.cuda.synchronize()
+        assert torch.equal(whole[i:i + 1], alone), i
+    args[0] = args[0].clone()
+    args[0][1] += 1.0
+    changed = tdc._launch(*args, 1, radius)
+    torch.cuda.synchronize()
+    assert torch.equal(changed[0::2], whole[0::2]) and not torch.equal(changed[1], whole[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,radius,shape", [
+    (1, None, (2, 13, 21, 40, 136)), (2, 2, (1, 15, 17, 264, 264)), (1, 11, (1, 15, 17, 264, 512)),
+    (2, None, (4, 7, 11, 256, 256)), (1, 0, (1, 3, 43, 8, 24)),
+])
+def test_dcn_gather_kernel_matches_its_model(dev, stride, radius, shape):
+    """The kernel against `gather_kernel_model` (tests/dcn_gather_model.py)
+    with A rounded to bf16 as the kernel stores it: what is left is the
+    fp32 summation order and the bf16 output, bound 4e-3 * max|ref| (five
+    times tighter than BOUND; bf16 rounding of the output alone is up to
+    2^-9 of it)."""
+    from dcn_gather_model import gather_kernel_model
+
+    args = _dcn_clip_inputs(dev, shape, stride, radius or 0, seed=shape[3])
+    got = tdc._launch(*args, stride, radius)
+    torch.cuda.synchronize()
+    ref = torch.from_numpy(gather_kernel_model(*(a.float().cpu().numpy() for a in args), stride=stride,
+                                               radius=radius, round_a=True))
+    assert (got.float().cpu() - ref).abs().max().item() <= 4e-3 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [None, 2])
+def test_dcn_gather_reads_every_corner_in_the_image(dev, radius):
+    """Zero offsets put every sample on a pixel, so its three other corners
+    weigh 0; one NaN pixel inside the image reaches each output that reads
+    it, with weight 0 or not, as in the plain versions (0 * NaN)."""
+    args = list(_dcn_clip_inputs(dev, (1, 11, 14, 64, 136), 1, 2, seed=6))
+    args[0] = args[0].clone()
+    args[0][0, 5, 6, 3] = float("nan")
+    args[1] = torch.zeros_like(args[1])
+    got = tdc._launch(*args, 1, radius)
+    torch.cuda.synchronize()
+    ref = _clip_ref(args, 1, radius) if radius is not None else tdc.modulated_deform_conv_plain(
+        *(a.float() for a in args), 1)
+    assert torch.isnan(got[0, 3, 4]).all()  # the NaN pixel is the zero-weight corner of its tap (4, 5)
+    assert torch.equal(torch.isnan(got.float().cpu()), torch.isnan(ref.cpu()))
+    fin = torch.isfinite(ref)
+    assert (got.float()[fin] - ref[fin]).abs().max().item() <= BOUND * ref[fin].abs().max().item()
 
 
 BAND_CASES = [  # (B, H, W, C, Cout), radius, block_rows: partial tiles at the right and bottom edges

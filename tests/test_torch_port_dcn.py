@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from dcn_gather_model import gather_kernel_model as _gather_kernel_model
 
 from mqdet_torch.ops import deform_conv as tdc
 
@@ -69,6 +70,108 @@ def test_gather_clip_plain_matches_jax_pallas_gather_interpret(stride):
     )
     got = tdc.modulated_deform_conv_pallas_gather(*map(torch.from_numpy, args), stride=stride, radius=2)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+# ---- the gather kernel (K2 and the exact route) ----------------------------
+
+GATHER_WIDTHS = [(8, 24), (40, 136), (64, 24)]  # (C, Cout): a chunk's tail, C past one 64-channel chunk
+
+
+def _gather_inputs(seed, b, h, w, c, cout, stride, radius, where):
+    """`x3`: offsets x3 (the clip bites), every fifth exactly at +-radius
+    (0 for the exact mode, radius None: an integer sample position); `far`:
+    offsets x12, most samples beyond the image."""
+    return _inputs(np.random.default_rng(seed), b, h, w, c, cout, stride, radius or 0,
+                   off_scale=3.0 if where == "x3" else 12.0)
+
+
+def _gather_plain(args, stride, radius):
+    t = list(map(torch.from_numpy, args))
+    if radius is None:
+        return tdc.modulated_deform_conv_plain(*t, stride=stride).numpy()
+    return tdc.modulated_deform_conv_clipped_plain(*t, stride=stride, radius=radius).numpy()
+
+
+@pytest.mark.parametrize("where", ["x3", "far"])
+@pytest.mark.parametrize("c,cout", GATHER_WIDTHS)
+@pytest.mark.parametrize("radius", [None, 0, 2, 8, 11])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_gather_kernel_model_equals_the_plain_versions(stride, radius, c, cout, where):
+    """One launch modelled in fp32 (tiles of 128 positions over flat m, the
+    last ragged: 2 x 11 x 14 positions at stride 1, 2 x 6 x 7 at stride 2;
+    each mode's corner rule; zero channels past C; the K order tap, chunk,
+    group) equals the exact (radius None) or clipped plain version: atol
+    1e-4, fp32 rounding on O(1) outputs."""
+    args = _gather_inputs(c + cout + (radius or 0), 2, 11, 14, c, cout, stride, radius, where)
+    got = _gather_kernel_model(*args, stride=stride, radius=radius)
+    np.testing.assert_allclose(got, _gather_plain(args, stride, radius), atol=1e-4, rtol=1e-5)
+
+
+def test_gather_kernel_model_rounds_a_and_writes_every_position():
+    """The bf16-rounded A (what the kernel stores) moves the result by at
+    most bf16 rounding (2^-8 relative per sample, summed over 9 C terms);
+    and every position of a 3-tile launch is written."""
+    args = _gather_inputs(5, 1, 17, 19, 40, 24, 1, 2, "x3")
+    exact = _gather_kernel_model(*args, stride=1, radius=2)
+    rounded = _gather_kernel_model(*args, stride=1, radius=2, round_a=True)
+    assert 0 < np.abs(rounded - exact).max() <= 2.0**-8 * np.abs(exact).max()
+    bias_only = _gather_kernel_model(args[0], args[1], np.zeros_like(args[2]), *args[3:], stride=1, radius=2)
+    np.testing.assert_array_equal(bias_only, np.broadcast_to(args[4], bias_only.shape))
+
+
+@pytest.mark.parametrize("stride,radius,c,cout,where", [
+    (1, 0, 8, 24, "x3"), (2, 2, 40, 136, "x3"), (1, 8, 64, 24, "far"), (2, 11, 8, 136, "far"),
+    (1, 2, 40, 24, "far"), (2, 0, 64, 136, "far"), (1, 11, 40, 136, "x3"), (2, 8, 8, 24, "x3"),
+])
+def test_gather_clip_plain_matches_jax_pallas_gather_at_every_radius(stride, radius, c, cout, where):
+    """The clipped plain version (K2's function) against the TPU kernel in
+    interpret mode (block_rows 4), at radius 0 to 11 (past the band kernel's
+    limit of 8), C 8 / 40 / 64, Cout 24 / 136, offsets x3 and past the image.
+    Tolerance against JAX: atol 1e-4 (fp32 on both sides)."""
+    from mqdet_tpu.ops.pallas.deform_conv_gather_pallas import modulated_deform_conv_pallas_gather
+
+    args = _gather_inputs(3 * radius + c, 1, 9, 13, c, cout, stride, radius, where)
+    want = modulated_deform_conv_pallas_gather(*map(jnp.asarray, args), stride=stride, radius=radius,
+                                               block_rows=4, interpret=True)
+    got = tdc.modulated_deform_conv_pallas_gather(*map(torch.from_numpy, args), stride=stride, radius=radius)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("where", ["x3", "far"])
+@pytest.mark.parametrize("c,cout", GATHER_WIDTHS + [(64, 136)])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_exact_plain_matches_jax_exact(stride, c, cout, where):
+    """The exact plain version against JAX's `modulated_deform_conv` (the
+    XLA gather composite the exact mode replaces), offsets x3 and past the
+    image. Tolerance against JAX: atol 1e-4 (fp32 on both sides)."""
+    from mqdet_tpu.ops.deform_conv import modulated_deform_conv
+
+    args = _gather_inputs(c + cout + stride, 2, 11, 14, c, cout, stride, None, where)
+    want = np.asarray(modulated_deform_conv(*map(jnp.asarray, args), stride=stride))
+    got = tdc.modulated_deform_conv(*map(torch.from_numpy, args), stride=stride)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)
+
+
+def _nan_pixel_inputs(radius):
+    """Zero offsets (every sample on a pixel: its three other corners weigh
+    0) and pixel (5, 6) of an 11 x 14 image NaN, away from the border that
+    the plain versions clamp out-of-image corners to."""
+    x, off, mask, wt, bias = _gather_inputs(7, 1, 11, 14, 8, 24, 1, radius, "x3")
+    x[0, 5, 6, 3] = np.nan
+    return x, np.zeros_like(off), mask, wt, bias
+
+
+@pytest.mark.parametrize("radius", [None, 2])
+def test_gather_kernel_model_reads_every_corner_in_the_image(radius):
+    """A corner in the image is read whatever its weight, as the plain
+    versions read it: position (3, 4) reaches the NaN pixel only as the
+    zero-weight bottom-right corner of its tap (4, 5), and is NaN in the
+    model as in the plain version; every other output agrees at atol 1e-4."""
+    args = _nan_pixel_inputs(radius)
+    got, want = _gather_kernel_model(*args, stride=1, radius=radius), _gather_plain(args, 1, radius)
+    assert np.isnan(got[0, 3, 4]).all() and np.isfinite(got[0, 8, 10]).all()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-5)
 
 
 def test_v3_plain_matches_jax_v3_interpret():
@@ -411,6 +514,32 @@ def test_sweep_inputs_are_the_jax_tools():
     np.testing.assert_allclose(offs["rand"][1, 2, 3].float().numpy(), want_rand[1, 2, 3], rtol=1e-2)
     np.testing.assert_allclose(offs["smooth"][2, 30, 33].float().numpy(), low[2, 2, 2], rtol=1e-2)
     assert m0.shape == (4, 100, 168, 9) and wt.shape == (3, 3, 256, 256) and not bs.any()
+
+
+@pytest.mark.parametrize("variant", ["no_product", "no_blend", "no_weights", "no_band", "product_only",
+                                     "gather_no_gather", "gather_no_fill", "gather_no_product", "gather_no_weights",
+                                     "gather_stages2", "gather_stages4", "gather_skip_zero"])
+def test_dcn_bound_tool_variants_apply_to_the_kernel_source(variant):
+    """Each build of `tools/perf_dcn_band` changes its part of the current
+    csrc/deform_conv.cu (it raises when the source moved on), the gather
+    variants the gather kernel's section alone."""
+    from mqdet_torch.ops import kernels
+    from mqdet_torch.tools import perf_dcn_band
+
+    with open(os.path.join(kernels.CSRC, "deform_conv.cu")) as f:
+        src = f.read()
+    cut = perf_dcn_band.variant_source(variant)
+    assert cut != src and "dcn_gather_kernel" in cut and "dcn_band_kernel" in cut
+    band = src.index("dcn_band_kernel(const __grid_constant__")
+    gather = src.index("// ---- the gather kernel")
+    first = next(i for i, (a, b) in enumerate(zip(cut, src)) if a != b)
+    assert (first > gather) == variant.startswith("gather") and first > band
+
+
+def test_dcn_bound_tool_fails_without_a_card():
+    out = subprocess.run([sys.executable, "-m", "mqdet_torch.tools.perf_dcn_band"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and out.stdout == "" and "no CUDA device" in out.stderr
 
 
 # ---- the port's rule tables --------------------------------------------------
