@@ -69,7 +69,12 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      overlap with the fp32 selection is printed; the CPU side under
      MQDET_MSDA_IMPL=pallas_interpret (the clipped function the card's
      default route computes), the share of encoder sample points the clip
-     moves printed, the card's 6 clipped and 6 exact MSDA launches counted;
+     moves printed, the card's 6 clipped and 6 exact MSDA launches counted.
+     Then per model the vision-query extraction (`make_extract_fn`) of one
+     256x256 image with 6 seeded boxes, card against CPU by the same rule on
+     the pooled (N, S, C) features: MQ-GLIP-T with SELECT_FPN_LEVEL True
+     (S = 1) and False (S = 5), MQ-GroundingDINO-T with True; no
+     hand-written kernel may launch;
   4. per model, the LVIS protocol as bench.py runs it: full width from
      init_params(seed), one 800x1344 image, 8 groups x CP 4 chunks of 40
      labels x 5 queries, T = 256, through make_protocol_fn. The launch
@@ -91,13 +96,28 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
   5. per protocol run, one run under torch.profiler: device busy time,
      idle share, kernel time by family and the time and launches of each
      hand-written kernel;
-  6. per model, last (default switches), one protocol run with a device
-     synchronise at the boundaries of its main modules (forward hooks):
-     host-clock ms per module.
+  6. per model, last of its protocol runs (default switches), one protocol
+     run with a device synchronise at the boundaries of its main modules
+     (forward hooks): host-clock ms per module;
+  7. per model, after its phase 6, the vision-query path as a user runs it,
+     at full width, with the settings of
+     configs/vision_query_5shot/lvis_minival.yaml and the detection and
+     update thresholds at 0, on an LVIS-shaped dataset written from the seed
+     (1203 categories with r/c/f frequencies, 8 images: 6 of 480x640 and 2
+     of 640x480, so both orientations of the 800x1344 bucket run; the images
+     are seeded pixels served by a `CocoDetectionDataset` subclass, because
+     the card machine has no PIL): query extraction into a bank (ms per
+     image, the banked classes exactly those with GT, no kernel launched;
+     the image tower's and ROIAlign's shares), the `ChunkedEvaluationPlan`
+     (31 chunks, shapes, build time), `run_inference` with the LVIS fixed-AP
+     evaluator (img/s, seconds by stage, launches 8 x one protocol's,
+     detections finite and inside their images, AP, APr, APc, APf finite)
+     and one `online_update` turn over 2 images from an empty bank (launches
+     2 x one protocol's, queries added > 0, seconds).
 
 The line before the last is a JSON object with one entry per kernel (its
-launches summed over the counted paths: the protocols, phase 3's card runs
-and the sweep path); the last line is {"ok": true, "device": {...}}. Any
+launches summed over the counted paths: the protocols, phase 3's card runs,
+the sweep path and phase 7's evaluation and update); the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero without those lines.
 """
 from __future__ import annotations
@@ -109,6 +129,7 @@ import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -772,6 +793,42 @@ def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
     return used
 
 
+def phase_reference_extract(torch, label, cfg, model_cpu, model_gpu, seed, select_levels):
+    """Phase 3's extraction check: `make_extract_fn` of the card model (bf16)
+    against the CPU model (fp32) on one 256x256 image with 6 seeded boxes,
+    the pooled (N, S, C) features by relative L2 under phase 3's rule (within
+    twice the plain bf16 CPU path's drift, floor E2E_FLOOR), for each
+    SELECT_FPN_LEVEL of `select_levels`. Extraction runs the image tower and
+    ROIAlign, no hand-written kernel: the card run must launch none."""
+    import numpy as np
+
+    from mqdet_torch.mq.extract import make_extract_fn
+    from mqdet_torch.ops import launch_counts
+
+    rng = np.random.default_rng(seed + 2)
+    image = torch.from_numpy(rng.standard_normal((1, 3, 256, 256)).astype(np.float32))
+    xy = rng.uniform(0, 200, (6, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 56, (6, 2))], 1).astype(np.float32)
+    model16 = copy.deepcopy(model_cpu).to(torch.bfloat16)
+    for select in select_levels:
+        c = cfg.clone()
+        c.VISION_QUERY.SELECT_FPN_LEVEL = select
+        ref = make_extract_fn(model_cpu, c)(image, boxes, 256.0, 256.0)
+        plain16 = make_extract_fn(model16, c)(image, boxes, 256.0, 256.0)
+        launch_counts(reset=True)
+        card = make_extract_fn(model_gpu, c)(image, boxes, 256.0, 256.0).cpu()
+        used = {k: v for k, v in launch_counts().items() if v}
+        if used:
+            fail(f"{label} extraction launched hand-written kernels: {used}")
+        if card.shape != ref.shape or card.dtype != torch.float32:
+            fail(f"{label} extraction: card features {tuple(card.shape)} {card.dtype}, CPU {tuple(ref.shape)}")
+        worst = compare_to_reference(torch, f"{label} extraction", ["pooled"], [ref], [plain16], [card])
+        say(f"phase 3: extraction check, {label} full width at (256, 256), SELECT_FPN_LEVEL {select}: pooled "
+            f"features {tuple(card.shape)} (6 boxes), card bf16 model vs CPU fp32: relative L2 err {worst[2]!r} "
+            f"(plain bf16 {worst[3]!r}; bound max(2 * plain, {E2E_FLOOR})); no kernel launched; ok")
+    del model16
+
+
 FAMILIES = (
     ("dcn kernels", ("dcn_gather_kernel", "dcn_band_kernel")),
     ("bi-attention kernels", ("bi_attn_wgmma_kernel", "bi_attn_combine_kernel")),
@@ -933,6 +990,221 @@ def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed
     return launches
 
 
+LVIS_FREQUENCIES = {"r": 337, "c": 461, "f": 405}  # LVIS v1's 1203 categories by frequency
+
+
+def synthetic_lvis(torch, root, seed):
+    """An LVIS-shaped dataset written from `seed` into `root`: 1203
+    categories with seeded pseudo-word names (some with LVIS's '_' and
+    '(...)') and r/c/f frequencies in LVIS v1's proportions; 8 images, 6
+    landscape 480x640 and 2 portrait 640x480; 2-6 boxes each over a pool of
+    40 categories; neg and not-exhaustive category ids per image. The json is
+    read by the port's `CocoDetectionDataset`; `load_image` is overridden
+    with the seeded pixels (smooth noise, uint8), because this machine may
+    have no PIL to read image files. Returns (dataset, {contiguous label:
+    frequency})."""
+    import numpy as np
+
+    from mqdet_torch.data.coco import CocoDetectionDataset
+
+    rng = np.random.default_rng(seed + 7)
+    syllables = ["ka", "lo", "mi", "ne", "ru", "ta", "vo", "zi", "pe", "sa", "do", "gu", "bri", "sto", "fen"]
+    freq = rng.permutation(np.repeat(list(LVIS_FREQUENCIES), list(LVIS_FREQUENCIES.values())))
+    names, cats = set(), []
+    for i in range(len(freq)):
+        name = "".join(rng.choice(syllables, rng.integers(2, 4)))
+        if i % 5 == 1:
+            name += "_" + "".join(rng.choice(syllables, 2))
+        elif i % 7 == 2:
+            name += "_(" + "".join(rng.choice(syllables, 2)) + ")"
+        while name in names:
+            name += "s"
+        names.add(name)
+        cats.append({"id": i + 1, "name": name, "frequency": str(freq[i])})
+    pool = np.concatenate([rng.choice(np.flatnonzero(freq == f), 14 if f == "r" else 13, replace=False)
+                           for f in LVIS_FREQUENCIES]) + 1
+    images, anns = [], []
+    for i in range(8):
+        h, w = (480, 640) if i < 6 else (640, 480)
+        n = int(rng.integers(2, 7))
+        labels = rng.choice(pool, n)
+        others = [int(c) for c in pool if c not in labels]
+        images.append({"id": i + 1, "file_name": f"{i + 1}.jpg", "height": h, "width": w,
+                       "neg_category_ids": [int(c) for c in rng.choice(others, 3, replace=False)],
+                       "not_exhaustive_category_ids": [int(c) for c in rng.choice(pool, 2, replace=False)]})
+        for lab in labels:
+            bw, bh = rng.uniform(20, w * 0.6), rng.uniform(20, h * 0.6)
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": int(lab),
+                         "bbox": [x0, y0, bw, bh], "area": bw * bh, "iscrowd": 0})
+    ann_file = os.path.join(root, "lvis_synthetic.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+
+    class SeededImages(CocoDetectionDataset):
+        def load_image(self, img_id):
+            im = self.images[img_id]
+            g = torch.Generator().manual_seed(seed * 1000 + img_id)
+            low = torch.rand(1, 3, im["height"] // 32, im["width"] // 32, generator=g) * 255.0
+            img = torch.nn.functional.interpolate(low, size=(im["height"], im["width"]), mode="bilinear")
+            return img[0].permute(1, 2, 0).round().to(torch.uint8).numpy()
+
+    ds = SeededImages(ann_file, img_dir=root)
+    return ds, {ds.cat_id_to_contiguous[c["id"]]: c["frequency"] for c in ds.categories}
+
+
+def synced_seconds(torch, fn, reps=1):
+    """Host-clock seconds of `reps` calls of fn, synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots):
+    """Phase 7, per model after its phase 6: the vision-query path on the
+    card at full width, with the settings of
+    configs/vision_query_5shot/lvis_minival.yaml (300 detections an image,
+    chunks of 40 classes, CP 4, 5 queries a class, MAX_QUERY_NUMBER 5, no text
+    dropout) and the detection and update thresholds at 0, so random-init
+    scores reach the evaluator and the update. `per_image`: the predicted
+    launches of one image's 8 head groups; `slots`: detection slots per
+    chunk row. Returns the launch counts of the evaluation and the update."""
+    import numpy as np
+
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.data.transforms import EvalTransform
+    from mqdet_torch.engine.evaluator import DetectionEvaluator
+    from mqdet_torch.engine.inference import ChunkedEvaluationPlan, online_update, run_inference
+    from mqdet_torch.mq.bank import QueryBank
+    from mqdet_torch.mq.extract import (
+        dataset_extraction_iter, extract_queries_into_bank, make_extract_fn, pool_queries,
+    )
+    from mqdet_torch.mq.selector import QuerySelector
+    from mqdet_torch.ops import launch_counts
+
+    dev = next(model.parameters()).device
+    c = cfg.clone()
+    c.MODEL.ATSS.DETECTIONS_PER_IMG = 300
+    c.TEST.CHUNKED_EVALUATION, c.TEST.CHUNK_PARALLELISM = 40, 4
+    c.VISION_QUERY.NUM_QUERY_PER_CLASS = c.VISION_QUERY.MAX_QUERY_NUMBER = 5
+    c.VISION_QUERY.TEXT_DROPOUT = 0.0
+    c.MODEL.ATSS.INFERENCE_TH = c.GROUNDINGDINO.box_threshold = c.VISION_QUERY.SCORE_THRESHOLD = 0.0
+    ds, freq = synthetic_lvis(torch, root, seed)
+    tok = WordPieceTokenizer()  # the hash vocab: no vocab file or download on this machine
+    n_img = len(ds.ids)
+    with_gt = {int(l) for i in ds.ids for l in ds.annotations(i)[1]}
+
+    # 1. extraction into a bank
+    extract_fn = make_extract_fn(model, c)
+    bank = QueryBank(channels=c.MODEL.BACKBONE.OUT_CHANNELS)
+    launch_counts(reset=True)
+    ext_s = synced_seconds(torch, lambda: extract_queries_into_bank(
+        extract_fn, dataset_extraction_iter(ds, EvalTransform(c), dev), bank,
+        max_query_number=c.VISION_QUERY.MAX_QUERY_NUMBER))
+    used = {k: v for k, v in launch_counts().items() if v}
+    queries = sum(bank.count(l) for l in bank.labels)
+    say(f"phase 7: {label} extraction over {n_img} images: {ext_s * 1000.0 / n_img!r} ms per image (host clock, "
+        f"synchronised; transform, image tower, ROIAlign, bank); {len(bank)} classes, {queries} queries banked; "
+        f"hand-written kernel launches {used}")
+    if set(bank.labels) != with_gt:
+        fail(f"{label} extraction: banked classes {sorted(bank.labels)} != the classes with GT {sorted(with_gt)}")
+    if used:
+        fail(f"{label} extraction launched hand-written kernels: {used}")
+    batch = next(dataset_extraction_iter(ds, EvalTransform(c), dev))
+    h, w = batch["image_size"]
+    xy = np.random.default_rng(seed).uniform(0, min(h, w) - 40, (slots, 2))
+    boxes = {"its GT": torch.from_numpy(batch["boxes"]).to(dev),
+             "an online-update row's": torch.from_numpy(np.concatenate([xy, xy + 32.0], 1).astype(np.float32)).to(dev)}
+    with torch.inference_mode():
+        feats = model.encode_image(batch["image"])
+        enc_ms = synced_seconds(torch, lambda: model.encode_image(batch["image"]), 20) * 1000.0
+        pool_ms = {k: synced_seconds(torch, lambda: pool_queries(c, feats, b, h, w), 20) * 1000.0
+                   for k, b in boxes.items()}
+    say(f"phase 7: {label} extraction split (first image, mean of 20 synchronised calls each): image tower "
+        f"{enc_ms!r} ms; ROIAlign with box expansion and means (`pool_queries`) of "
+        + "; of ".join(f"{k} {len(boxes[k])} boxes {v!r} ms, a share {v / (v + enc_ms)!r}" for k, v in pool_ms.items()))
+
+    # 2. the plan
+    selector = QuerySelector(bank, num_query_per_class=c.VISION_QUERY.NUM_QUERY_PER_CLASS,
+                             max_labels=c.VISION_QUERY.MAX_CLASSES_PER_PROMPT)
+    t0 = time.perf_counter()
+    plan = ChunkedEvaluationPlan(c, ds, tok, selector)
+    plan_s = time.perf_counter() - t0
+    shapes = {k: tuple(getattr(plan, k).shape) for k in
+              ("input_ids", "attention_mask", "all_map", "agg_map", "slot_to_label", "queries", "query_mask")}
+    say(f"phase 7: {label} ChunkedEvaluationPlan: {len(plan)} chunks, arrays {shapes}; built in {plan_s!r} s "
+        f"(host)")
+
+    # 3. run_inference with the LVIS evaluator
+    class Checked(DetectionEvaluator):
+        """Every detection finite and inside its image."""
+        def add_image(self, image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw):
+            ih, iw = ds.image_size(image_id)
+            ok = (np.isfinite(det_boxes).all() and np.isfinite(det_scores).all() and (det_boxes >= 0).all()
+                  and (det_boxes[:, 0::2] <= iw).all() and (det_boxes[:, 1::2] <= ih).all())
+            if not ok:
+                fail(f"{label} run_inference: image {image_id} has a detection not finite or outside {(ih, iw)}")
+            self.n_dets = getattr(self, "n_dets", 0) + len(det_scores)
+            super().add_image(image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw)
+
+    evaluator = Checked(style="lvis_fixed", max_dets=300, category_frequency=freq)
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    res = run_inference(c, model, ds, tok, selector, evaluator=evaluator, verbose=False)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_launches = launch_counts()
+    want = {k: v * n_img for k, v in per_image.items()}
+    aps = {k: res.get(k) for k in ("AP", "AP50", "AP75", "APr", "APc", "APf")}
+    say(f"phase 7: {label} run_inference over {n_img} images (6 landscape, 2 portrait; LVIS fixed AP, 300 "
+        f"detections): {res['images_per_second']!r} img/s ({eval_s!r} s host clock); {evaluator.n_dets} "
+        f"detections; {aps}; seconds by stage {res['seconds']} (transform, encode, head: the stream's time "
+        f"between marks; fetch: host clock of the copies, waiting for the queue; evaluator: host); launches "
+        f"{eval_launches} (predicted {want})")
+    if eval_launches != want:
+        fail(f"{label} run_inference: launches {eval_launches} != predicted {want}")
+    if not all(v is not None and np.isfinite(v) for v in aps.values()):
+        fail(f"{label} run_inference: AP fields not all finite: {aps}")
+
+    # 4. one online-update turn over 2 images from an empty bank
+    update_bank = QueryBank(channels=c.MODEL.BACKBONE.OUT_CHANNELS)
+    spent = {"extract_fn": 0.0, "calls": 0}
+
+    def timed_extract(*a):
+        t = time.perf_counter()
+        out = extract_fn(*a)
+        torch.cuda.synchronize()
+        spent["extract_fn"] += time.perf_counter() - t
+        spent["calls"] += 1
+        return out
+
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    online_update(c, model, ds, tok, QuerySelector(update_bank, num_query_per_class=c.VISION_QUERY.NUM_QUERY_PER_CLASS,
+                                                   max_labels=c.VISION_QUERY.MAX_CLASSES_PER_PROMPT),
+                  timed_extract, max_images=2)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    update_launches = launch_counts()
+    want = {k: v * 2 for k, v in per_image.items()}
+    added = sum(update_bank.count(l) for l in update_bank.labels)
+    say(f"phase 7: {label} online_update, one turn over 2 images (MAX_TEST_QUERY_NUMBER "
+        f"{c.VISION_QUERY.MAX_TEST_QUERY_NUMBER}, SCORE_THRESHOLD 0): {added} queries added over "
+        f"{len(update_bank)} classes in {update_s!r} s ({update_s / 2!r} s per image; extract_fn "
+        f"{spent['extract_fn']!r} s in {spent['calls']} calls, each re-encoding the image); launches "
+        f"{update_launches} (predicted {want})")
+    if update_launches != want:
+        fail(f"{label} online_update: launches {update_launches} != predicted {want}")
+    if not added:
+        fail(f"{label} online_update added no query")
+    return {f"{label} vision-query eval": eval_launches, f"{label} online update": update_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -966,6 +1238,7 @@ def main() -> int:
         f"{len(kernels.sources())} kernel sources built from mqdet_torch/csrc for sm_90a in "
         f"{build_s!r} s ({os.path.basename(kernels.library_path())})")
 
+    tmp = tempfile.TemporaryDirectory()  # phase 7's synthetic dataset; removed at exit
     kres, sweep_launches = phase_kernels(torch, args.seed)
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
@@ -978,6 +1251,7 @@ def main() -> int:
     model_cpu = init_params(build_model(cfg), seed=args.seed).eval()
     model = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
     launches.update(phase_reference_glip(torch, cfg, model_cpu, model, args.seed))
+    phase_reference_extract(torch, "MQ-GLIP-T", cfg, model_cpu, model, args.seed, (True, False))
     del model_cpu
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
     groups = -(-31 // 4)
@@ -998,6 +1272,8 @@ def main() -> int:
             torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300, want, args.runs, args.seed,
             parts if switch == "default" and deform is None else None, switch, deform,
         )
+    launches.update(phase_vision_query(torch, "MQ-GLIP-T", cfg, model, args.seed,
+                                       predicted(dcn_band=dcn, bi_attention=fuse), tmp.name, 300))
     del model, tower, parts  # nothing of MQ-GLIP-T may stay on the card
     torch.cuda.empty_cache()
 
@@ -1007,6 +1283,7 @@ def main() -> int:
     model_cpu = init_params(build_model(cfg), seed=args.seed).eval()
     model = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
     launches["MQ-GroundingDINO-T reference"] = phase_reference_gdino(torch, cfg, model_cpu, model, args.seed)
+    phase_reference_extract(torch, "MQ-GroundingDINO-T", cfg, model_cpu, model, args.seed, (True,))
     del model_cpu
     enc, dec, fuse = groups * g.enc_layers, groups * g.dec_layers, groups * g.enc_layers
     tr = model.transformer
@@ -1024,6 +1301,9 @@ def main() -> int:
             torch, "MQ-GroundingDINO-T", model, cfg, synthetic_caption_batch, g.num_queries, want,
             args.runs, args.seed, parts if switch == "default" else None, switch,
         )
+    launches.update(phase_vision_query(
+        torch, "MQ-GroundingDINO-T", cfg, model, args.seed,
+        predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention=fuse), tmp.name, g.num_queries))
     del model, tr, parts
 
     say(f"wall time {time.perf_counter() - t_start!r} s (build included)")

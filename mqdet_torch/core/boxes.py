@@ -68,3 +68,14 @@ def remove_small_boxes_mask(boxes: torch.Tensor, min_size: float) -> torch.Tenso
     ws = boxes[..., 2] - boxes[..., 0] + TO_REMOVE
     hs = boxes[..., 3] - boxes[..., 1] + TO_REMOVE
     return (ws >= min_size) & (hs >= min_size)
+
+
+def expand_boxes(boxes: torch.Tensor, ratio: float, height, width) -> torch.Tensor:
+    """expand_bbox (generalized_vl_rcnn_new.py:32-49): scale boxes about their
+    center by `ratio`, clipped to the image."""
+    cx = (boxes[..., 0] + boxes[..., 2]) * 0.5
+    cy = (boxes[..., 1] + boxes[..., 3]) * 0.5
+    half_w = (boxes[..., 2] - boxes[..., 0]) * 0.5 * ratio
+    half_h = (boxes[..., 3] - boxes[..., 1]) * 0.5 * ratio
+    out = torch.stack([cx - half_w, cy - half_h, cx + half_w, cy + half_h], dim=-1)
+    return clip_to_image(out, height, width)

@@ -42,13 +42,16 @@ def tiny_test_config() -> CfgNode:
     cfg.MODEL.LANGUAGE_BACKBONE.VOCAB_SIZE = 30522
     cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN = 16
     cfg.VISION_QUERY.START_QV_LAYER = 1
+    cfg.TPU.IMAGE_BUCKETS = ((64, 64),)
     return cfg
 
 
 def mq_groundingdino_t_config() -> CfgNode:
     """MQ-GroundingDINO-T (configs/pretrain/mq-groundingdino-t.yaml): Swin-T,
     hidden 256, 8 heads, FFN 2048, 6 + 6 layers, 900 queries, 4 levels x 4
-    points, BERT-base with GCP from layer 6, max_text_len 256."""
+    points, BERT-base with GCP from layer 6, max_text_len 256. Its image bucket
+    is the yaml's 800x1344, where the JAX package's builder sets the TPU-only
+    832x1408 (chosen for its Pallas MSDA kernel's exact level ratios)."""
     cfg = default_config()
     cfg.GROUNDINGDINO.enabled = True
     cfg.VISION_QUERY.ENABLED = True

@@ -614,3 +614,98 @@ def test_msda_clip_kernel_items_are_independent(dev, monkeypatch, hd):
     torch.cuda.synchronize()
     assert torch.equal(alone[0], got[-1])
     assert _close(got, tms.ms_deform_attn_clipped_plain(value.float(), shapes, loc, attn))
+
+
+# ---- the vision-query path ------------------------------------------------------
+
+
+ROI_BOXES = [[10, 12, 30, 40], [0, 0, 223, 159], [200, 140, 260, 190], [-30, -20, 5, 8],
+             [40, 30, 140, 130], [60, 21, 460, 423], [3.3, 7.7, 13.1, 17.9], [-7, -3, 1993, 1903]]
+
+
+@pytest.mark.cuda
+def test_roi_align_on_the_card_matches_the_cpu(dev):
+    """Both ROIAlign routes on bf16 maps cast to fp32, as extraction pools
+    them: the card equals the CPU within fp32 rounding (no sample lies on
+    the edge of the zero region)."""
+    from mqdet_torch.ops import roi_align as troi
+
+    g = torch.Generator().manual_seed(0)
+    maps = [torch.randn(h, w, 64, generator=g).bfloat16() for h, w in [(20, 28), (10, 14), (5, 7), (3, 4), (2, 2)]]
+    rois = torch.tensor(ROI_BOXES)
+    scales = (0.125, 0.0625, 0.03125, 0.015625, 0.0078125)
+    for fn in (troi.multi_level_roi_align, troi.all_level_roi_align):
+        want = fn([m.float() for m in maps], rois, scales)
+        got = fn([m.to(dev).float() for m in maps], rois.to(dev), scales)
+        assert got.device.type == "cuda"
+        assert torch.allclose(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_eval_transform_on_the_card_matches_the_cpu(dev):
+    """PIL's fixed-point resize in float64 on the card: the same bits as on
+    the CPU, landscape and portrait at the LVIS protocol's sizes."""
+    import numpy as np
+
+    from mqdet_torch.data.transforms import EvalTransform
+    from mqdet_torch.utils.builders import mq_glip_t_config
+
+    tf = EvalTransform(mq_glip_t_config())
+    for hw in ((480, 640), (640, 480), (333, 500)):
+        img = np.random.default_rng(sum(hw)).integers(0, 256, hw + (3,), dtype=np.uint8)
+        want, size, scale = tf(img)
+        got, size_d, scale_d = tf(img, dev)
+        assert (size_d, scale_d) == (size, scale) and got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_run_inference_on_the_card_launches_the_kernels(dev, tmp_path):
+    """Tiny MQ-GLIP in bf16 on the card (T 64, the bi-attention kernel's
+    multiple), 3 images of 60x80 (one portrait), 8 classes in chunks of 3, CP
+    2 (2 groups): every head group launches 13 DCN (the gather kernel's
+    clipped mode: C 16 is no multiple of 128) and one bi-attention; the
+    detections and AP are finite. Images come from a `load_image` override:
+    the card machine has no PIL."""
+    import json
+
+    import numpy as np
+
+    from mqdet_torch.data.coco import CocoDetectionDataset
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.engine.inference import run_inference
+    from mqdet_torch.mq.bank import QueryBank
+    from mqdet_torch.mq.selector import QuerySelector
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import build_model, init_params, tiny_test_config
+
+    cfg = tiny_test_config()
+    cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN = 64
+    cfg.TPU.IMAGE_BUCKETS = ((64, 96),)
+    cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = 48, 80
+    cfg.TEST.CHUNKED_EVALUATION, cfg.TEST.CHUNK_PARALLELISM = 3, 2
+    cfg.VISION_QUERY.MAX_CLASSES_PER_PROMPT, cfg.VISION_QUERY.NUM_QUERY_PER_CLASS = 3, 2
+    cfg.MODEL.ATSS.INFERENCE_TH = 0.0
+    sizes = [(60, 80), (60, 80), (80, 60)]
+    images = [{"id": i, "file_name": f"{i}.png", "height": h, "width": w} for i, (h, w) in enumerate(sizes)]
+    anns = [{"id": i + 1, "image_id": i, "category_id": i % 8 + 1, "bbox": [5.0, 6.0, 30.0, 20.0], "area": 600.0,
+             "iscrowd": 0} for i in range(3)]
+    cats = [{"id": i + 1, "name": n} for i, n in enumerate(["cat", "dog", "hot_dog", "ski pole", "bow_(weapon)",
+                                                             "tie", "frisbee", "person"])]
+    (tmp_path / "ann.json").write_text(json.dumps({"images": images, "annotations": anns, "categories": cats}))
+    pixels = {i: np.random.default_rng(i).integers(0, 256, hw + (3,), dtype=np.uint8) for i, hw in enumerate(sizes)}
+
+    class Seeded(CocoDetectionDataset):
+        def load_image(self, img_id):
+            return pixels[img_id]
+
+    bank = QueryBank(channels=16)
+    for lab in (1, 2, 4, 7):
+        bank.add(lab, np.random.default_rng(lab).standard_normal((3, 1, 16)).astype(np.float32))
+    model = init_params(build_model(cfg), seed=0).eval().to(dev, torch.bfloat16)
+    launch_counts(reset=True)
+    res = run_inference(cfg, model, Seeded(str(tmp_path / "ann.json"), str(tmp_path)), WordPieceTokenizer(),
+                        QuerySelector(bank, num_query_per_class=2, max_labels=3), verbose=False)
+    used = {k: v for k, v in launch_counts().items() if v}
+    assert used == {"dcn_gather_clip": 3 * 2 * 13, "bi_attention": 3 * 2}
+    assert np.isfinite(res["AP"]) and res["images_per_second"] > 0

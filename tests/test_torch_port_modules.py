@@ -226,7 +226,11 @@ def test_init_params_follows_init_params_fast_rule():
 
 
 def test_port_config_matches_jax_defaults():
-    """The port's own config copy holds the JAX package's values."""
+    """The port's own config copy holds the JAX package's values, with one
+    stated exception: MQ-GroundingDINO-T's TPU.IMAGE_BUCKETS. The JAX builder
+    sets (832, 1408), a TPU-only bucket chosen for its Pallas MSDA kernel's
+    exact level ratios (`mqdet_tpu/utils/builders.py:41-48`; ROADMAP: no
+    counterpart); the port runs GDINO at the yaml's (800, 1344)."""
     def leaves(node, prefix=""):
         for k, v in node.items():
             if isinstance(v, dict):
@@ -234,20 +238,23 @@ def test_port_config_matches_jax_defaults():
             else:
                 yield f"{prefix}{k}", v
 
-    for tcfg, jcfg in (
-        (tb.tiny_test_config(), jb.tiny_test_config()),
-        (tb.mq_glip_t_config(), jb.mq_glip_t_config()),
-        (tb.tiny_gdino_config(), jb.tiny_gdino_config()),
-        (tb.mq_groundingdino_t_config(), jb.mq_groundingdino_t_config()),
+    for tcfg, jcfg, skip in (
+        (tb.tiny_test_config(), jb.tiny_test_config(), ()),
+        (tb.mq_glip_t_config(), jb.mq_glip_t_config(), ()),
+        (tb.tiny_gdino_config(), jb.tiny_gdino_config(), ()),
+        (tb.mq_groundingdino_t_config(), jb.mq_groundingdino_t_config(), ("TPU.IMAGE_BUCKETS",)),
     ):
         n = 0
         for key, val in leaves(tcfg):
+            if key in skip:
+                assert val == ((800, 1344),) and jcfg.TPU.IMAGE_BUCKETS == ((832, 1408),)
+                continue
             jv = jcfg
             for part in key.split("."):
                 jv = jv[part]
             assert jv == val, key
             n += 1
-        assert n >= 50
+        assert n >= 95
 
 
 def test_anchors_match_jax():
@@ -285,7 +292,7 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('mqdet_torch')]))\n"
     )
-    assert int(out.split()[0]) >= 20
+    assert int(out.split()[0]) >= 48
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():
@@ -295,7 +302,10 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
     _fresh_import(
         "import sys\n"
         "import chip_smoke\n"
-        "from mqdet_torch.engine import predict\n"
+        "from mqdet_torch.engine import evaluator, inference, predict\n"
+        "from mqdet_torch.data import coco, grounding, tokenizer, transforms\n"
+        "from mqdet_torch.mq import bank, extract, selector\n"
+        "from mqdet_torch.ops import roi_align\n"
         "from mqdet_torch.ops import bi_attention, deform_conv, kernels, ms_deform_attn\n"
         "from mqdet_torch.io import from_jax\n"
         "from mqdet_torch.tools import perf_dcn_sweep, perf_fusion_ab\n"
