@@ -5,7 +5,8 @@
 
 Run from the root of a checkout. It needs a CUDA device and the CUDA toolkit
 (`nvcc`); it imports nothing of JAX. It drives both evaluation paths of the
-port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
+port, MQ-GLIP-T and MQ-GroundingDINO-T, and MQ-GLIP-T's modulated
+pre-training. Phases, each printing lines:
 
   1. the card (`nvidia-smi` name and power limit) and the kernels' build from
      `mqdet_torch/csrc/` with nvcc for sm_90a (one nvcc per source, in
@@ -113,12 +114,32 @@ port, MQ-GLIP-T and MQ-GroundingDINO-T. Phases, each printing lines:
      evaluator (img/s, seconds by stage, launches 8 x one protocol's,
      detections finite and inside their images, AP, APr, APc, APf finite)
      and one `online_update` turn over 2 images from an empty bank (launches
-     2 x one protocol's, queries added > 0, seconds).
+     2 x one protocol's, queries added > 0, seconds);
+  8. last, MQ-GLIP-T modulated pre-training at full width (`train_config`:
+     the settings of configs/pretrain/mq-glip-t.yaml, batch 2 at 800x1344,
+     the warmup cut to 0) from init_params(seed), through the port's train
+     entry (`mqdet_torch.tools.train.build_training`) on phase 7's synthetic
+     dataset (its 6 landscape images) and phase 7's MQ-GLIP-T bank. First,
+     one step at 256x256, dropout off, card (bf16, kernels) against the CPU
+     in fp32: the loss and every trainable gradient within phase 3's rule,
+     the bf16 drift taken as the largest of three CPU bf16 runs (images
+     scaled by 1 and 1 +- 1e-3), and the concatenated gradient within twice
+     the unscaled run's drift; each DCN Function's backward (band, K2,
+     exact) at GLIP's level-0 and level-1 shapes, B 2, offsets x3, against
+     the fp32 plain VJP within 2e-2 * max|ref|, with the level-0 backward's
+     time. Then 2 warm-up and 8 timed steps: ms per step, train img/s, peak
+     memory, launches (gated: 78 `dcn_band` a forward, no bi-attention
+     kernel: the fusion's training composite); one step split at forward /
+     backward / update; one profiled step (device busy, idle share, the DCN
+     backward's device time and share); gates: every loss term finite, the
+     frozen parameters bitwise unchanged, every trainable tensor moved and
+     its EMA apart from it, a checkpoint saved and restored equal.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches summed over the counted paths: the protocols, phase 3's card runs,
-the sweep path and phase 7's evaluation and update); the last line is {"ok": true, "device": {...}}. Any
-failure exits non-zero without those lines.
+the sweep path, phase 7's evaluation and update and phase 8's timed training
+steps); the last line is {"ok": true, "device": {...}}. Any failure exits
+non-zero without those lines.
 """
 from __future__ import annotations
 
@@ -840,6 +861,21 @@ FAMILIES = (
 )
 
 
+def union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    spans = sorted(spans)
+    if not spans:
+        return 0.0
+    total, (cur_s, cur_e) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total + cur_e - cur_s
+
+
 def phase_profile(torch, label, protocol, image, text):
     """One protocol run under torch.profiler: the device's busy time (union
     of kernel intervals), its share of the window from the first kernel's
@@ -856,14 +892,7 @@ def phase_profile(torch, label, protocol, image, text):
         say(f"phase 5: {label}: the profiler recorded no device kernels; breakdown not measured")
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, (cur_s, cur_e) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+    busy = union_us(spans)
     window = spans[-1][1] - spans[0][0]
     fam = {}
     for e in kernels:
@@ -1063,7 +1092,7 @@ def synced_seconds(torch, fn, reps=1):
     return (time.perf_counter() - t0) / reps
 
 
-def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots):
+def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, keep=None):
     """Phase 7, per model after its phase 6: the vision-query path on the
     card at full width, with the settings of
     configs/vision_query_5shot/lvis_minival.yaml (300 detections an image,
@@ -1071,7 +1100,8 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots):
     dropout) and the detection and update thresholds at 0, so random-init
     scores reach the evaluator and the update. `per_image`: the predicted
     launches of one image's 8 head groups; `slots`: detection slots per
-    chunk row. Returns the launch counts of the evaluation and the update."""
+    chunk row. Returns the launch counts of the evaluation and the update;
+    `keep`, a dict, receives the dataset and the extracted bank."""
     import numpy as np
 
     from mqdet_torch.data.tokenizer import WordPieceTokenizer
@@ -1111,6 +1141,8 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots):
         f"hand-written kernel launches {used}")
     if set(bank.labels) != with_gt:
         fail(f"{label} extraction: banked classes {sorted(bank.labels)} != the classes with GT {sorted(with_gt)}")
+    if keep is not None:
+        keep.update(dataset=ds, bank=bank)
     if used:
         fail(f"{label} extraction launched hand-written kernels: {used}")
     batch = next(dataset_extraction_iter(ds, EvalTransform(c), dev))
@@ -1205,6 +1237,321 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots):
     return {f"{label} vision-query eval": eval_launches, f"{label} online update": update_launches}
 
 
+def train_config():
+    """MQ-GLIP-T with the training settings of configs/pretrain/mq-glip-t.yaml:
+    recipe vision_query (the GCP pieces train), AdamW at BASE 1e-4 / GATE 5e-3
+    / QUERY 1e-5 / LANG 1e-5, weight decay 1e-4, MODEL_EMA 0.999, text dropout
+    0.4, 5 queries a class, RANDOM_SAMPLE_NEG 85, the multi-scale resize
+    (480-800, max 1333) into the 800x1344 bucket; batch 2 (the yaml's 16 over
+    8 GPUs). The warmup (2000 iterations from 1e-3) is cut to 0: from its
+    first steps the LR would move no 1.0-valued norm weight in fp32, and a
+    step's time does not depend on the LR."""
+    from mqdet_torch.utils.builders import mq_glip_t_config
+
+    cfg = mq_glip_t_config()
+    s, vq = cfg.SOLVER, cfg.VISION_QUERY
+    s.TUNING_HIGHLEVEL_OVERRIDE = "vision_query"
+    s.BASE_LR, s.GATE_LR, s.QUERY_LR, s.LANG_LR, s.WEIGHT_DECAY = 1e-4, 5e-3, 1e-5, 1e-5, 1e-4
+    s.STEPS, s.MODEL_EMA, s.IMS_PER_BATCH, s.WARMUP_ITERS, s.MAX_TO_KEEP = (0.95,), 0.999, 2, 0, 4
+    s.MAX_ITER = 1000
+    vq.TEXT_DROPOUT, vq.NUM_QUERY_PER_CLASS, vq.PURE_TEXT_RATE = 0.4, 5, 0.0
+    cfg.DATASETS.RANDOM_SAMPLE_NEG = 85
+    cfg.INPUT.MIN_SIZE_TRAIN, cfg.INPUT.MAX_SIZE_TRAIN = 800, 1333
+    cfg.AUGMENT.MULT_MIN_SIZE_TRAIN = (480, 560, 640, 720, 800)
+    return cfg
+
+
+def dropout_off(model):
+    """The model with its training dropout rates at 0 (the fusion's attention
+    dropout, Swin's stochastic depth): the training forward, deterministic."""
+    from mqdet_torch.models.fusion import BiMultiHeadAttention
+    from mqdet_torch.models.swin import SwinBlock
+
+    for m in model.modules():
+        if isinstance(m, BiMultiHeadAttention):
+            m.dropout = 0.0
+        if isinstance(m, SwinBlock):
+            m.drop_path = 0.0
+    return model
+
+
+def phase_train_reference(torch, cfg, model_cpu, seed):
+    """One training step at 256x256, full width, batch 2, dropout off: the
+    card (bf16, kernels) against the same step on the CPU in fp32 (plain
+    versions), same weights and batch, by relative L2 on the loss and on
+    every trainable gradient, under phase 3's rule: within twice the CPU
+    plain path's own bf16 drift, or E2E_FLOOR. A gradient's bf16 drift is
+    noise (bf16 rounding through 12 BERT layers and 6 head stages), so one
+    bf16 run samples it once: a gate ff_gate's drift read 0.0093 in one run
+    and 0.235 with the images scaled by 1 + 1e-3, which moves the fp32
+    gradients by < 1e-3 (measured on one H100). The drift is therefore taken as the
+    larger of three CPU bf16 runs, on the images scaled by 1 and 1 +- 1e-3,
+    each against the fp32 step on the same images; the concatenated
+    gradient is also held to twice the unscaled run's drift. Returns the
+    card step's launch counts."""
+    import numpy as np
+
+    from mqdet_torch.core.config import trainable_patterns
+    from mqdet_torch.engine.train import batch_to_device, glip_anchors, init_train_state, make_train_step
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import synthetic_batch
+
+    hw = (256, 256)
+    c = cfg.clone()
+    c.VISION_QUERY.TEXT_DROPOUT = 0.0
+    b = synthetic_batch(c, batch=2, image_hw=hw, num_labels=40, k_shot=5, seed=seed + 2)
+    rng = np.random.default_rng(seed + 2)
+    g_max = 8
+    boxes = np.zeros((2, g_max, 4), np.float32)
+    labels = rng.integers(0, 40, (2, g_max))
+    for i in range(2):
+        xy = rng.uniform(0, 160, (g_max, 2))
+        boxes[i] = np.concatenate([xy, xy + rng.uniform(24, 96, (g_max, 2))], 1).clip(0, 255)
+    batch = {k: b[k] for k in ("images", "input_ids", "attention_mask", "queries", "query_mask")}
+    batch.update(gt_boxes=boxes, gt_labels=(labels + 1).astype(np.int32), gt_valid=np.ones((2, g_max), bool),
+                 gt_token_map=np.take_along_axis(b["agg_map"], labels[..., None], 1).astype(np.float32),
+                 pos_category_map=(b["agg_map"] > 0).astype(np.float32), has_query=np.ones((2, 40), np.int32))
+
+    def step(model, dev, scale=1.0):
+        state, tx = init_train_state(model, c, trainable_patterns(c))
+        anchors, level_sizes = glip_anchors(c, hw, dev)
+        run = make_train_step(model, tx, anchors, level_sizes, c)
+        inputs = dict(batch, images=(batch["images"] * np.float32(scale)).astype(np.float32))
+        _, metrics = run(state, batch_to_device(inputs, dev), torch.Generator(device=dev).manual_seed(seed))
+        params = dict(model.named_parameters())
+        return float(metrics["loss_total"]), {n: params[n].grad.float().cpu() for n in state.trainable}
+
+    def rel(a, ref):
+        return float(torch.linalg.vector_norm(a - ref) / torch.linalg.vector_norm(ref).clamp(min=1e-30))
+
+    def errs(got, ref):
+        """[(name, relative L2)]: the loss, then each trainable gradient."""
+        return [("loss", abs(got[0] - ref[0]) / abs(ref[0]))] + [(n, rel(got[1][n], ref[1][n])) for n in ref[1]]
+
+    t0 = time.perf_counter()
+    scales = (1.0, 1.0 + 1e-3, 1.0 - 1e-3)
+    ref32 = {s: step(dropout_off(copy.deepcopy(model_cpu)), torch.device("cpu"), s) for s in scales}
+    run16 = {s: step(dropout_off(copy.deepcopy(model_cpu).to(torch.bfloat16)), torch.device("cpu"), s) for s in scales}
+    plain = [errs(run16[s], ref32[s]) for s in scales]
+    moved = max(e for _, e in errs(ref32[scales[1]], ref32[1.0])[1:])
+    cpu_s = time.perf_counter() - t0
+    gpu = dropout_off(copy.deepcopy(model_cpu)).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
+    launch_counts(reset=True)
+    card = step(gpu, torch.device("cuda"))
+    used = launch_counts()
+    del gpu
+    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
+    want = predicted(dcn_band=stages * (3 * levels - 2))
+    if used != want:
+        fail(f"phase 8 reference step: launches {used} != predicted {want}")
+
+    card_errs = errs(card, ref32[1.0])
+    rows = [(n, e, max(p[i][1] for p in plain), plain[0][i][1]) for i, (n, e) in enumerate(card_errs)]
+    ratio = lambda r: r[1] / max(2 * r[2], E2E_FLOOR)  # noqa: E731
+    worst = max(rows, key=ratio)
+    bad = [r for r in rows if not (np.isfinite(r[1]) and ratio(r) <= 1.0)]
+    flat = lambda grads: torch.cat([g.reshape(-1) for g in grads.values()])  # noqa: E731
+    g_card, g_plain = rel(flat(card[1]), flat(ref32[1.0][1])), rel(flat(run16[1.0][1]), flat(ref32[1.0][1]))
+    ok = not bad and g_card <= max(2 * g_plain, E2E_FLOOR) and moved < 1e-2
+    say(f"phase 8: reference step, MQ-GLIP-T full width at {hw}, batch 2, dropout off, card bf16 kernels vs CPU "
+        f"fp32 plain: loss {card[0]!r} vs {ref32[1.0][0]!r}; {len(rows) - 1} trainable gradients; worst err / "
+        f"bound {ratio(worst)!r} at {worst[0]} (card relative L2 {worst[1]!r}; plain bf16 {worst[3]!r}, the "
+        f"largest of the three CPU bf16 runs {worst[2]!r}; bound max(2 * largest, {E2E_FLOOR})); the concatenated "
+        f"gradient: card {g_card!r}, plain bf16 {g_plain!r} (bound max(2 * plain, {E2E_FLOOR})); the 1e-3 image "
+        f"scaling moves the fp32 gradients by at most {moved!r}; CPU steps {cpu_s!r} s; launches "
+        f"{({k: v for k, v in used.items() if v})}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"phase 8 reference step: {len(bad)} of {len(rows)} outside the bound, e.g. {bad[:3]}; concatenated "
+             f"{g_card!r} vs plain {g_plain!r}; fp32 moved {moved!r}")
+    return used
+
+
+def phase_dcn_backward(torch, seed, smi):
+    """Each DCN Function's backward on the card (bf16 inputs, the fp32 VJP
+    recomputed from them) against the plain VJP in fp32 on the same inputs
+    at GLIP's level-0 and level-1 shapes, B = 2, offsets x3 (the clip
+    binds): every gradient within ERR_BOUND * max|ref|. Returns
+    {route: level-0 stride-1 backward ms} (CUDA events, median of 5)."""
+    from mqdet_torch.ops import deform_conv as dc
+    from mqdet_torch.tools import cuda_time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    routes = {
+        "band (K1)": (lambda *a, s: dc.modulated_deform_conv_pallas(*a, stride=s, radius=2, block_rows=16),
+                      lambda *a, s: dc.modulated_deform_conv_window_vjp(*a, stride=s, radius=2)),
+        "window (K2)": (lambda *a, s: dc.modulated_deform_conv_window(*a, stride=s, radius=2),
+                        lambda *a, s: dc.modulated_deform_conv_window_vjp(*a, stride=s, radius=2)),
+        "exact": (lambda *a, s: dc.modulated_deform_conv(*a, stride=s),
+                  lambda *a, s: dc.modulated_deform_conv_exact_vjp(*a, stride=s)),
+    }
+    times = {}
+    for (h, w), stride in (((100, 168), 1), ((50, 84), 1), ((100, 168), 2)):
+        ho, wo = -(-h // stride), -(-w // stride)
+        ins = [torch.randn(2, h, w, 256, generator=g, device=dev), torch.randn(2, ho, wo, 18, generator=g, device=dev) * 3,
+               torch.rand(2, ho, wo, 9, generator=g, device=dev), torch.randn(3, 3, 256, 256, generator=g, device=dev) * 0.03,
+               torch.randn(256, generator=g, device=dev) * 0.1]
+        ins = [t.bfloat16() for t in ins]
+        gout = torch.randn(2, ho, wo, 256, generator=g, device=dev).bfloat16()
+        for name, (fwd, vjp) in routes.items():
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            fwd(*leaves, s=stride).backward(gout)
+            refs = vjp(*(t.float() for t in ins), gout.float(), s=stride)
+            errs = []
+            for label, leaf, ref in zip(("x", "offset", "mask", "weight", "bias"), leaves, refs):
+                err, scale = max_err(leaf.grad, ref)
+                errs.append((label, err / max(scale, 1e-30)))
+                if not (bool(torch.isfinite(leaf.grad).all()) and err <= ERR_BOUND * scale):
+                    fail(f"phase 8: DCN backward {name} at {(2, h, w, 256)} s{stride}: {label} gradient err {err!r} "
+                         f"> {ERR_BOUND} * max|ref| {scale!r}")
+            ms_ = None
+            if (h, stride) == (100, 1):
+                def once():
+                    leaves2 = [t.clone().requires_grad_(True) for t in ins]
+                    fwd(*leaves2, s=stride).backward(gout)
+                fwd_ms = cuda_time_ms(lambda: fwd(*ins, s=stride), iters=5, warmup=1)
+                ms_ = cuda_time_ms(once, iters=5, warmup=1) - fwd_ms
+                times[name] = ms_
+            say(f"phase 8: DCN backward, {name} Function at {(2, h, w, 256)} stride {stride}, offsets x3: "
+                f"gradients against the fp32 plain VJP, max err / max|ref| "
+                f"{', '.join(f'{k} {v!r}' for k, v in errs)} (bound {ERR_BOUND})"
+                + (f"; backward {ms_!r} ms (CUDA events: forward+backward minus forward, median of 5; {smi})"
+                   if ms_ is not None else "") + "; ok")
+    return times
+
+
+def phase_train(torch, seed, dataset, bank, smi):
+    """Phase 8: MQ-GLIP-T modulated pre-training at full width on the card
+    (`train_config`), through the port's train entry (`tools.train.
+    build_training`: model, selector, loader, state, step, checkpointer), on
+    phase 7's synthetic LVIS-shaped dataset (its 6 landscape images: the
+    loader stacks one bucket's images, as the JAX loader does) and phase 7's
+    extracted MQ-GLIP-T bank. Two warm-up steps, 8 timed steps (launches
+    counted), one step split by a synchronise at forward / backward /
+    update, one profiled step, a checkpoint save and restore; then the
+    gates. Returns the launch counts of the timed steps."""
+    import numpy as np
+
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.engine.train import batch_to_device, step_generator
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.tools.train import build_training
+    from mqdet_torch.utils.builders import build_model, init_params
+
+    timed = 8
+    cfg = train_config()
+    ds = copy.copy(dataset)
+    ds.ids = [i for i in dataset.ids if dataset.image_size(i)[0] < dataset.image_size(i)[1]]
+    dev = torch.device("cuda")
+    model_cpu = init_params(build_model(cfg), seed=seed)
+    phase_train_reference(torch, cfg, model_cpu, seed)
+    bwd_ms = phase_dcn_backward(torch, seed, smi)
+    torch.cuda.empty_cache()
+
+    out_dir = tempfile.mkdtemp(prefix="mqdet_train_")
+    model, loader, state, step, ckpt = build_training(cfg, ds, bank, out_dir, dev, model=model_cpu,
+                                                      tokenizer=WordPieceTokenizer())
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if n in state.frozen}
+    start = {n: t.clone() for n, t in state.trainable.items()}
+
+    def batches():
+        while True:
+            yield from loader
+
+    stream = batches()
+    losses, step_ms, data_ms = [], [], []
+
+    def one(times=None):
+        t0 = time.perf_counter()
+        b = next(stream)
+        b.pop("num_positive")
+        data_ms.append((time.perf_counter() - t0) * 1000.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch_to_device(b, dev), step_generator(cfg.SOLVER.SEED, state.step, dev), times)
+        values = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1000.0)
+        losses.append(values)
+
+    for _ in range(2):
+        one()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms.clear()
+    launch_counts(reset=True)
+    for _ in range(timed):
+        one()
+    used = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
+    want = predicted(dcn_band=timed * stages * (3 * levels - 2))  # 78 per forward; no bi-attention kernel
+    p50 = statistics.median(step_ms)
+    say(f"phase 8: MQ-GLIP-T training (vision_query, batch 2, 800x1344, seed {seed}; {smi}): {p50!r} ms per step "
+        f"(median of {timed}; min {min(step_ms)!r}, max {max(step_ms)!r}; host clock, synchronised; the loader's "
+        f"host time apart: median {statistics.median(data_ms)!r} ms), {2 * 1000.0 / p50!r} train img/s; peak "
+        f"{peak!r} GiB; launches {({k: v for k, v in used.items() if v})} (predicted {want})")
+    if used != want:
+        fail(f"phase 8: training launches {used} != predicted {want}")
+
+    times = {}
+    one(times)
+    say(f"phase 8: one step split by a synchronise at each boundary ({smi}): "
+        + ", ".join(f"{k} {v * 1000.0!r} ms" for k, v in times.items()) + f" (step {step_ms[-1]!r} ms)")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [(e.time_range.start, e.time_range.end) for e in device if e.name == "dcn_backward"]
+    kernels = [(e.time_range.start, e.time_range.end, e.name) for e in device if e.name != "dcn_backward"]
+    if kernels:
+        busy = union_us([k[:2] for k in kernels]) / 1000.0
+        window = (max(k[1] for k in kernels) - min(k[0] for k in kernels)) / 1000.0
+        # the kernels inside the device-side spans of the `dcn_backward` annotation
+        dcn_bwd = union_us([k[:2] for k in kernels if any(s0 <= k[0] and k[1] <= s1 for s0, s1 in marks)]) / 1000.0
+        dcn_fwd = sum(k[1] - k[0] for k in kernels if "dcn_band_kernel" in k[2]) / 1000.0
+        said = (f"{dcn_bwd!r} ms, a share {dcn_bwd / busy!r} of busy" if marks
+                else "not measured (the profiler recorded no device-side `dcn_backward` span)")
+        say(f"phase 8: profiled step ({smi}): device busy {busy!r} ms in a {window!r} ms window (idle share "
+            f"{1.0 - busy / window!r}, profiler on); the DCN backward (the kernels inside the {len(marks)} "
+            f"`dcn_backward` spans of the 78 `DeformConvFunction` backwards) {said}; the band kernel forward "
+            f"{dcn_fwd!r} ms; level-0 backward alone (CUDA events) {bwd_ms}")
+    else:
+        say("phase 8: the profiler recorded no device kernels; the DCN backward's device share not measured")
+
+    for rec in losses:
+        if not all(np.isfinite(v) for v in rec.values()):
+            fail(f"phase 8: a loss term is not finite: {rec}")
+    say(f"phase 8: losses of the last step {losses[-1]}")
+    params = dict(model.named_parameters())
+    changed = [n for n in frozen if not torch.equal(params[n], frozen[n])]
+    if changed:
+        fail(f"phase 8: frozen parameters changed: {changed[:5]}")
+    still = [n for n, t in state.trainable.items() if torch.equal(t, start[n])]
+    same_ema = [n for n, t in state.trainable.items() if torch.equal(t, state.ema[n])]
+    if still or same_ema:
+        fail(f"phase 8: trainable tensors unchanged {still[:5]}; EMA equal to the parameters {same_ema[:5]}")
+
+    t0 = time.perf_counter()
+    path = ckpt.save(state.step, state, {"iteration": state.step})
+    restored, at = ckpt.restore(state)
+    same = (at == state.step and restored.opt_state["count"] == state.opt_state["count"]
+            and all(torch.equal(restored.trainable[n], t) and torch.equal(restored.ema[n], state.ema[n])
+                    and torch.equal(restored.opt_state["nu"][n], state.opt_state["nu"][n])
+                    for n, t in state.trainable.items()))
+    say(f"phase 8: {len(frozen)} frozen tensors bitwise unchanged; all {len(start)} trainable tensors moved and "
+        f"their EMA apart from them; checkpoint of step {state.step} saved ({os.path.getsize(path) / 2**20!r} MiB) "
+        f"and restored in {time.perf_counter() - t0!r} s, equal: {same}")
+    if not same:
+        fail("phase 8: the restored checkpoint differs from the saved state")
+    import shutil
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return used
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1272,8 +1619,9 @@ def main() -> int:
             torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300, want, args.runs, args.seed,
             parts if switch == "default" and deform is None else None, switch, deform,
         )
+    glip_vq = {}  # phase 7's dataset and bank, for phase 8
     launches.update(phase_vision_query(torch, "MQ-GLIP-T", cfg, model, args.seed,
-                                       predicted(dcn_band=dcn, bi_attention=fuse), tmp.name, 300))
+                                       predicted(dcn_band=dcn, bi_attention=fuse), tmp.name, 300, glip_vq))
     del model, tower, parts  # nothing of MQ-GLIP-T may stay on the card
     torch.cuda.empty_cache()
 
@@ -1305,6 +1653,10 @@ def main() -> int:
         torch, "MQ-GroundingDINO-T", cfg, model, args.seed,
         predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention=fuse), tmp.name, g.num_queries))
     del model, tr, parts
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: MQ-GLIP-T modulated pre-training ----------------------
+    launches["MQ-GLIP-T training"] = phase_train(torch, args.seed, glip_vq["dataset"], glip_vq["bank"], smi)
 
     say(f"wall time {time.perf_counter() - t_start!r} s (build included)")
     entries = []

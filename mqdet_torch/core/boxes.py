@@ -25,6 +25,43 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / (box_area(a)[..., :, None] + box_area(b)[..., None, :] - inter)
 
 
+def encode(gt_boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """BoxCoder.encode: xyxy boxes -> (dx, dy, dw, dh) targets against anchors."""
+    wx, wy, ww, wh = BOX_CODER_WEIGHTS
+    ex_w = anchors[..., 2] - anchors[..., 0] + TO_REMOVE
+    ex_h = anchors[..., 3] - anchors[..., 1] + TO_REMOVE
+    ex_cx = (anchors[..., 2] + anchors[..., 0]) * 0.5
+    ex_cy = (anchors[..., 3] + anchors[..., 1]) * 0.5
+    gt_w = gt_boxes[..., 2] - gt_boxes[..., 0] + TO_REMOVE
+    gt_h = gt_boxes[..., 3] - gt_boxes[..., 1] + TO_REMOVE
+    gt_cx = (gt_boxes[..., 2] + gt_boxes[..., 0]) * 0.5
+    gt_cy = (gt_boxes[..., 3] + gt_boxes[..., 1]) * 0.5
+    return torch.stack(
+        [wx * (gt_cx - ex_cx) / ex_w, wy * (gt_cy - ex_cy) / ex_h,
+         ww * torch.log(gt_w / ex_w), wh * torch.log(gt_h / ex_h)],
+        dim=-1,
+    )
+
+
+def giou(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Generalized IoU of aligned xyxy boxes, areas WITHOUT the +1 (the
+    reference's GIoULoss)."""
+    px1, py1 = pred[..., 0], pred[..., 1]
+    px2 = torch.maximum(px1, pred[..., 2])
+    py2 = torch.maximum(py1, pred[..., 3])
+    pred_area = (px2 - px1) * (py2 - py1)
+    tx1, ty1, tx2, ty2 = target.unbind(-1)
+    target_area = (tx2 - tx1) * (ty2 - ty1)
+    ix1, iy1 = torch.maximum(px1, tx1), torch.maximum(py1, ty1)
+    ix2, iy2 = torch.minimum(px2, tx2), torch.minimum(py2, ty2)
+    inter = torch.where((iy2 > iy1) & (ix2 > ix1), (ix2 - ix1) * (iy2 - iy1), torch.zeros_like(ix1))
+    ex1, ey1 = torch.minimum(px1, tx1), torch.minimum(py1, ty1)
+    ex2, ey2 = torch.maximum(px2, tx2), torch.maximum(py2, ty2)
+    enclose = (ex2 - ex1) * (ey2 - ey1) + eps
+    union = pred_area + target_area - inter + eps
+    return inter / union - (enclose - union) / enclose
+
+
 def decode(preds: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     """BoxCoder.decode: (dx, dy, dw, dh) deltas + anchors -> xyxy."""
     wx, wy, ww, wh = BOX_CODER_WEIGHTS

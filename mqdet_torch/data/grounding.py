@@ -1,8 +1,8 @@
-"""Evaluation prompts: class captions, char-span -> token-span positive maps
-and LVIS class chunking. The port's copy of the evaluation half of
+"""Prompts: class captions, char-span -> token-span positive maps, LVIS
+class chunking and, for the training loader, negative sampling, overflow
+trimming and the control probabilities. The port's copy of
 `mqdet_tpu/data/grounding.py` (framework-free; pinned to the original by
-`tests/test_torch_port_querybank.py`). The training half (negative sampling,
-overflow trimming, control probabilities) waits for training.
+`tests/test_torch_port_querybank.py` and `tests/test_torch_port_train.py`).
 
 Reference: od_to_grounding.py (captions), modulated_coco_new.py:682-709
 (positive maps with the +-1/2/3 char_to_token fallbacks) and
@@ -15,6 +15,7 @@ Every array here is fixed-shape numpy, the head's input:
 """
 from __future__ import annotations
 
+import random
 import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -33,15 +34,21 @@ def build_caption(
     label_list: Sequence[int],
     ind_to_class: Dict[int, str],
     separation_tokens: str = ". ",
+    add_detection_prompt: bool = False,
+    shuffle: bool = False,
     caption_prompt: Optional[List[dict]] = None,
+    rng: Optional[random.Random] = None,
 ) -> Tuple[str, Dict[int, Tuple[int, int]]]:
-    """generate_sentence_from_labels (od_to_grounding.py:33-68), without the
-    training-time shuffle and detection prompt.
+    """generate_sentence_from_labels (od_to_grounding.py:33-68).
 
     Returns (caption, label -> (char_start, char_end)).
     """
     labels = list(label_list)
-    caption = ""
+    if shuffle:
+        assert caption_prompt is None
+        (rng or random).shuffle(labels)
+
+    caption = "object detection : " if add_detection_prompt else ""
     label_to_positions: Dict[int, Tuple[int, int]] = {}
     for index, label in enumerate(labels):
         if caption_prompt is not None:
@@ -100,6 +107,85 @@ def create_positive_map(
     if normalize:
         out = out / (out.sum(-1, keepdims=True) + 1e-6)
     return out
+
+
+def check_for_positive_overflow(
+    positive_labels: List[int],
+    ind_to_class: Dict[int, str],
+    tokenizer,
+    max_seq_length: int = 256,
+    separation_tokens: str = ". ",
+) -> List[int]:
+    """Trim positive labels so their caption fits (od_to_grounding.py:104+).
+
+    Returns the kept labels (order preserved after the reference's shuffle-free
+    length accumulation: labels are added until the tokenized length would
+    exceed max_seq_length)."""
+    kept = []
+    length = 0
+    # the reference accounts for [CLS]/[SEP]
+    for label in positive_labels:
+        text = clean_name(ind_to_class[label]) + separation_tokens
+        piece = len(tokenizer.tokenize(text))
+        if length + piece > max_seq_length - 2:
+            break
+        length += piece
+        kept.append(label)
+    return kept
+
+
+def generate_control_options_given_probabilities(
+    control_probabilities: Sequence[float],
+    full_positive: int,
+    full_negative: int,
+    rng: Optional[random.Random] = None,
+):
+    """DATASETS.CONTROL_PROB twin (od_to_grounding.py:340-379): decide how
+    many negative/positive classes the synthesized caption gets.
+
+    control_probabilities = (one_negative, one_positive, full, drop_positive):
+      a. with prob one_negative: exactly 1 negative, 0 positives (mimics eval)
+      b. with prob one_positive: 0 negatives, 1 positive
+      c. with prob full: all positives + all negatives
+      d. otherwise: uniform-random 1..full_negative negatives, all positives
+    drop_positive must be 0 (asserted, like the reference).
+    """
+    r = rng or random
+    p_one_neg, p_one_pos, p_full, p_drop_pos = control_probabilities
+    assert p_drop_pos == 0
+    outer = r.random()
+    if outer < p_one_neg:
+        return 1, 0
+    if outer < p_one_neg + p_one_pos:
+        return 0, 1
+    if outer < p_one_neg + p_one_pos + p_full:
+        return full_negative, full_positive
+    return r.randint(1, max(1, full_negative)), full_positive
+
+
+def sample_negatives(
+    positive_labels: List[int],
+    all_labels: Sequence[int],
+    random_sample_neg: int,
+    rng: Optional[random.Random] = None,
+    control_probabilities: Optional[Sequence[float]] = None,
+) -> List[int]:
+    """Negative category sampling for grounding pretraining
+    (convert_object_detection_to_grounding_optimized_for_od,
+    od_to_grounding.py:149+): fill up to `random_sample_neg` total classes
+    with random negatives; DATASETS.CONTROL_PROB optionally caps the count
+    via generate_control_options_given_probabilities."""
+    r = rng or random
+    negatives = [l for l in all_labels if l not in set(positive_labels)]
+    budget = max(0, random_sample_neg - len(positive_labels))
+    if control_probabilities is not None and any(control_probabilities):
+        n_neg, _ = generate_control_options_given_probabilities(
+            control_probabilities, len(positive_labels), len(negatives), r
+        )
+        budget = min(budget, n_neg)
+    if budget < len(negatives):
+        negatives = r.sample(list(negatives), budget)
+    return list(negatives)
 
 
 def chunk_classes(class_ids: Sequence[int], chunk_size: int) -> List[List[int]]:

@@ -1,0 +1,207 @@
+"""The GLIP training step (counterpart of `mqdet_tpu/engine/train.py`;
+reference engine/trainer.py and generalized_vl_rcnn_new.py).
+
+One step: the fp32 master copies of the trainable parameters are cast into
+the model (whose frozen parameters and activations stay in the compute
+dtype, bf16 on the card, as flax computes in `TPU.COMPUTE_DTYPE` from fp32
+parameters), vision-conditioned text dropout, the training forward
+(`deterministic=False`: stochastic depth, the fusion's composite with
+attention dropout), the GLIP losses plus the gate loss, NaN/Inf zeroing of
+the loss and of the gradients, the optax chain of `engine/optim.py` times
+`lr_scale`, and the EMA. Gradients reach only the trainable set
+(`requires_grad`); where the image tower holds no trainable parameter it runs
+under `torch.no_grad()`, as JAX stops gradients at the frozen leaves.
+
+Every draw comes from the generator the caller passes, which `do_train`
+makes from `(SOLVER.SEED, iteration)` alone (`step_generator`), as JAX's
+`fold_in(rng, iteration)`: a resumed run replays the same stream.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from mqdet_torch.engine import losses as L
+from mqdet_torch.engine import optim as O
+from mqdet_torch.ops.anchors import anchors_for_fpn
+
+MASK_TOKEN_ID = 103  # bert-base-uncased [MASK]
+PAD_TOKEN_ID = 0     # bert-base-uncased [PAD]
+
+
+@dataclass
+class TrainState:
+    step: int
+    trainable: Dict[str, torch.Tensor]    # fp32 masters, by the model's parameter names
+    frozen: List[str]                     # the names of the frozen parameters (held by the model)
+    opt_state: Dict
+    ema: Optional[Dict[str, torch.Tensor]]  # EMA of the trainable set (None without MODEL_EMA)
+    lr_scale: float = 1.0                 # the autostep plateau multiplier
+
+
+def init_train_state(model: torch.nn.Module, cfg, trainable_patterns: Sequence[str],
+                     frozen_patterns: Sequence[str] = ()) -> Tuple[TrainState, O.AdamW]:
+    """(state, optimizer). Sets the model's `requires_grad` flags by the
+    partition and copies the trainable parameters into fp32 masters."""
+    names, frozen = O.partition_params(model, trainable_patterns, frozen_patterns)
+    params = dict(model.named_parameters())
+    trainable = {n: params[n].detach().float().clone() for n in names}
+    tx = O.AdamW(cfg, names)
+    ema = {n: t.clone() for n, t in trainable.items()} if cfg.SOLVER.MODEL_EMA > 0 else None
+    return TrainState(0, trainable, frozen, tx.init(trainable), ema), tx
+
+
+@torch.no_grad()
+def load_trainable(model: torch.nn.Module, trainable: Dict[str, torch.Tensor]) -> None:
+    """Cast the masters (or the EMA) into the model's parameters."""
+    params = dict(model.named_parameters())
+    for n, t in trainable.items():
+        params[n].copy_(t)
+
+
+def step_generator(seed: int, iteration: int, device) -> torch.Generator:
+    """The generator of one step: a pure function of (seed, iteration)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence([int(seed), int(iteration)]).generate_state(1, np.uint64)[0] >> 1))
+    return g
+
+
+def apply_text_dropout(input_ids: torch.Tensor, pos_category_map: torch.Tensor, has_query: torch.Tensor,
+                       dropout: float, generator: Optional[torch.Generator] = None,
+                       draws: Optional[torch.Tensor] = None, mask_token_id: int = MASK_TOKEN_ID) -> torch.Tensor:
+    """Vision-conditioned masked language prediction: the tokens of a caption
+    label that has a vision query become [MASK] with probability `dropout`,
+    drawn per (image, label) as uniform < dropout (`jax.random.bernoulli`).
+    `draws` (B, L) uniforms replace the generator's."""
+    if dropout <= 0:
+        return input_ids
+    b, l, _ = pos_category_map.shape
+    if draws is None:
+        draws = torch.rand((b, l), generator=generator, device=input_ids.device)
+    drop = (draws < dropout) & (has_query > 0)
+    token_masked = torch.einsum("bl,blt->bt", drop.float(), pos_category_map.float())
+    return torch.where(token_masked > 0, torch.full_like(input_ids, mask_token_id), input_ids)
+
+
+def random_word_mask(input_ids: torch.Tensor, greenlight: torch.Tensor, vocab_size: int,
+                     generator: Optional[torch.Generator] = None, draws=None, mask_token_id: int = MASK_TOKEN_ID,
+                     pad_token_id: int = PAD_TOKEN_ID, prob: float = 0.15):
+    """GLIP's random_word: a non-pad token whose greenlight is not -1 is
+    picked with probability `prob`, then becomes [MASK] (80%), a random id
+    (10%) or stays (10%); its label is the original id where greenlight is 1,
+    else -100. `draws` = (pick uniforms, action uniforms, random ids)
+    replaces the generator's. Returns (new ids, labels)."""
+    if draws is None:
+        shape, dev = input_ids.shape, input_ids.device
+        draws = (torch.rand(shape, generator=generator, device=dev), torch.rand(shape, generator=generator, device=dev),
+                 torch.randint(0, vocab_size, shape, generator=generator, device=dev))
+    u_pick, u_action, random_ids = draws
+    pick = (u_pick < prob) & (input_ids != pad_token_id) & (greenlight != -1)
+    masked = torch.where(u_action < 0.8, torch.full_like(input_ids, mask_token_id),
+                         torch.where(u_action < 0.9, random_ids.to(input_ids.dtype), input_ids))
+    new_ids = torch.where(pick, masked, input_ids)
+    labels = torch.where(pick & (greenlight == 1), input_ids, torch.full_like(input_ids, -100))
+    return new_ids, labels
+
+
+def glip_anchors(cfg, bucket, device) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """(all levels' anchors (N, 4) on `device`, per-level counts)."""
+    per_level = anchors_for_fpn(tuple(bucket), tuple(cfg.MODEL.RPN.ANCHOR_STRIDE),
+                                tuple(cfg.MODEL.RPN.ANCHOR_SIZES), tuple(cfg.MODEL.RPN.ASPECT_RATIOS))
+    return torch.from_numpy(np.concatenate(per_level)).to(device), tuple(a.shape[0] for a in per_level)
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The loader's numpy batch on `device`: images NHWC -> NCHW, token ids
+    as int64."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v))
+        if k == "images":
+            t = t.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        elif k == "input_ids":
+            t = t.long()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def make_train_step(model: torch.nn.Module, tx: O.AdamW, anchors: torch.Tensor, level_sizes: Sequence[int], cfg):
+    """Returns train_step(state, batch, generator, times=None) -> (state,
+    metrics), `batch` from `batch_to_device`. The state's tensors are updated
+    in place. Given a dict `times`, the step synchronises the device at the
+    boundaries of its forward, backward and update and adds each one's
+    seconds there."""
+    if cfg.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS:
+        raise NotImplementedError("MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS: the MLM head is not ported (ROADMAP Queue A 4.2)")
+    if cfg.TPU.REMAT:
+        raise NotImplementedError("TPU.REMAT: activation checkpointing is not ported (ROADMAP Queue A 4.3)")
+    ema_decay = cfg.SOLVER.MODEL_EMA
+    text_dropout = cfg.VISION_QUERY.TEXT_DROPOUT
+    use_queries = cfg.VISION_QUERY.ENABLED
+    vq = cfg.VISION_QUERY
+    params = dict(model.named_parameters())
+    tower_trains = any(n.startswith("backbone.") for n in tx.lr)
+    # the JAX package takes the gate loss over the trainable set's gates
+    gates = [n for n in L.gate_parameters(model.named_parameters()) if n in tx.lr]
+
+    def clock(times, key=None, t0=0.0):
+        if times is None:
+            return t0
+        if anchors.is_cuda:
+            torch.cuda.synchronize(anchors.device)
+        now = time.perf_counter()
+        if key is not None:
+            times[key] = times.get(key, 0.0) + now - t0
+        return now
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator, times=None):
+        t0 = clock(times)
+        load_trainable(model, state.trainable)
+        for n in state.trainable:
+            params[n].grad = None
+        input_ids = batch["input_ids"]
+        if use_queries and text_dropout > 0:
+            input_ids = apply_text_dropout(input_ids, batch["pos_category_map"], batch["has_query"], text_dropout,
+                                           generator)
+        queries = batch.get("queries") if use_queries else None
+        query_mask = batch.get("query_mask") if use_queries else None
+        with torch.set_grad_enabled(tower_trains):
+            feats = model.encode_image(batch["images"], deterministic=False, generator=generator)
+        head_out = model.forward_head(feats, input_ids, batch["attention_mask"], queries, query_mask,
+                                      deterministic=False, generator=generator)
+        losses = L.glip_losses(
+            head_out, anchors, level_sizes, batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"],
+            batch["gt_token_map"], batch["attention_mask"], topk=cfg.MODEL.ATSS.TOPK,
+            reg_loss_weight=cfg.MODEL.ATSS.REG_LOSS_WEIGHT,
+        )
+        losses["loss_gate"] = L.gate_loss_from_params(
+            ((n, params[n]) for n in gates), scale=vq.GATE_REGULARIZATION_SCALE, regularize=vq.GATE_REGULARIZATION,
+        ).to(anchors.device)
+        total = sum(losses.values())
+        # NaN/Inf zeroing (trainer.py:150-152): the step's loss, and so its gradients, become 0
+        total = torch.where(torch.isfinite(total), total, torch.zeros_like(total))
+        t0 = clock(times, "forward", t0)
+        total.backward()
+        t0 = clock(times, "backward", t0)
+        grads = {}
+        for n, master in state.trainable.items():
+            gr = params[n].grad
+            gr = torch.zeros_like(master) if gr is None else gr.float()
+            grads[n] = torch.where(torch.isfinite(gr), gr, torch.zeros_like(gr))
+        updates, state.opt_state = tx.update(grads, state.opt_state, state.trainable)
+        with torch.no_grad():
+            for n, u in updates.items():
+                state.trainable[n].add_(u, alpha=state.lr_scale)
+            if state.ema is not None:
+                O.ema_update(state.ema, state.trainable, ema_decay)
+        state.step += 1
+        clock(times, "update", t0)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss_total"] = total.detach()
+        return state, metrics
+
+    return train_step

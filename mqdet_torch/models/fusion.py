@@ -1,5 +1,5 @@
-"""Deep early fusion between the image pyramid and the text (MHA-B), eval
-only (counterpart of `mqdet_tpu/models/fusion.py`; reference
+"""Deep early fusion between the image pyramid and the text (MHA-B)
+(counterpart of `mqdet_tpu/models/fusion.py`; reference
 utils/fuse_helper.py BiMultiHeadAttention / BiAttentionBlockForCheckpoint).
 
 The pyramid's levels are passed as a list of (B, H_l W_l, C) token views and
@@ -14,6 +14,15 @@ concatenating the pyramid or splitting out_v (single-score only, so `dual`
 is ignored there). A single (B, N, C) tensor always takes
 `flash_bi_attention`. q is pre-scaled by d^-0.5; the layer-scale residual is
 added to the NORMED inputs, as in the reference.
+
+Training follows the JAX package's `use_flash` rule: the flash kernels run
+only when the forward is deterministic; given a generator (the JAX
+package's `deterministic=False`) the fusion runs the JAX composite,
+`bi_attention_dual_plain` (both score products in the compute dtype, fp32
+softmaxes) with attention dropout (`dropout`, 0.1) on both probability
+tensors, which PyTorch autograd differentiates. The kernels' launchers
+refuse a forward that needs a gradient, so the eval route never cuts the
+graph silently.
 """
 from __future__ import annotations
 
@@ -23,15 +32,16 @@ from typing import List, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from mqdet_torch.models.layers import LayerNorm, cl
-from mqdet_torch.ops.bi_attention import flash_bi_attention, flash_bi_attention_levels
+from mqdet_torch.models.layers import LayerNorm, cl, dropout
+from mqdet_torch.ops.bi_attention import bi_attention_dual_plain, flash_bi_attention, flash_bi_attention_levels
 
 Visual = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
 class BiMultiHeadAttention(nn.Module):
-    def __init__(self, v_dim: int, l_dim: int, embed_dim: int = 2048, num_heads: int = 8):
+    def __init__(self, v_dim: int, l_dim: int, embed_dim: int = 2048, num_heads: int = 8, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout  # attention dropout of the training composite
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.v_proj = nn.Linear(v_dim, embed_dim)
@@ -41,15 +51,26 @@ class BiMultiHeadAttention(nn.Module):
         self.out_v_proj = nn.Linear(embed_dim, v_dim)
         self.out_l_proj = nn.Linear(embed_dim, l_dim)
 
-    def forward(self, v: Visual, l, attention_mask_l=None) -> Tuple[Visual, torch.Tensor]:
+    def forward(self, v: Visual, l, attention_mask_l=None, generator=None) -> Tuple[Visual, torch.Tensor]:
         """v: (B, N, v_dim) or a list of per-level (B, N_l, v_dim), returned
-        in the same form; l: (B, T, l_dim); attention_mask_l: (B, T) 1 = valid."""
+        in the same form; l: (B, T, l_dim); attention_mask_l: (B, T) 1 = valid.
+        With a generator: the training composite (module docstring)."""
         scale = self.head_dim**-0.5
         k = self.l_proj(l)
         vl = self.values_l_proj(l)
         bias = None
         if attention_mask_l is not None:
             bias = torch.where(attention_mask_l == 0, -9e15, 0.0).float()
+        if generator is not None:
+            flat = v if isinstance(v, torch.Tensor) else torch.cat(list(v), 1)
+            out_v, out_l = bi_attention_dual_plain(
+                self.v_proj(flat) * scale, k, self.values_v_proj(flat), vl, bias, self.num_heads,
+                drop=lambda p: dropout(p, self.dropout, generator),
+            )
+            out_v = self.out_v_proj(out_v)
+            if not isinstance(v, torch.Tensor):
+                out_v = list(out_v.split([x.shape[1] for x in v], 1))
+            return out_v, self.out_l_proj(out_l)
         if isinstance(v, torch.Tensor) or os.environ.get("MQDET_FLASH_LEVELS", "concat") == "concat":
             flat = v if isinstance(v, torch.Tensor) else torch.cat(list(v), 1)
             out_v, out_l = flash_bi_attention(
@@ -74,12 +95,12 @@ class BiAttentionBlock(nn.Module):
         self.gamma_v = nn.Parameter(torch.full((v_dim,), init_value))
         self.gamma_l = nn.Parameter(torch.full((l_dim,), init_value))
 
-    def forward(self, v: Visual, l, attention_mask_l=None):
+    def forward(self, v: Visual, l, attention_mask_l=None, generator=None):
         """v: one (B, N, C) tensor or a per-level list; the return matches."""
         is_list = not isinstance(v, torch.Tensor)
         vn = [self.layer_norm_v(x) for x in v] if is_list else self.layer_norm_v(v)
         ln = self.layer_norm_l(l)
-        dv, dl = self.attn(vn, ln, attention_mask_l)
+        dv, dl = self.attn(vn, ln, attention_mask_l, generator)
         if is_list:
             v = [a + self.gamma_v.to(d.dtype) * d for a, d in zip(vn, dv)]
         else:
@@ -95,9 +116,9 @@ class VLFuse(nn.Module):
         super().__init__()
         self.b_attn = BiAttentionBlock(v_dim, l_dim, init_value=1.0 / num_convs)
 
-    def forward(self, visual: List[torch.Tensor], lang_hidden, lang_masks):
+    def forward(self, visual: List[torch.Tensor], lang_hidden, lang_masks, generator=None):
         tokens = [f.permute(0, 2, 3, 1).reshape(f.shape[0], -1, f.shape[1]) for f in visual]
-        new_v, new_l = self.b_attn(tokens, lang_hidden, lang_masks)
+        new_v, new_l = self.b_attn(tokens, lang_hidden, lang_masks, generator)
         outs = [
             cl(t.reshape(b, h, w, c).permute(0, 3, 1, 2))
             for t, (b, c, h, w) in zip(new_v, (f.shape for f in visual))

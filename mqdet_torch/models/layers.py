@@ -49,6 +49,28 @@ class Scale(nn.Module):
         return x * self.scale.to(x.dtype)
 
 
+def drop_path(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+    """Stochastic depth per sample (the JAX package's DropPath): with a
+    generator and rate > 0, each item is kept with probability 1 - rate,
+    drawn as uniform < 1 - rate, and scaled by 1 / (1 - rate); else x."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    u = torch.rand(shape, generator=generator, device=x.device)
+    return x * (u < keep).to(x.dtype) / keep
+
+
+def dropout(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:
+    """flax's nn.Dropout: keep with probability 1 - rate (uniform < 1 - rate),
+    scaled by 1 / (1 - rate); the identity without a generator or at rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def h_sigmoid(x: torch.Tensor, h_max: float = 1.0) -> torch.Tensor:
     """relu6(x + 3) * h_max / 6."""
     return torch.clamp(x + 3.0, 0.0, 6.0) * (h_max / 6.0)

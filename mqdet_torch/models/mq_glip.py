@@ -10,6 +10,10 @@ non-learnable query bank are built.
 
 Images are NCHW. The compute dtype is the parameters' dtype: move the model
 with `.to(device, torch.bfloat16)` for the card, keep fp32 for parity tests.
+
+`deterministic` is the JAX package's switch: False runs the training forward,
+Swin's stochastic depth and the fusion's composite with attention dropout,
+drawing from `generator` (required then); True (the default) runs neither.
 """
 from __future__ import annotations
 
@@ -34,12 +38,22 @@ def flatten_fpn_features(feats: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
+def _draws(deterministic: bool, generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    """The generator the training forward draws from; None when deterministic."""
+    if deterministic:
+        return None
+    if generator is None:
+        raise ValueError("deterministic=False needs a torch.Generator for its draws")
+    return generator
+
+
 class _Backbone(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         sw = cfg.MODEL.SWINT
         self.body = SwinTransformer(
-            sw.EMBED_DIM, tuple(sw.DEPTHS), tuple(sw.NUM_HEADS), sw.WINDOW_SIZE, sw.MLP_RATIO
+            sw.EMBED_DIM, tuple(sw.DEPTHS), tuple(sw.NUM_HEADS), sw.WINDOW_SIZE, sw.MLP_RATIO,
+            sw.DROP_PATH_RATE,
         )
         e = sw.EMBED_DIM
         self.fpn = FPN([2 * e, 4 * e, 8 * e], cfg.MODEL.BACKBONE.OUT_CHANNELS)
@@ -74,9 +88,10 @@ class MQGLIP(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.rpn.head.bias_lang.dtype
 
-    def encode_image(self, images: torch.Tensor) -> List[torch.Tensor]:
+    def encode_image(self, images: torch.Tensor, deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         """Swin + FPN on (B, 3, H, W) -> 5 pyramid levels (B, C, H_l, W_l)."""
-        feats = self.backbone.body(cl(images.to(self.dtype)))
+        feats = self.backbone.body(cl(images.to(self.dtype)), _draws(deterministic, generator))
         return self.backbone.fpn(feats[1:4])
 
     def forward_head(
@@ -86,6 +101,8 @@ class MQGLIP(nn.Module):
         attention_mask: torch.Tensor,
         queries: Optional[torch.Tensor] = None,
         query_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         """GCP-BERT + VLDyHead. fpn_feats may have batch 1 while the text has
         batch CP (chunk parallelism): features are broadcast to the text batch."""
@@ -100,12 +117,14 @@ class MQGLIP(nn.Module):
             query_mask=query_mask,
             image_tokens=image_tokens,
         )
-        out = self.rpn.head(fpn_feats, lang["hidden"], lang["masks"])
+        out = self.rpn.head(fpn_feats, lang["hidden"], lang["masks"], _draws(deterministic, generator))
         out["lang"] = lang
         return out
 
-    def forward(self, images, input_ids, attention_mask, queries=None, query_mask=None):
-        fpn_feats = self.encode_image(images)
-        out = self.forward_head(fpn_feats, input_ids, attention_mask, queries, query_mask)
+    def forward(self, images, input_ids, attention_mask, queries=None, query_mask=None,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
+        fpn_feats = self.encode_image(images, deterministic, generator)
+        out = self.forward_head(fpn_feats, input_ids, attention_mask, queries, query_mask,
+                                deterministic, generator)
         out["fpn_feats"] = fpn_feats
         return out

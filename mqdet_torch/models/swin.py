@@ -1,10 +1,12 @@
-"""Swin Transformer v1 backbone, eval mode (counterpart of
+"""Swin Transformer v1 backbone (counterpart of
 `mqdet_tpu/models/swin.py`, version "v1"; reference
 maskrcnn_benchmark/modeling/backbone/swint.py).
 
 Attribute names follow the reference (`patch_embed.proj`, `layers.{i}.blocks.{j}`,
 `layers.{i}.downsample`, `norm{i}`), so state_dict keys are its keys. Stochastic
-depth is the identity at eval. Tokens stay (B, H*W, C) inside the stages; the
+depth (rates linear in the block index up to `drop_path_rate`, as in JAX)
+runs only when the forward is given a generator, the JAX package's
+`deterministic=False`; else it is the identity. Tokens stay (B, H*W, C) inside the stages; the
 stage outputs come back as NCHW channels_last maps.
 """
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mqdet_torch.models.layers import LayerNorm, Mlp
+from mqdet_torch.models.layers import LayerNorm, Mlp, drop_path
 
 
 def _rel_pos_index(ws: int) -> np.ndarray:
@@ -92,8 +94,9 @@ class WindowAttention(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    def __init__(self, dim, num_heads, window_size, shift_size, mlp_ratio):
+    def __init__(self, dim, num_heads, window_size, shift_size, mlp_ratio, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path = drop_path_rate
         self.window_size = window_size
         self.shift_size = shift_size
         self.norm1 = LayerNorm(dim, eps=1e-5)
@@ -110,7 +113,7 @@ class SwinBlock(nn.Module):
             ).to(device)
         return self._masks[key]
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: int, w: int, generator=None) -> torch.Tensor:
         # the reference keeps the cyclic shift even when the map is smaller
         # than the window (swint.py:186-244)
         ws, shift = self.window_size, self.shift_size
@@ -127,8 +130,8 @@ class SwinBlock(nn.Module):
         x = window_reverse(xw, ws, hp, wp)
         if shift > 0:
             x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
-        x = shortcut + x[:, :h, :w].reshape(b, h * w, c)
-        return x + self.mlp(self.norm2(x))
+        x = shortcut + drop_path(x[:, :h, :w].reshape(b, h * w, c), self.drop_path, generator)
+        return x + drop_path(self.mlp(self.norm2(x)), self.drop_path, generator)
 
 
 class PatchMerging(nn.Module):
@@ -148,10 +151,11 @@ class PatchMerging(nn.Module):
 
 
 class BasicLayer(nn.Module):
-    def __init__(self, dim, depth, num_heads, window_size, mlp_ratio, downsample: bool):
+    def __init__(self, dim, depth, num_heads, window_size, mlp_ratio, downsample: bool, drop_path_rates=None):
         super().__init__()
+        rates = drop_path_rates if drop_path_rates is not None else [0.0] * depth
         self.blocks = nn.ModuleList(
-            SwinBlock(dim, num_heads, window_size, 0 if d % 2 == 0 else window_size // 2, mlp_ratio)
+            SwinBlock(dim, num_heads, window_size, 0 if d % 2 == 0 else window_size // 2, mlp_ratio, rates[d])
             for d in range(depth)
         )
         self.downsample = PatchMerging(dim) if downsample else None
@@ -175,22 +179,26 @@ class SwinTransformer(nn.Module):
         num_heads: Sequence[int] = (3, 6, 12, 24),
         window_size: int = 7,
         mlp_ratio: float = 4.0,
+        drop_path_rate: float = 0.0,
     ):
         super().__init__()
         self.embed_dim = embed_dim
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList()
         dim = embed_dim
+        dpr = np.linspace(0, drop_path_rate, sum(depths))
         for i, depth in enumerate(depths):
+            first = sum(depths[:i])
             self.layers.append(
-                BasicLayer(dim, depth, num_heads[i], window_size, mlp_ratio, i < len(depths) - 1)
+                BasicLayer(dim, depth, num_heads[i], window_size, mlp_ratio, i < len(depths) - 1,
+                           [float(r) for r in dpr[first:first + depth]])
             )
             if i > 0:
                 self.add_module(f"norm{i}", LayerNorm(dim, eps=1e-5))
             dim *= 2
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """x: (B, 3, H, W)."""
+    def forward(self, x: torch.Tensor, generator=None) -> List[torch.Tensor]:
+        """x: (B, 3, H, W); `generator` draws the stochastic depth (None: none)."""
         b = x.shape[0]
         ph, pw = (-x.shape[2]) % 4, (-x.shape[3]) % 4
         if ph or pw:
@@ -202,7 +210,7 @@ class SwinTransformer(nn.Module):
         dim = self.embed_dim
         for i, layer in enumerate(self.layers):
             for blk in layer.blocks:
-                x = blk(x, hh, ww)
+                x = blk(x, hh, ww, generator)
             out = x if i == 0 else getattr(self, f"norm{i}")(x)
             outs.append(out.reshape(b, hh, ww, dim).permute(0, 3, 1, 2))
             if layer.downsample is not None:

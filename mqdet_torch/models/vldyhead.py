@@ -169,12 +169,13 @@ class VLDyHead(nn.Module):
         self.bias_lang = nn.Parameter(torch.zeros(lb.LANG_DIM))
         self.bias0 = nn.Parameter(torch.tensor([bias_value]))
 
-    def forward(self, feats, lang_hidden, lang_masks) -> Dict[str, object]:
+    def forward(self, feats, lang_hidden, lang_masks, generator=None) -> Dict[str, object]:
+        """`generator`: the fusion's training route (`models/fusion.py`)."""
         attn_bias = (1.0 - lang_masks[:, None, None, :].float()) * -10000.0
         visual = feats
         for i in range(self.num_convs):
             fuse, lang_layer, dyconv = self.dyhead_tower[3 * i : 3 * i + 3]
-            visual, lang_hidden = fuse(visual, lang_hidden, lang_masks)
+            visual, lang_hidden = fuse(visual, lang_hidden, lang_masks, generator)
             lang_hidden = lang_layer(lang_hidden, attn_bias)
             visual = dyconv(visual)
 

@@ -80,7 +80,7 @@ def extract_queries_into_bank(
     return bank
 
 
-def dataset_extraction_iter(dataset, transform, device="cpu"):
+def dataset_extraction_iter(dataset, transform, device="cuda"):
     """The JAX training CLI's extraction iterator (tools/train.py:214-225):
     per image of `dataset`, the transformed image on `device` and its GT
     boxes mapped into the resized image."""

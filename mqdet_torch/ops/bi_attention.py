@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -78,11 +78,13 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
-def _v_side(s, bias_l, vlh):
-    """out_v (B, H, N, D) from the scores s = q.k^T (B, H, N, T)."""
+def _v_side(s, bias_l, vlh, drop=None):
+    """out_v (B, H, N, D) from the scores s = q.k^T (B, H, N, T); `drop`
+    (dropout) on the probabilities."""
     if bias_l is not None:
         s = s + bias_l[:, None, None, :].to(s.dtype)
-    return torch.matmul(_softmax_f32(s, -1), vlh)
+    p = _softmax_f32(s, -1)
+    return torch.matmul(drop(p) if drop is not None else p, vlh)
 
 
 def bi_attention_plain(
@@ -111,15 +113,17 @@ def bi_attention_dual_plain(
     vl: torch.Tensor,
     bias_l: Optional[torch.Tensor],
     num_heads: int,
+    drop: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain dual-score bi-attention: two explicit score products, s = q.k^T
     for the v side and s^T = k.q^T for the l side, each softmax over its
-    minor axis in fp32 (the JAX package's composite)."""
+    minor axis in fp32 (the JAX package's composite). `drop`, the training
+    composite's attention dropout, applies to both probability tensors."""
     h = num_heads
     qh, kh, vvh, vlh = (_heads(x, h) for x in (q, k, vv, vl))
-    out_v = _v_side(torch.matmul(qh, kh.transpose(-1, -2)), bias_l, vlh)
-    st = torch.matmul(kh, qh.transpose(-1, -2))  # (B, H, T, N)
-    out_l = torch.matmul(_softmax_f32(st, -1), vvh)
+    out_v = _v_side(torch.matmul(qh, kh.transpose(-1, -2)), bias_l, vlh, drop)
+    p_l = _softmax_f32(torch.matmul(kh, qh.transpose(-1, -2)), -1)  # (B, H, T, N)
+    out_l = torch.matmul(drop(p_l) if drop is not None else p_l, vvh)
     return _merge(out_v), _merge(out_l)
 
 
@@ -304,6 +308,7 @@ def _launch(q, k, vv, vl, bias_l, num_heads, dual, splits=None):
     """The flat kernel and the combine; `splits` overrides `l_splits` (the
     card tests hold S = 1 against the automatic S)."""
     global launch_count, dual_launch_count
+    kernels.refuse_grad("mqdet_bi_attention_forward", q, k, vv, vl, bias_l)
     bias_l = _check(q, k, vv, vl, bias_l, num_heads)
     b, n, e = q.shape
     t, h = k.shape[1], num_heads
@@ -335,6 +340,7 @@ def _launch_levels(qs, k, vvs, vl, bias_l, num_heads, splits=None):
     """One C call per level (the flat kernel over the level's rows, then the
     combine with the carry); `splits` overrides each level's `l_splits`."""
     global levels_launch_count
+    kernels.refuse_grad("mqdet_bi_attention_carry_forward", *qs, k, *vvs, vl, bias_l)
     if not qs or len(qs) != len(vvs):
         raise ValueError("need one q and one vv per level")
     b, t, e = k.shape

@@ -167,6 +167,22 @@ def ptxas_notes(code: str = "C75") -> list:
         return [line for line in f.read().splitlines() if f"({code}" in line]
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these tensors."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a launch: a launcher fills its
+    output through ctypes, so the output has no `grad_fn` and a training
+    step through it would get no gradient and no error."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{name}: the kernel's output has no gradient; call it through its autograd "
+                           "Function or under torch.no_grad()")
+
+
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} after launch")

@@ -256,6 +256,7 @@ def ms_deform_attn_clipped_plain(value, spatial_shapes, sampling_locations, atte
 
 def _launch(value, spatial_shapes, loc, attn, clip=False) -> torch.Tensor:
     global launch_count, clip_launch_count
+    kernels.refuse_grad("mqdet_ms_deform_attn_forward", value, loc, attn)
     if value.dim() != 4:
         raise ValueError(f"value must be (B, S, nh, hd), got {tuple(value.shape)}")
     b, s, nh, hd = value.shape

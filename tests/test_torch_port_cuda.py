@@ -653,7 +653,7 @@ def test_eval_transform_on_the_card_matches_the_cpu(dev):
     tf = EvalTransform(mq_glip_t_config())
     for hw in ((480, 640), (640, 480), (333, 500)):
         img = np.random.default_rng(sum(hw)).integers(0, 256, hw + (3,), dtype=np.uint8)
-        want, size, scale = tf(img)
+        want, size, scale = tf(img, "cpu")
         got, size_d, scale_d = tf(img, dev)
         assert (size_d, scale_d) == (size, scale) and got.device.type == "cuda"
         assert torch.equal(got.cpu(), want)
@@ -709,3 +709,108 @@ def test_run_inference_on_the_card_launches_the_kernels(dev, tmp_path):
     used = {k: v for k, v in launch_counts().items() if v}
     assert used == {"dcn_gather_clip": 3 * 2 * 13, "bi_attention": 3 * 2}
     assert np.isfinite(res["AP"]) and res["images_per_second"] > 0
+
+
+DCN_ROUTES = {  # the public function of each route and the plain VJP its Function's backward computes
+    "band": (lambda *a, s: tdc.modulated_deform_conv_pallas(*a, stride=s, radius=2),
+             lambda *a, s: tdc.modulated_deform_conv_window_vjp(*a, stride=s, radius=2)),
+    "window": (lambda *a, s: tdc.modulated_deform_conv_window(*a, stride=s, radius=2),
+               lambda *a, s: tdc.modulated_deform_conv_window_vjp(*a, stride=s, radius=2)),
+    "exact": (lambda *a, s: tdc.modulated_deform_conv(*a, stride=s),
+              lambda *a, s: tdc.modulated_deform_conv_exact_vjp(*a, stride=s)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(DCN_ROUTES))
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("offsets", ["x3", "integer"])
+def test_dcn_function_gradients_match_the_plain_vjp(dev, route, stride, offsets):
+    """Each DCN route's autograd Function on the card (the kernel forward,
+    bf16 inputs saved) against its plain VJP in fp32 on the same inputs:
+    every gradient within BOUND * max|ref|; the forward launched its
+    kernel once."""
+    from mqdet_torch.ops import launch_counts
+
+    g = torch.Generator(device=dev).manual_seed(stride)
+    b, h, w, c = 2, 13, 21, 128
+    ho, wo = -(-h // stride), -(-w // stride)
+    off = torch.randn(b, ho, wo, 18, generator=g, device=dev) * 3
+    if offsets == "integer":
+        off = off.round().clamp(-3, 3)
+    ins = [torch.randn(b, h, w, c, generator=g, device=dev), off, torch.rand(b, ho, wo, 9, generator=g, device=dev),
+           torch.randn(3, 3, c, c, generator=g, device=dev) * 0.05, torch.randn(c, generator=g, device=dev)]
+    ins = [t.bfloat16() for t in ins]
+    gout = torch.randn(b, ho, wo, c, generator=g, device=dev).bfloat16()
+    fwd, vjp = DCN_ROUTES[route]
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    launch_counts(reset=True)
+    y = fwd(*leaves, s=stride)
+    assert sum(launch_counts().values()) == 1 and y.grad_fn is not None
+    y.backward(gout)
+    refs = vjp(*(t.float() for t in ins), gout.float(), s=stride)
+    for leaf, ref in zip(leaves, refs):
+        assert leaf.grad.dtype == torch.bfloat16 and _close(leaf.grad, ref)
+
+
+@pytest.mark.cuda
+def test_launchers_raise_under_grad_on_the_card(dev):
+    """No kernel returns a detached output to a caller that needs a
+    gradient: the DCN routes go through their Functions, the bi-attention
+    and MSDA launchers raise."""
+    q = torch.randn(1, 128, 2048, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn(1, 128, 2048, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tba.flash_bi_attention(q, k, q, k, None, 8)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tba.flash_bi_attention_levels([q], k, [q], k, None, 8)
+    value = torch.randn(1, 64, 8, 32, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    loc = torch.rand(1, 64, 8, 1, 4, 2, device=dev, dtype=torch.bfloat16)
+    attn = torch.rand(1, 64, 8, 1, 4, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tms.ms_deform_attn(value, [(8, 8)], loc, attn)
+    x = torch.randn(1, 8, 8, 128, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    rest = [torch.zeros(1, 8, 8, 18, device=dev, dtype=torch.bfloat16), torch.ones(1, 8, 8, 9, device=dev,
+            dtype=torch.bfloat16), torch.zeros(3, 3, 128, 128, device=dev, dtype=torch.bfloat16)]
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tdc._launch_band(x, *rest, None, 1, 2, 8, 2)
+    assert tdc.modulated_deform_conv_pallas(x, *rest, radius=2).grad_fn is not None
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card(dev):
+    """Two training steps of tiny MQ-GLIP (C 128, so the band kernel runs) in
+    bf16 on the card: 13 band-DCN launches per forward and no bi-attention
+    kernel (the fusion's training composite); every loss finite; the
+    trainable fp32 masters move, the frozen parameters do not."""
+    import numpy as np
+
+    from mqdet_torch.core.config import trainable_patterns
+    from mqdet_torch.engine.train import batch_to_device, glip_anchors, init_train_state, make_train_step, step_generator
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import build_model, init_params, synthetic_batch, tiny_test_config
+
+    cfg = tiny_test_config()
+    cfg.MODEL.BACKBONE.OUT_CHANNELS = cfg.MODEL.DYHEAD.CHANNELS = 128
+    cfg.SOLVER.TUNING_HIGHLEVEL_OVERRIDE, cfg.SOLVER.MODEL_EMA, cfg.SOLVER.WARMUP_ITERS = "vision_query", 0.999, 0
+    cfg.VISION_QUERY.TEXT_DROPOUT = 0.4
+    b = synthetic_batch(cfg, 2, (64, 64), num_labels=3, k_shot=2, seed=1)
+    batch = {k: b[k] for k in ("images", "input_ids", "attention_mask", "queries", "query_mask")}
+    boxes = np.array([[[4, 6, 40, 30], [20, 20, 60, 62]]] * 2, np.float32)
+    batch.update(gt_boxes=boxes, gt_labels=np.array([[1, 2]] * 2, np.int32), gt_valid=np.ones((2, 2), bool),
+                 gt_token_map=b["agg_map"][:, :2], pos_category_map=(b["agg_map"] > 0).astype(np.float32),
+                 has_query=np.ones((2, 3), np.int32))
+    model = init_params(build_model(cfg), seed=0).to(dev, torch.bfloat16)
+    state, tx = init_train_state(model, cfg, trainable_patterns(cfg))
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if n in state.frozen}
+    start = {n: t.clone() for n, t in state.trainable.items()}
+    anchors, level_sizes = glip_anchors(cfg, (64, 64), dev)
+    step = make_train_step(model, tx, anchors, level_sizes, cfg)
+    launch_counts(reset=True)
+    for it in range(2):
+        state, metrics = step(state, batch_to_device(batch, dev), step_generator(0, it, dev))
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert {k: v for k, v in launch_counts().items() if v} == {"dcn_band": 2 * 13}
+    params = dict(model.named_parameters())
+    assert all(torch.equal(params[n], t) for n, t in frozen.items())
+    assert all(not torch.equal(t, start[n]) and t.dtype == torch.float32 for n, t in state.trainable.items())

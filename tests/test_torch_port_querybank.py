@@ -228,7 +228,7 @@ def test_eval_transform_matches_jax(hw, min_max, buckets):
         cfg.TPU.IMAGE_BUCKETS = buckets
     img = np.random.default_rng(sum(hw)).integers(0, 256, hw + (3,), dtype=np.uint8)
     want, size_j, scale_j = jtf.EvalTransform(cfg_j)(img)
-    got, size_t, scale_t = ttf.EvalTransform(cfg_t)(img)
+    got, size_t, scale_t = ttf.EvalTransform(cfg_t)(img, "cpu")
     assert size_t == size_j and scale_t == scale_j
     assert tuple(got.shape) == (1, 3) + want.shape[:2]
     pixels_j = jtf.resize_image(img, *size_j).astype(np.float32)
@@ -378,7 +378,7 @@ def test_extract_queries_into_bank_matches_jax(request, tmp_path, family):
     want = jext.extract_queries_into_bank(jfn, params, jax_iter(), jbank.QueryBank(channels=16),
                                           max_query_number=2)
     got = text.extract_queries_into_bank(
-        text.make_extract_fn(tmodel, tcfg), text.dataset_extraction_iter(tds, ttf.EvalTransform(tcfg)),
+        text.make_extract_fn(tmodel, tcfg), text.dataset_extraction_iter(tds, ttf.EvalTransform(tcfg), "cpu"),
         tbank.QueryBank(channels=16), max_query_number=2)
     assert got.labels == want.labels and len(got.labels) >= 3
     assert max(got.count(l) for l in got.labels) == 2
