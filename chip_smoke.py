@@ -5,8 +5,8 @@
 
 Run from the root of a checkout. It needs a CUDA device and the CUDA toolkit
 (`nvcc`); it imports nothing of JAX. It drives both evaluation paths of the
-port, MQ-GLIP-T and MQ-GroundingDINO-T, and MQ-GLIP-T's modulated
-pre-training. Phases, each printing lines:
+port, MQ-GLIP-T and MQ-GroundingDINO-T, and the modulated pre-training of
+both. Phases, each printing lines:
 
   1. the card (`nvidia-smi` name and power limit) and the kernels' build from
      `mqdet_torch/csrc/` with nvcc for sm_90a (one nvcc per source, in
@@ -115,7 +115,7 @@ pre-training. Phases, each printing lines:
      detections finite and inside their images, AP, APr, APc, APf finite)
      and one `online_update` turn over 2 images from an empty bank (launches
      2 x one protocol's, queries added > 0, seconds);
-  8. last, MQ-GLIP-T modulated pre-training at full width (`train_config`:
+  8. MQ-GLIP-T modulated pre-training at full width (`train_config`:
      the settings of configs/pretrain/mq-glip-t.yaml, batch 2 at 800x1344,
      the warmup cut to 0) from init_params(seed), through the port's train
      entry (`mqdet_torch.tools.train.build_training`) on phase 7's synthetic
@@ -133,12 +133,28 @@ pre-training. Phases, each printing lines:
      backward / update; one profiled step (device busy, idle share, the DCN
      backward's device time and share); gates: every loss term finite, the
      frozen parameters bitwise unchanged, every trainable tensor moved and
-     its EMA apart from it, a checkpoint saved and restored equal.
+     its EMA apart from it, a checkpoint saved and restored equal;
+  9. last, MQ-GroundingDINO-T modulated pre-training at full width
+     (`train_config_gdino`: configs/pretrain/mq-groundingdino-t.yaml's
+     settings with phase 8's cuts) from init_params(seed), through the same
+     train entry, on phase 7's dataset (its landscape images) and phase 7's
+     MQ-GroundingDINO-T bank. The reference step at 256x256 as phase 8's,
+     the CPU under MQDET_MSDA_IMPL=pallas_interpret (K5's clipped function,
+     as the card's default), every run on the fp32 run's Hungarian
+     assignment (an argmin: bf16 noise may flip a near-tied pair), the pairs
+     the card's own matcher would choose otherwise counted; the MSDA
+     Function's backward at the encoder shape (2, 22323, 8, 32), clipped
+     forward with locations past their windows, and at decoder queries (Q
+     900, exact), against the fp32 exact VJP within 2e-2 * max|ref|, with ms
+     per backward; then phase 8's steps, split (the matcher's host time
+     apart), profile (the `msda_backward` spans' device time and share) and
+     gates, launches gated at 6 `ms_deform_attn_clip` + 6 `ms_deform_attn` a
+     forward and no bi-attention kernel.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches summed over the counted paths: the protocols, phase 3's card runs,
-the sweep path, phase 7's evaluation and update and phase 8's timed training
-steps); the last line is {"ok": true, "device": {...}}. Any failure exits
+the sweep path, phase 7's evaluation and update and phases 8 and 9's timed
+training steps); the last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without those lines.
 """
 from __future__ import annotations
@@ -147,6 +163,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import os
 import statistics
 import sys
@@ -1321,19 +1338,10 @@ def phase_train_reference(torch, cfg, model_cpu, seed):
         params = dict(model.named_parameters())
         return float(metrics["loss_total"]), {n: params[n].grad.float().cpu() for n in state.trainable}
 
-    def rel(a, ref):
-        return float(torch.linalg.vector_norm(a - ref) / torch.linalg.vector_norm(ref).clamp(min=1e-30))
-
-    def errs(got, ref):
-        """[(name, relative L2)]: the loss, then each trainable gradient."""
-        return [("loss", abs(got[0] - ref[0]) / abs(ref[0]))] + [(n, rel(got[1][n], ref[1][n])) for n in ref[1]]
-
     t0 = time.perf_counter()
     scales = (1.0, 1.0 + 1e-3, 1.0 - 1e-3)
     ref32 = {s: step(dropout_off(copy.deepcopy(model_cpu)), torch.device("cpu"), s) for s in scales}
     run16 = {s: step(dropout_off(copy.deepcopy(model_cpu).to(torch.bfloat16)), torch.device("cpu"), s) for s in scales}
-    plain = [errs(run16[s], ref32[s]) for s in scales]
-    moved = max(e for _, e in errs(ref32[scales[1]], ref32[1.0])[1:])
     cpu_s = time.perf_counter() - t0
     gpu = dropout_off(copy.deepcopy(model_cpu)).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
     launch_counts(reset=True)
@@ -1344,26 +1352,46 @@ def phase_train_reference(torch, cfg, model_cpu, seed):
     want = predicted(dcn_band=stages * (3 * levels - 2))
     if used != want:
         fail(f"phase 8 reference step: launches {used} != predicted {want}")
+    reference_verdict(torch, "phase 8", f"MQ-GLIP-T full width at {hw}", card, ref32, run16, scales,
+                      f"CPU steps {cpu_s!r} s; launches {({k: v for k, v in used.items() if v})}")
+    return used
 
+
+def reference_verdict(torch, phase, what, card, ref32, run16, scales, tail) -> None:
+    """Phase 3's rule on a training step: the card's loss and every
+    trainable gradient (`card`: (loss, {name: grad})) against the fp32 CPU
+    step (`ref32[1.0]`), each within twice the largest drift of the CPU bf16
+    runs (`run16[s]` against `ref32[s]`, s in `scales`), floor E2E_FLOOR; the
+    concatenated gradient within twice the unscaled run's drift; and the
+    scaled fp32 runs within 1e-2 of the unscaled one (the scaling is no
+    larger change than the drift it samples). Prints the line; fails
+    outside the rule."""
+    def rel(a, ref):
+        return float(torch.linalg.vector_norm(a - ref) / torch.linalg.vector_norm(ref).clamp(min=1e-30))
+
+    def errs(got, ref):
+        """[(name, relative L2)]: the loss, then each trainable gradient."""
+        return [("loss", abs(got[0] - ref[0]) / abs(ref[0]))] + [(n, rel(got[1][n], ref[1][n])) for n in ref[1]]
+
+    plain = [errs(run16[s], ref32[s]) for s in scales]
+    moved = max(e for _, e in errs(ref32[scales[1]], ref32[1.0])[1:])
     card_errs = errs(card, ref32[1.0])
     rows = [(n, e, max(p[i][1] for p in plain), plain[0][i][1]) for i, (n, e) in enumerate(card_errs)]
     ratio = lambda r: r[1] / max(2 * r[2], E2E_FLOOR)  # noqa: E731
     worst = max(rows, key=ratio)
-    bad = [r for r in rows if not (np.isfinite(r[1]) and ratio(r) <= 1.0)]
+    bad = [r for r in rows if not (math.isfinite(r[1]) and ratio(r) <= 1.0)]
     flat = lambda grads: torch.cat([g.reshape(-1) for g in grads.values()])  # noqa: E731
     g_card, g_plain = rel(flat(card[1]), flat(ref32[1.0][1])), rel(flat(run16[1.0][1]), flat(ref32[1.0][1]))
     ok = not bad and g_card <= max(2 * g_plain, E2E_FLOOR) and moved < 1e-2
-    say(f"phase 8: reference step, MQ-GLIP-T full width at {hw}, batch 2, dropout off, card bf16 kernels vs CPU "
-        f"fp32 plain: loss {card[0]!r} vs {ref32[1.0][0]!r}; {len(rows) - 1} trainable gradients; worst err / "
-        f"bound {ratio(worst)!r} at {worst[0]} (card relative L2 {worst[1]!r}; plain bf16 {worst[3]!r}, the "
-        f"largest of the three CPU bf16 runs {worst[2]!r}; bound max(2 * largest, {E2E_FLOOR})); the concatenated "
-        f"gradient: card {g_card!r}, plain bf16 {g_plain!r} (bound max(2 * plain, {E2E_FLOOR})); the 1e-3 image "
-        f"scaling moves the fp32 gradients by at most {moved!r}; CPU steps {cpu_s!r} s; launches "
-        f"{({k: v for k, v in used.items() if v})}; {'ok' if ok else 'FAIL'}")
+    say(f"{phase}: reference step, {what}, batch 2, dropout off, card bf16 kernels vs CPU fp32 plain: loss "
+        f"{card[0]!r} vs {ref32[1.0][0]!r}; {len(rows) - 1} trainable gradients; worst err / bound {ratio(worst)!r} "
+        f"at {worst[0]} (card relative L2 {worst[1]!r}; plain bf16 {worst[3]!r}, the largest of the three CPU bf16 "
+        f"runs {worst[2]!r}; bound max(2 * largest, {E2E_FLOOR})); the concatenated gradient: card {g_card!r}, "
+        f"plain bf16 {g_plain!r} (bound max(2 * plain, {E2E_FLOOR})); the 1e-3 image scaling moves the fp32 "
+        f"gradients by at most {moved!r}; {tail}; {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"phase 8 reference step: {len(bad)} of {len(rows)} outside the bound, e.g. {bad[:3]}; concatenated "
+        fail(f"{phase} reference step: {len(bad)} of {len(rows)} outside the bound, e.g. {bad[:3]}; concatenated "
              f"{g_card!r} vs plain {g_plain!r}; fp32 moved {moved!r}")
-    return used
 
 
 def phase_dcn_backward(torch, seed, smi):
@@ -1420,34 +1448,55 @@ def phase_dcn_backward(torch, seed, smi):
     return times
 
 
+def landscape(dataset):
+    """A shallow copy of phase 7's dataset holding its landscape images: the
+    loader stacks one bucket's images, as the JAX loader does (ROADMAP Queue
+    C 1: portrait batches)."""
+    ds = copy.copy(dataset)
+    ds.ids = [i for i in dataset.ids if dataset.image_size(i)[0] < dataset.image_size(i)[1]]
+    return ds
+
+
 def phase_train(torch, seed, dataset, bank, smi):
     """Phase 8: MQ-GLIP-T modulated pre-training at full width on the card
-    (`train_config`), through the port's train entry (`tools.train.
-    build_training`: model, selector, loader, state, step, checkpointer), on
-    phase 7's synthetic LVIS-shaped dataset (its 6 landscape images: the
-    loader stacks one bucket's images, as the JAX loader does) and phase 7's
-    extracted MQ-GLIP-T bank. Two warm-up steps, 8 timed steps (launches
-    counted), one step split by a synchronise at forward / backward /
-    update, one profiled step, a checkpoint save and restore; then the
-    gates. Returns the launch counts of the timed steps."""
+    (`train_config`) on phase 7's synthetic LVIS-shaped dataset and phase 7's
+    extracted MQ-GLIP-T bank: the reference step, each DCN Function's
+    backward, then `train_steps`. Returns the launch counts of the timed
+    steps."""
+    from mqdet_torch.utils.builders import build_model, init_params
+
+    cfg = train_config()
+    model_cpu = init_params(build_model(cfg), seed=seed)
+    phase_train_reference(torch, cfg, model_cpu, seed)
+    bwd_ms = phase_dcn_backward(torch, seed, smi)
+    torch.cuda.empty_cache()
+    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
+    return train_steps(torch, "phase 8", "MQ-GLIP-T", cfg, model_cpu, landscape(dataset), bank, smi,
+                       predicted(dcn_band=stages * (3 * levels - 2)),  # 78 a forward; no bi-attention kernel
+                       "dcn_backward", "`DeformConvFunction`", ("dcn_band_kernel",),
+                       f"level-0 backward alone (CUDA events) {bwd_ms}")
+
+
+def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, span, function, fwd_kernels, note):
+    """The timed part of a training phase, through the port's train entry
+    (`tools.train.build_training`: model, selector, loader, state, step,
+    checkpointer): two warm-up steps, 8 timed steps (launches gated at
+    `per_step` a step), one step split by a synchronise at forward /
+    backward / update (and the matcher's host time, where the step has
+    one), one profiled step (device busy, idle share, the kernels inside
+    the `span` annotations of the `function` backwards, the forward kernels
+    named like `fwd_kernels`), a checkpoint save and restore; then the gates
+    (losses finite, frozen bitwise, every trainable tensor and its EMA
+    moved). Returns the launch counts of the timed steps."""
     import numpy as np
 
     from mqdet_torch.data.tokenizer import WordPieceTokenizer
     from mqdet_torch.engine.train import batch_to_device, step_generator
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.tools.train import build_training
-    from mqdet_torch.utils.builders import build_model, init_params
 
     timed = 8
-    cfg = train_config()
-    ds = copy.copy(dataset)
-    ds.ids = [i for i in dataset.ids if dataset.image_size(i)[0] < dataset.image_size(i)[1]]
     dev = torch.device("cuda")
-    model_cpu = init_params(build_model(cfg), seed=seed)
-    phase_train_reference(torch, cfg, model_cpu, seed)
-    bwd_ms = phase_dcn_backward(torch, seed, smi)
-    torch.cuda.empty_cache()
-
     out_dir = tempfile.mkdtemp(prefix="mqdet_train_")
     model, loader, state, step, ckpt = build_training(cfg, ds, bank, out_dir, dev, model=model_cpu,
                                                       tokenizer=WordPieceTokenizer())
@@ -1483,19 +1532,18 @@ def phase_train(torch, seed, dataset, bank, smi):
         one()
     used = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
-    want = predicted(dcn_band=timed * stages * (3 * levels - 2))  # 78 per forward; no bi-attention kernel
+    want = {k: v * timed for k, v in per_step.items()}
     p50 = statistics.median(step_ms)
-    say(f"phase 8: MQ-GLIP-T training (vision_query, batch 2, 800x1344, seed {seed}; {smi}): {p50!r} ms per step "
-        f"(median of {timed}; min {min(step_ms)!r}, max {max(step_ms)!r}; host clock, synchronised; the loader's "
-        f"host time apart: median {statistics.median(data_ms)!r} ms), {2 * 1000.0 / p50!r} train img/s; peak "
-        f"{peak!r} GiB; launches {({k: v for k, v in used.items() if v})} (predicted {want})")
+    say(f"{phase}: {label} training (vision_query, batch 2, 800x1344, seed {cfg.SOLVER.SEED}; {smi}): {p50!r} ms per "
+        f"step (median of {timed}; min {min(step_ms)!r}, max {max(step_ms)!r}; host clock, synchronised; the "
+        f"loader's host time apart: median {statistics.median(data_ms)!r} ms), {2 * 1000.0 / p50!r} train img/s; "
+        f"peak {peak!r} GiB; launches {({k: v for k, v in used.items() if v})} (predicted {want})")
     if used != want:
-        fail(f"phase 8: training launches {used} != predicted {want}")
+        fail(f"{phase}: training launches {used} != predicted {want}")
 
     times = {}
     one(times)
-    say(f"phase 8: one step split by a synchronise at each boundary ({smi}): "
+    say(f"{phase}: one step split by a synchronise at each boundary ({smi}): "
         + ", ".join(f"{k} {v * 1000.0!r} ms" for k, v in times.items()) + f" (step {step_ms[-1]!r} ms)")
 
     from torch.autograd import DeviceType
@@ -1504,35 +1552,35 @@ def phase_train(torch, seed, dataset, bank, smi):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         one()
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    marks = [(e.time_range.start, e.time_range.end) for e in device if e.name == "dcn_backward"]
-    kernels = [(e.time_range.start, e.time_range.end, e.name) for e in device if e.name != "dcn_backward"]
+    marks = [(e.time_range.start, e.time_range.end) for e in device if e.name == span]
+    kernels = [(e.time_range.start, e.time_range.end, e.name) for e in device if e.name != span]
     if kernels:
         busy = union_us([k[:2] for k in kernels]) / 1000.0
         window = (max(k[1] for k in kernels) - min(k[0] for k in kernels)) / 1000.0
-        # the kernels inside the device-side spans of the `dcn_backward` annotation
-        dcn_bwd = union_us([k[:2] for k in kernels if any(s0 <= k[0] and k[1] <= s1 for s0, s1 in marks)]) / 1000.0
-        dcn_fwd = sum(k[1] - k[0] for k in kernels if "dcn_band_kernel" in k[2]) / 1000.0
-        said = (f"{dcn_bwd!r} ms, a share {dcn_bwd / busy!r} of busy" if marks
-                else "not measured (the profiler recorded no device-side `dcn_backward` span)")
-        say(f"phase 8: profiled step ({smi}): device busy {busy!r} ms in a {window!r} ms window (idle share "
-            f"{1.0 - busy / window!r}, profiler on); the DCN backward (the kernels inside the {len(marks)} "
-            f"`dcn_backward` spans of the 78 `DeformConvFunction` backwards) {said}; the band kernel forward "
-            f"{dcn_fwd!r} ms; level-0 backward alone (CUDA events) {bwd_ms}")
+        # the kernels inside the device-side spans of the annotation
+        bwd = union_us([k[:2] for k in kernels if any(s0 <= k[0] and k[1] <= s1 for s0, s1 in marks)]) / 1000.0
+        fwd = sum(k[1] - k[0] for k in kernels if any(n in k[2] for n in fwd_kernels)) / 1000.0
+        said = (f"{bwd!r} ms, a share {bwd / busy!r} of busy" if marks
+                else f"not measured (the profiler recorded no device-side `{span}` span)")
+        say(f"{phase}: profiled step ({smi}): device busy {busy!r} ms in a {window!r} ms window (idle share "
+            f"{1.0 - busy / window!r}, profiler on); the backward (the kernels inside the {len(marks)} `{span}` "
+            f"spans of the {function} backwards) {said}; the forward kernels ({', '.join(fwd_kernels)}) "
+            f"{fwd!r} ms; {note}")
     else:
-        say("phase 8: the profiler recorded no device kernels; the DCN backward's device share not measured")
+        say(f"{phase}: the profiler recorded no device kernels; the backward's device share not measured")
 
     for rec in losses:
         if not all(np.isfinite(v) for v in rec.values()):
-            fail(f"phase 8: a loss term is not finite: {rec}")
-    say(f"phase 8: losses of the last step {losses[-1]}")
+            fail(f"{phase}: a loss term is not finite: {rec}")
+    say(f"{phase}: losses of the last step {losses[-1]}")
     params = dict(model.named_parameters())
     changed = [n for n in frozen if not torch.equal(params[n], frozen[n])]
     if changed:
-        fail(f"phase 8: frozen parameters changed: {changed[:5]}")
+        fail(f"{phase}: frozen parameters changed: {changed[:5]}")
     still = [n for n, t in state.trainable.items() if torch.equal(t, start[n])]
     same_ema = [n for n, t in state.trainable.items() if torch.equal(t, state.ema[n])]
     if still or same_ema:
-        fail(f"phase 8: trainable tensors unchanged {still[:5]}; EMA equal to the parameters {same_ema[:5]}")
+        fail(f"{phase}: trainable tensors unchanged {still[:5]}; EMA equal to the parameters {same_ema[:5]}")
 
     t0 = time.perf_counter()
     path = ckpt.save(state.step, state, {"iteration": state.step})
@@ -1541,15 +1589,203 @@ def phase_train(torch, seed, dataset, bank, smi):
             and all(torch.equal(restored.trainable[n], t) and torch.equal(restored.ema[n], state.ema[n])
                     and torch.equal(restored.opt_state["nu"][n], state.opt_state["nu"][n])
                     for n, t in state.trainable.items()))
-    say(f"phase 8: {len(frozen)} frozen tensors bitwise unchanged; all {len(start)} trainable tensors moved and "
+    say(f"{phase}: {len(frozen)} frozen tensors bitwise unchanged; all {len(start)} trainable tensors moved and "
         f"their EMA apart from them; checkpoint of step {state.step} saved ({os.path.getsize(path) / 2**20!r} MiB) "
         f"and restored in {time.perf_counter() - t0!r} s, equal: {same}")
     if not same:
-        fail("phase 8: the restored checkpoint differs from the saved state")
+        fail(f"{phase}: the restored checkpoint differs from the saved state")
     import shutil
 
     shutil.rmtree(out_dir, ignore_errors=True)
+    del model, state, step, loader, ckpt, frozen, start
+    torch.cuda.empty_cache()
     return used
+
+
+def train_config_gdino():
+    """MQ-GroundingDINO-T with the training settings of
+    configs/pretrain/mq-groundingdino-t.yaml: recipe vision_query (the GCP
+    pieces train), BASE_LR 1e-4 (the other LRs the defaults: GATE 5e-3,
+    QUERY 1e-5, LANG 1e-5), text dropout 0.4, 5 queries a class, the
+    800x1344 bucket; `train_config`'s cuts for the same reasons: batch 2
+    (one card), the warmup at 0 and MAX_ITER 1000 (a step's time does not
+    depend on the LR). MODEL_EMA 0.999, as mq-glip-t.yaml sets it: the yaml
+    leaves the default 0 (no EMA), so the EMA path and its gate would not
+    run."""
+    from mqdet_torch.utils.builders import mq_groundingdino_t_config
+
+    cfg = mq_groundingdino_t_config()
+    s, vq = cfg.SOLVER, cfg.VISION_QUERY
+    s.TUNING_HIGHLEVEL_OVERRIDE, s.BASE_LR = "vision_query", 1e-4
+    s.MODEL_EMA, s.IMS_PER_BATCH, s.WARMUP_ITERS, s.MAX_TO_KEEP, s.MAX_ITER = 0.999, 2, 0, 4, 1000
+    vq.TEXT_DROPOUT, vq.NUM_QUERY_PER_CLASS = 0.4, 5
+    return cfg
+
+
+def phase_train_reference_gdino(torch, cfg, model_cpu, seed):
+    """Phase 9's reference step: one MQ-GroundingDINO-T training step at
+    256x256, full width, batch 2 (40 labels, 8 gt boxes an image), dropout
+    off, the card (bf16, kernels) against the CPU in fp32 (plain versions,
+    under MQDET_MSDA_IMPL=pallas_interpret, so the encoder computes K5's
+    clipped function as the card's default route does), by phase 8's rule
+    (`reference_verdict`). The Hungarian assignment is an argmin: bf16 noise
+    can flip a near-tied pair, which moves the loss by order 1, not by a
+    drift. So the fp32 unscaled run's assignment is given to every other run
+    (`assignment=`, a keyword the training path never passes), and the card's
+    own matcher is run once to count the pairs it would have chosen
+    otherwise. Returns the launch counts of the fixed-assignment card step."""
+    import numpy as np
+
+    from mqdet_torch.core.config import trainable_patterns
+    from mqdet_torch.engine.train import batch_to_device, init_train_state, make_gdino_train_step
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import synthetic_caption_batch
+
+    hw = (256, 256)
+    c = cfg.clone()
+    c.VISION_QUERY.TEXT_DROPOUT = 0.0
+    b = synthetic_caption_batch(c, batch=2, image_hw=hw, num_labels=40, k_shot=5, seed=seed + 3)
+    rng = np.random.default_rng(seed + 3)
+    g_max = 8
+    boxes = np.zeros((2, g_max, 4), np.float32)
+    labels = rng.integers(0, 40, (2, g_max))
+    for i in range(2):
+        xy = rng.uniform(0, 160, (g_max, 2))
+        boxes[i] = np.concatenate([xy, xy + rng.uniform(24, 96, (g_max, 2))], 1).clip(0, 255)
+    batch = {k: b[k] for k in ("images", "input_ids", "attention_mask", "queries", "query_mask")}
+    batch.update(gt_boxes=boxes, gt_labels=(labels + 1).astype(np.int32), gt_valid=np.ones((2, g_max), bool),
+                 gt_token_map=np.take_along_axis(b["agg_map"], labels[..., None], 1).astype(np.float32),
+                 pos_category_map=(b["agg_map"] > 0).astype(np.float32), has_query=np.ones((2, 40), np.int32),
+                 image_sizes=np.array([hw, hw], np.float32))
+
+    def step(model, dev, scale=1.0, assignment=None):
+        state, tx = init_train_state(model, c, trainable_patterns(c))
+        run = make_gdino_train_step(model, tx, c)
+        inputs = dict(batch, images=(batch["images"] * np.float32(scale)).astype(np.float32))
+        _, metrics = run(state, batch_to_device(inputs, dev), torch.Generator(device=dev).manual_seed(seed),
+                         assignment=assignment)
+        params = dict(model.named_parameters())
+        return float(metrics["loss_total"]), {n: params[n].grad.float().cpu() for n in state.trainable}, run.assignment
+
+    t0 = time.perf_counter()
+    scales = (1.0, 1.0 + 1e-3, 1.0 - 1e-3)
+    cpu = torch.device("cpu")
+    with switched("default", msda="pallas_interpret"):
+        first = step(dropout_off(copy.deepcopy(model_cpu)), cpu)
+        fixed = first[2]
+        ref32 = {s: first[:2] if s == 1.0 else step(dropout_off(copy.deepcopy(model_cpu)), cpu, s, fixed)[:2]
+                 for s in scales}
+        run16 = {s: step(dropout_off(copy.deepcopy(model_cpu).to(torch.bfloat16)), cpu, s, fixed)[:2]
+                 for s in scales}
+    cpu_s = time.perf_counter() - t0
+    gpu = dropout_off(copy.deepcopy(model_cpu)).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
+    with switched("default"):
+        own = step(gpu, torch.device("cuda"))[2]
+        launch_counts(reset=True)
+        card = step(gpu, torch.device("cuda"), assignment=fixed)[:2]
+        used = launch_counts()
+    del gpu
+    g = cfg.GROUNDINGDINO
+    want = predicted(ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers)
+    if used != want:
+        fail(f"phase 9 reference step: launches {used} != predicted {want}")
+    flips = int((own != fixed).sum())
+    reference_verdict(torch, "phase 9", f"MQ-GroundingDINO-T full width at {hw}, MSDA clipped on both sides", card,
+                      ref32, run16, scales,
+                      f"every run on the fp32 run's assignment ({int((fixed >= 0).sum())} pairs over "
+                      f"{fixed.shape[0]} decoder layers); the card's own matcher would choose {flips} of them "
+                      f"differently; CPU steps {cpu_s!r} s; launches {({k: v for k, v in used.items() if v})}")
+    return used
+
+
+def phase_msda_backward(torch, seed, smi):
+    """The MSDA Function's backward on the card (bf16 value, fp32 locations
+    and weights saved; the exact composite's fp32 VJP recomputed from them)
+    against `ms_deform_attn_vjp` in fp32 on the same inputs, at the 800x1344
+    pyramid, B = 2: encoder queries (Q = S = 22323) on the clipped forward
+    with locations 12 cells around their own cell (most points past their
+    windows: the backward takes them unclipped) and decoder queries (Q =
+    900) on the exact forward; every gradient within ERR_BOUND * max|ref|.
+    Returns {case: backward ms} (CUDA events: forward + backward minus
+    forward, median of 5)."""
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.ops import ms_deform_attn as ms
+    from mqdet_torch.tools import cuda_time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    shapes = GDINO_800
+    s = sum(h * w for h, w in shapes)
+    nh, hd, p = 8, 32, 4
+    times = {}
+    for name, q in (("encoder, clipped forward", None), ("decoder, exact forward", 900)):
+        value = torch.randn(2, s, nh, hd, generator=g, device=dev).bfloat16()
+        if q is None:
+            q = s
+            ref = torch.cat([
+                torch.stack(torch.meshgrid((torch.arange(w, device=dev) + 0.5) / w,
+                                           (torch.arange(h, device=dev) + 0.5) / h, indexing="xy"), -1)
+                .reshape(-1, 2) for h, w in shapes
+            ])
+            wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=dev)
+            off = torch.randn(2, q, nh, len(shapes), p, 2, generator=g, device=dev) * 12.0
+            loc = ref[None, :, None, None, None, :] + off / wh[None, None, None, :, None, :]
+            where = f"own cell + N(0, 12 cells), the clip moves {clip_share(torch, shapes, loc)!r} of the points"
+        else:
+            loc = torch.rand(2, q, nh, len(shapes), p, 2, generator=g, device=dev) * 1.4 - 0.2
+            where = "uniform in [-0.2, 1.2)"
+        attn = torch.rand(2, q, nh, len(shapes), p, generator=g, device=dev)
+        attn = attn / attn.sum(dim=(3, 4), keepdim=True)
+        gout = torch.randn(2, q, nh * hd, generator=g, device=dev).bfloat16()
+        with switched("default"):
+            leaves = [t.clone().requires_grad_(True) for t in (value, loc, attn)]
+            launch_counts(reset=True)
+            y = ms.ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
+            counts = {k: v for k, v in launch_counts().items() if v}
+            y.backward(gout)
+            refs = ms.ms_deform_attn_vjp(value.float(), shapes, loc, attn, gout.float())
+            errs = []
+            for label, leaf, r in zip(("value", "loc", "attn"), leaves, refs):
+                err, scale = max_err(leaf.grad, r)
+                errs.append((label, err / max(scale, 1e-30)))
+                if not (bool(torch.isfinite(leaf.grad).all()) and err <= ERR_BOUND * scale):
+                    fail(f"phase 9: MSDA backward, {name}: {label} gradient err {err!r} > {ERR_BOUND} * max|ref| "
+                         f"{scale!r}")
+            del leaves, y, refs
+
+            def once():
+                ins = [t.clone().requires_grad_(True) for t in (value, loc, attn)]
+                ms.ms_deform_attn(ins[0], shapes, ins[1], ins[2]).backward(gout)
+
+            fwd_ms = cuda_time_ms(lambda: ms.ms_deform_attn(value, shapes, loc, attn), iters=5, warmup=1)
+            times[name] = cuda_time_ms(once, iters=5, warmup=1) - fwd_ms
+        say(f"phase 9: MSDA backward, the Function at value {(2, s, nh, hd)} Q {q} ({name}; locations {where}; "
+            f"launches {counts}): gradients against the fp32 exact VJP, max err / max|ref| "
+            f"{', '.join(f'{k} {v!r}' for k, v in errs)} (bound {ERR_BOUND}); backward {times[name]!r} ms, forward "
+            f"{fwd_ms!r} ms (CUDA events, median of 5; {smi}); ok")
+        del value, loc, attn, gout
+        torch.cuda.empty_cache()
+    return times
+
+
+def phase_train_gdino(torch, seed, dataset, bank, smi):
+    """Phase 9: MQ-GroundingDINO-T modulated pre-training at full width on
+    the card (`train_config_gdino`) on phase 7's dataset and phase 7's
+    extracted MQ-GroundingDINO-T bank: the reference step, the MSDA
+    Function's backward, then `train_steps` (6 clipped + 6 exact MSDA
+    launches a forward, no bi-attention kernel: the fusion's training
+    composite). Returns the launch counts of the timed steps."""
+    from mqdet_torch.utils.builders import build_model, init_params
+
+    cfg = train_config_gdino()
+    model_cpu = init_params(build_model(cfg), seed=seed)
+    phase_train_reference_gdino(torch, cfg, model_cpu, seed)
+    bwd_ms = phase_msda_backward(torch, seed, smi)
+    g = cfg.GROUNDINGDINO
+    return train_steps(torch, "phase 9", "MQ-GroundingDINO-T", cfg, model_cpu, landscape(dataset), bank, smi,
+                       predicted(ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers),
+                       "msda_backward", "`MSDeformAttnFunction`", ("msda_band_kernel", "msda_forward_kernel"),
+                       f"one MSDA backward alone (CUDA events) {bwd_ms}")
 
 
 def main() -> int:
@@ -1649,14 +1885,18 @@ def main() -> int:
             torch, "MQ-GroundingDINO-T", model, cfg, synthetic_caption_batch, g.num_queries, want,
             args.runs, args.seed, parts if switch == "default" else None, switch,
         )
+    gdino_vq = {}  # phase 7's dataset and bank, for phase 9
     launches.update(phase_vision_query(
         torch, "MQ-GroundingDINO-T", cfg, model, args.seed,
-        predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention=fuse), tmp.name, g.num_queries))
+        predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention=fuse), tmp.name, g.num_queries,
+        gdino_vq))
     del model, tr, parts
     torch.cuda.empty_cache()
 
-    # ---- phase 8: MQ-GLIP-T modulated pre-training ----------------------
+    # ---- phases 8 and 9: modulated pre-training -------------------------
     launches["MQ-GLIP-T training"] = phase_train(torch, args.seed, glip_vq["dataset"], glip_vq["bank"], smi)
+    launches["MQ-GroundingDINO-T training"] = phase_train_gdino(torch, args.seed, gdino_vq["dataset"],
+                                                                gdino_vq["bank"], smi)
 
     say(f"wall time {time.perf_counter() - t_start!r} s (build included)")
     entries = []

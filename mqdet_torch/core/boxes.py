@@ -43,6 +43,11 @@ def encode(gt_boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     )
 
 
+def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = boxes.unbind(-1)
+    return torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], -1)
+
+
 def giou(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     """Generalized IoU of aligned xyxy boxes, areas WITHOUT the +1 (the
     reference's GIoULoss)."""

@@ -121,12 +121,15 @@ def default_config() -> CfgNode:
         # REMAT (activation checkpointing) is refused by the train step; COMPUTE_DTYPE is the card's
         "TPU": {"DEFORM_RADIUS": 2, "DEFORM_OFFSET_COMPAT": "strided", "IMAGE_BUCKETS": ((800, 1344),),
                 "REMAT": False, "COMPUTE_DTYPE": "bfloat16"},
-        # the evaluation keys of the JAX package's GroundingDINO block
+        # the JAX package's GroundingDINO block: the model, evaluation, and the set
+        # criterion's weights and Hungarian matcher costs (`engine/gdino_losses.py`)
         "GROUNDINGDINO": {
             "enabled": False, "hidden_dim": 256, "num_queries": 900, "nheads": 8,
             "dim_feedforward": 2048, "enc_layers": 6, "dec_layers": 6, "num_feature_levels": 4,
             "enc_n_points": 4, "dec_n_points": 4, "two_stage_type": "standard",
             "max_text_len": 256, "box_threshold": 0.05, "dn_number": 0, "query_dim": 4,
+            "loss_ce_coef": 2.0, "loss_bbox_coef": 5.0, "loss_giou_coef": 2.0,
+            "matcher": {"set_cost_class": 1.0, "set_cost_bbox": 5.0, "set_cost_giou": 2.0, "focal_alpha": 0.25},
         },
         "OUTPUT_DIR": "OUTPUT",
     })

@@ -57,7 +57,13 @@
 //     which of its corners lie in the image is built once. Every corner in
 //     the image is loaded, whatever its weight, so a pixel's inf or NaN
 //     reaches the output as 0 * inf does in the plain versions; no corner
-//     outside it is.
+//     outside it is. A NaN offset makes the tap's four weights NaN (the clip
+//     would take a bound, `fmaxf` returning the operand that is not NaN; the
+//     exact mode's in-image tests would drop the sample), so the position's
+//     output is NaN, as in the plain versions and JAX (the exact mode keeps
+//     a zero where the sample's other coordinate is outside the image, as
+//     the exact composite does), and the blend loop is the same for finite
+//     offsets.
 //   * The epilogue adds the bias in registers and writes bf16.
 //
 // dcn_band_kernel<VERSION>: the clipped DCNv2 of
@@ -97,7 +103,9 @@
 //     128-byte-swizzled 64-column panels, read by wgmma as an MN-major B)
 //     through a ring of up to 8 stages, with full / empty mbarriers.
 //   * Per block, tables of the band index of every (tap, position)'s top-left
-//     corner and its four bilinear weights times the mask are built once.
+//     corner and its four bilinear weights times the mask are built once. A
+//     NaN offset makes the tap's weights NaN (its clip would take a bound),
+//     so its position's output is NaN, as in the plain version and JAX.
 // Versions (template flag), as the TPU launcher names them:
 //   1: one band buffer: chunk k + 1 is loaded after chunk k's last step (the
 //      TPU's _kernel, its band loaded synchronously).
@@ -142,6 +150,12 @@ constexpr int TABLE_BYTES = 9 * BAND_M * 4      // s_idx: band pixel of each sam
 constexpr int BAR_BYTES = (4 + 2 * MAX_STAGES) * 8;  // full / empty band [2], full / empty slab [MAX_STAGES]
 
 __host__ __device__ constexpr int align_up(int v, int a) { return (v + a - 1) / a * a; }
+
+// Four NaN corner weights: the sample of a NaN offset.
+__device__ __forceinline__ float4 nan4() {
+  const float q = __int_as_float(0x7fc00000);
+  return make_float4(q, q, q, q);
+}
 
 // Dynamic shared memory, in bytes from a 1024-aligned base (each buffer a TMA
 // destination whose swizzle pattern follows the address bits): the bf16 band
@@ -356,6 +370,7 @@ dcn_band_kernel(const __grid_constant__ CUtensorMap tm_x,  // x (B, H, W, C) as 
       const int sx = (int)fx + 1 + a.radius;
       idx += sy * band_cols + sx;
       w = make_float4((1.f - ly) * (1.f - lx) * mk, (1.f - ly) * lx * mk, ly * (1.f - lx) * mk, ly * lx * mk);
+      if (isnan(dy) || isnan(dx)) w = nan4();
       if (VERSION == 5) {
         atomicMin(&s_lim[tap * 4 + 0], sy);
         atomicMax(&s_lim[tap * 4 + 1], sy);
@@ -617,6 +632,8 @@ dcn_gather_kernel(const __grid_constant__ CUtensorMap tm_w,  // weight (3, 3, C,
       const float dy = __bfloat162float(a.offset[(long long)m * 18 + 2 * tap]);
       const float dx = __bfloat162float(a.offset[(long long)m * 18 + 2 * tap + 1]);
       const float mk = __bfloat162float(a.mask[(long long)m * 9 + tap]);
+      const float y = (float)(oy * a.stride - 1 + ky) + dy;  // the exact mode's sample
+      const float xx = (float)(ox * a.stride - 1 + kx) + dx;
       bool live;
       int y0 = 0, x0 = 0;
       float ly = 0.f, lx = 0.f;
@@ -632,8 +649,6 @@ dcn_gather_kernel(const __grid_constant__ CUtensorMap tm_w,  // weight (3, 3, C,
         lx = relx - fx;
         live = true;
       } else {  // exact: zero for samples at or beyond one pixel outside the image
-        const float y = (float)(oy * a.stride - 1 + ky) + dy;
-        const float xx = (float)(ox * a.stride - 1 + kx) + dx;
         live = y > -1.f && y < (float)a.H && xx > -1.f && xx < (float)a.W;
         if (live) {
           const float y0f = floorf(y);
@@ -654,6 +669,10 @@ dcn_gather_kernel(const __grid_constant__ CUtensorMap tm_w,  // weight (3, 3, C,
                          in_y1 && in_x0 ? ly * (1.f - lx) * mk : 0.f,
                          in_y1 && in_x1 ? ly * lx * mk : 0.f);
       }
+      // a NaN offset: NaN weights on zero or loaded corners, a NaN sample; in the exact mode only where its
+      // other coordinate lies inside, as the exact composite drops a sample outside (NaN compares false)
+      const bool outside = y <= -1.f || y >= (float)a.H || xx <= -1.f || xx >= (float)a.W;
+      if ((isnan(dy) || isnan(dx)) && !(a.radius < 0 && outside)) gw = nan4();
     }
     s_pix[e] = pix;
     s_gw[e] = gw;

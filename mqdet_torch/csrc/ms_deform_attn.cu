@@ -70,6 +70,13 @@
 //     bf16. Both modes take head widths 8 and 32 and up to 4 levels; their
 //     tables are __grid_constant__ (indexed by a runtime level without a
 //     stack frame).
+// Non-finite locations (both modes): a NaN coordinate, and an infinite one
+// at a pair without a window, make the (q, head)'s output NaN, as the plain
+// versions and JAX give (a clamp propagates NaN, and the bilinear fraction of
+// inf is inf - inf); a window clamps an infinite one. `fminf`/`fmaxf` would
+// clamp a NaN onto a bound and the in-map tests would skip it, so each point
+// sets a flag that turns the accumulator NaN once its levels are done; the
+// blend of finite points is unchanged.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,6 +126,21 @@ __device__ __forceinline__ void window(int mode, float scale, float radius, floa
   hi = c + radius + 1.f;
 }
 
+// Whether a sample coordinate (x, y), before any clamp, makes the plain
+// versions' output NaN: NaN always, +-inf where the pair is exact.
+__device__ __forceinline__ bool poisoned(float x, float y, bool exact) {
+  return exact ? !(isfinite(x) && isfinite(y)) : (isnan(x) || isnan(y));
+}
+
+// The accumulator of a (q, head) that met a poisoned point: NaN.
+template <int N>
+__device__ __forceinline__ void poison(float (&acc)[N], bool bad) {
+  if (bad) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[j] = __int_as_float(0x7fc00000);
+  }
+}
+
 // acc[c0, c0 + 8) += w * the 8 bf16 channels of raw. A bf16 is the high half
 // of its fp32: the unpacking is a shift and a mask (exact), kept explicit.
 template <int N>
@@ -134,9 +156,9 @@ __device__ __forceinline__ void accumulate8(float (&acc)[N], int c0, float w, co
 // One level's P samples of one (q, head), gathered from device memory into
 // CHUNKS x 8 channels: vl points at the first channel of pixel 0 of the
 // level; lp / ap at the level's P (x, y) pairs and weights. mode EXACT: no
-// clamp.
+// clamp. `bad` is set where a point is `poisoned`.
 template <int CHUNKS>
-__device__ __forceinline__ void gather_level(float (&acc)[CHUNKS * 8], const __nv_bfloat16* vl,
+__device__ __forceinline__ void gather_level(float (&acc)[CHUNKS * 8], bool& bad, const __nv_bfloat16* vl,
                                              long long row_stride, int h, int w, const float2* lp, const float* ap,
                                              int P, int mode, float scale, float radius, float yq, float xq) {
   float ylo = 0.f, yhi = 0.f, xlo = 0.f, xhi = 0.f;
@@ -149,6 +171,7 @@ __device__ __forceinline__ void gather_level(float (&acc)[CHUNKS * 8], const __n
     const float a = ap[p];
     float x = xy.x * (float)w - 0.5f;
     float y = xy.y * (float)h - 0.5f;
+    bad |= poisoned(x, y, mode == EXACT);
     if (mode != EXACT) {
       x = fminf(fmaxf(x, xlo), xhi);
       y = fminf(fmaxf(y, ylo), yhi);
@@ -209,9 +232,11 @@ msda_forward_kernel(const __nv_bfloat16* __restrict__ value,  // (B, S, nh, hd)
   float acc[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  bool bad = false;
   for (int l = 0; l < L; ++l)
-    gather_level<1>(acc, vb + (long long)lv.start[l] * row_stride, row_stride, lv.h[l], lv.w[l], lp + l * P,
+    gather_level<1>(acc, bad, vb + (long long)lv.start[l] * row_stride, row_stride, lv.h[l], lv.w[l], lp + l * P,
                     ap + l * P, P, EXACT, 0.f, 0.f, 0.f, 0.f);
+  poison(acc, bad);
   store_row(out + group * HD + lane * 8, acc);
 }
 
@@ -245,8 +270,9 @@ __device__ __forceinline__ uint4 lds128(uint32_t addr) {
 // leaves a sample with a corner in the map as it is and gives any other
 // sample weight 0, and skips its corners outside the map, as the gather
 // does. Locations and weights are read 16 bytes at a time where P % 4 == 0.
+// `bad` is set where a point is `poisoned` (a WHOLE level's pair is exact).
 template <int HD>
-__device__ __forceinline__ void band_level(float (&acc)[HD], uint32_t band, int cols, int oy, int ox,
+__device__ __forceinline__ void band_level(float (&acc)[HD], bool& bad, uint32_t band, int cols, int oy, int ox,
                                            int h, int w, const float* lp, const float* ap, int P, bool whole,
                                            float ylo, float yhi, float xlo, float xhi) {
   const bool vec = (P & 3) == 0;
@@ -271,8 +297,10 @@ __device__ __forceinline__ void band_level(float (&acc)[HD], uint32_t band, int 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float a = pa[i];
-      const float x = fminf(fmaxf(px[i] * (float)w - 0.5f, xlo), xhi);
-      const float y = fminf(fmaxf(py[i] * (float)h - 0.5f, ylo), yhi);
+      const float rx = px[i] * (float)w - 0.5f, ry = py[i] * (float)h - 0.5f;
+      bad |= poisoned(rx, ry, whole);
+      const float x = fminf(fmaxf(rx, xlo), xhi);
+      const float y = fminf(fmaxf(ry, ylo), yhi);
       const float x0f = floorf(x);
       const float y0f = floorf(y);
       const float lx = x - x0f;
@@ -305,7 +333,7 @@ __device__ __forceinline__ void band_level(float (&acc)[HD], uint32_t band, int 
 // a thread waits for it when it reaches its first staged level, and gathers
 // GATHER levels from device memory meanwhile. The lanes' partial sums meet
 // by a reduce-scatter of shuffles, each lane keeping its 8 output channels.
-// (Two blocks per SM: at hd 32 ptxas takes 108 registers; capped at 80 for
+// (Two blocks per SM: at hd 32 ptxas takes 112 registers (108 before the NaN flag); capped at 80 for
 // three blocks, or at 64 with no block count, it spills.)
 template <int LANES>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -363,11 +391,11 @@ msda_band_kernel(const __nv_bfloat16* __restrict__ value,  // (B, S, nh, hd)
   float acc[HD];
 #pragma unroll
   for (int j = 0; j < HD; ++j) acc[j] = 0.f;
-  bool waited = false;
+  bool waited = false, bad = false;
   for (int l = lane; l < L && active; l += LANES) {
     const int stage = bt.stage[lq][l];
     if (stage == GATHER) {
-      gather_level<HD / 8>(acc, vb + (long long)lv.start[l] * row_stride, row_stride, lv.h[l], lv.w[l],
+      gather_level<HD / 8>(acc, bad, vb + (long long)lv.start[l] * row_stride, row_stride, lv.h[l], lv.w[l],
                            reinterpret_cast<const float2*>(lp) + l * P, ap + l * P, P, pt.mode[lq][l],
                            pt.scale[lq][l], pt.radius[lq][l], (float)yq, (float)xq);
       continue;
@@ -384,11 +412,12 @@ msda_band_kernel(const __nv_bfloat16* __restrict__ value,  // (B, S, nh, hd)
       window(COARSE, pt.scale[lq][l], pt.radius[lq][l], (float)yq, ylo, yhi);
       window(COARSE, pt.scale[lq][l], pt.radius[lq][l], (float)xq, xlo, xhi);
     }
-    band_level<HD>(acc, base + (uint32_t)bt.offset[lq][l], bt.cols[lq][l], oy, ox, h, w, lp + l * P * 2, ap + l * P, P,
-                   stage == WHOLE, ylo, yhi, xlo, xhi);
+    band_level<HD>(acc, bad, base + (uint32_t)bt.offset[lq][l], bt.cols[lq][l], oy, ox, h, w, lp + l * P * 2,
+                   ap + l * P, P, stage == WHOLE, ylo, yhi, xlo, xhi);
   }
   // no thread leaves while a band is still landing in this block's shared memory
   if (staged_bytes > 0 && !waited) mbar_wait(bar, 0);
+  poison(acc, bad);  // before the lanes' sums meet: a NaN lane makes every channel of its query NaN
 
   float o[8];
   if (LANES == 4) {  // reduce-scatter over the 4 lanes (warp lanes QPW and 2 QPW apart)

@@ -10,7 +10,7 @@ distances. Normalizers are sums over the whole batch.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -127,20 +127,22 @@ def glip_losses(head_out: Dict, anchors: torch.Tensor, level_sizes: Sequence[int
     return {"loss_dot_product_token": dp_loss, "loss_reg": reg_loss, "loss_centerness": ctr_loss}
 
 
-def gate_parameters(named_params) -> Dict[str, torch.Tensor]:
+def gate_parameters(named_params, model: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
     """The gates the JAX package collects: parameters whose flax leaf is a
     0-d `ff_gate` / `attn_gate` (the port keeps `ff_gate` as a (1,) tensor,
-    the reference's shape; the bridge's rule maps it to the flax scalar)."""
+    the reference's shape; the bridge's rule maps it to the flax scalar).
+    `model` picks the rule table of the names (MQ-GLIP's without one)."""
     return {
         name: p for name, p in named_params
-        if flax_path(name).endswith(("ff_gate", "attn_gate")) and flax_is_scalar(name, p.shape)
+        if flax_path(name, model).endswith(("ff_gate", "attn_gate")) and flax_is_scalar(name, p.shape, model)
     }
 
 
-def gate_loss_from_params(named_params, scale: float = 1.0, regularize: bool = False) -> torch.Tensor:
+def gate_loss_from_params(named_params, scale: float = 1.0, regularize: bool = False,
+                          model: Optional[torch.nn.Module] = None) -> torch.Tensor:
     """MQ-Det's gate loss, scale * mean(1 - |g|) over `gate_parameters`;
     detached unless GATE_REGULARIZATION."""
-    gates = list(gate_parameters(named_params).values())
+    gates = list(gate_parameters(named_params, model).values())
     if not gates:
         return torch.zeros(())
     loss = scale * torch.mean(1.0 - torch.cat([g.float().reshape(-1) for g in gates]).abs())

@@ -21,7 +21,7 @@ fp32, on the parameters' device.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -109,18 +109,19 @@ def wd_schedule(cfg) -> Callable[[int], float]:
     return factor
 
 
-def flax_path(name: str) -> str:
-    """The flax path of the port parameter `name` (a reference key)."""
-    rules = reference_rules()
+def flax_path(name: str, model: Optional[torch.nn.Module] = None) -> str:
+    """The flax path of the port parameter `name` (a reference key) in the
+    rule table of `model`'s family (MQ-GLIP's without a model)."""
+    rules = reference_rules(model)
     if name not in rules:
         raise KeyError(f"{name}: no flax counterpart in the rule table")
     return rules[name][0]
 
 
-def flax_is_scalar(name: str, shape) -> bool:
+def flax_is_scalar(name: str, shape, model: Optional[torch.nn.Module] = None) -> bool:
     """Whether the flax leaf of port parameter `name` is 0-d (the rule's
     transform applied to a tensor of the port's shape)."""
-    return np.ndim(reference_rules()[name][1](np.zeros(tuple(shape), np.float32))) == 0
+    return np.ndim(reference_rules(model)[name][1](np.zeros(tuple(shape), np.float32))) == 0
 
 
 def partition_params(model: torch.nn.Module, trainable_patterns: Sequence[str],
@@ -129,7 +130,7 @@ def partition_params(model: torch.nn.Module, trainable_patterns: Sequence[str],
     flax path; sets `requires_grad` to match."""
     trainable, frozen = [], []
     for name, p in model.named_parameters():
-        path = flax_path(name)
+        path = flax_path(name, model)
         ok = not any(fp in path for fp in frozen_patterns) and is_trainable(path, trainable_patterns)
         p.requires_grad_(ok)
         (trainable if ok else frozen).append(name)
@@ -146,14 +147,15 @@ def ema_update(ema: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor], decay
 class AdamW:
     """The JAX package's optax chain over a dict of fp32 tensors (see the
     module docstring). `SOLVER.OPTIMIZER = "SGD"` takes `optax.trace(0.9)` in
-    place of Adam, as there."""
+    place of Adam, as there. `model` picks the rule table of the names
+    (MQ-GLIP's without one)."""
 
-    def __init__(self, cfg, names: Sequence[str]):
+    def __init__(self, cfg, names: Sequence[str], model: Optional[torch.nn.Module] = None):
         sol = cfg.SOLVER
         if sol.OPTIMIZER not in ("ADAMW", "SGD"):
             raise ValueError(sol.OPTIMIZER)
         self.sgd = sol.OPTIMIZER == "SGD"
-        paths = {n: flax_path(n) for n in names}
+        paths = {n: flax_path(n, model) for n in names}
         self.lr = {n: lr_group_for(p, cfg) for n, p in paths.items()}
         self.wd = {n: wd_group_for(p, cfg) for n, p in paths.items()}
         self.schedule = cosine_schedule(cfg) if sol.get("USE_COSINE", False) else warmup_multistep_schedule(cfg)

@@ -1,13 +1,17 @@
-"""The GLIP training step (counterpart of `mqdet_tpu/engine/train.py`;
-reference engine/trainer.py and generalized_vl_rcnn_new.py).
+"""The training steps, MQ-GLIP's and MQ-GroundingDINO's (counterpart of
+`mqdet_tpu/engine/train.py`; reference engine/trainer.py,
+generalized_vl_rcnn_new.py and groundingdino.py's training branch).
 
 One step: the fp32 master copies of the trainable parameters are cast into
 the model (whose frozen parameters and activations stay in the compute
 dtype, bf16 on the card, as flax computes in `TPU.COMPUTE_DTYPE` from fp32
 parameters), vision-conditioned text dropout, the training forward
 (`deterministic=False`: stochastic depth, the fusion's composite with
-attention dropout), the GLIP losses plus the gate loss, NaN/Inf zeroing of
-the loss and of the gradients, the optax chain of `engine/optim.py` times
+attention dropout), the family's losses (GLIP: ATSS, token focal, GIoU,
+centerness; GroundingDINO: the Hungarian set criterion over the final and
+auxiliary decoder layers, `engine/gdino_losses.py`) plus the gate loss, then
+one shared tail (`_finish_train_step`, JAX's): NaN/Inf zeroing of the loss
+and of the gradients, the optax chain of `engine/optim.py` times
 `lr_scale`, and the EMA. Gradients reach only the trainable set
 (`requires_grad`); where the image tower holds no trainable parameter it runs
 under `torch.no_grad()`, as JAX stops gradients at the frozen leaves.
@@ -25,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mqdet_torch.engine import gdino_losses as G
 from mqdet_torch.engine import losses as L
 from mqdet_torch.engine import optim as O
 from mqdet_torch.ops.anchors import anchors_for_fpn
@@ -50,7 +55,7 @@ def init_train_state(model: torch.nn.Module, cfg, trainable_patterns: Sequence[s
     names, frozen = O.partition_params(model, trainable_patterns, frozen_patterns)
     params = dict(model.named_parameters())
     trainable = {n: params[n].detach().float().clone() for n in names}
-    tx = O.AdamW(cfg, names)
+    tx = O.AdamW(cfg, names, model)
     ema = {n: t.clone() for n, t in trainable.items()} if cfg.SOLVER.MODEL_EMA > 0 else None
     return TrainState(0, trainable, frozen, tx.init(trainable), ema), tx
 
@@ -129,46 +134,64 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
     return out
 
 
-def make_train_step(model: torch.nn.Module, tx: O.AdamW, anchors: torch.Tensor, level_sizes: Sequence[int], cfg):
-    """Returns train_step(state, batch, generator, times=None) -> (state,
-    metrics), `batch` from `batch_to_device`. The state's tensors are updated
-    in place. Given a dict `times`, the step synchronises the device at the
-    boundaries of its forward, backward and update and adds each one's
-    seconds there."""
+def _refuse_unported(cfg) -> None:
     if cfg.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS:
         raise NotImplementedError("MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS: the MLM head is not ported (ROADMAP Queue A 4.2)")
     if cfg.TPU.REMAT:
         raise NotImplementedError("TPU.REMAT: activation checkpointing is not ported (ROADMAP Queue A 4.3)")
-    ema_decay = cfg.SOLVER.MODEL_EMA
-    text_dropout = cfg.VISION_QUERY.TEXT_DROPOUT
-    use_queries = cfg.VISION_QUERY.ENABLED
+
+
+def _clock(times, device, key=None, t0=0.0):
+    """With a dict `times`: synchronise `device`, add the seconds since t0
+    under `key`, return now; without: t0."""
+    if times is None:
+        return t0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    now = time.perf_counter()
+    if key is not None:
+        times[key] = times.get(key, 0.0) + now - t0
+    return now
+
+
+def _text_and_queries(batch, cfg, generator):
+    """(input ids after the vision-conditioned text dropout, queries, query mask)."""
+    input_ids = batch["input_ids"]
     vq = cfg.VISION_QUERY
+    if vq.ENABLED and vq.TEXT_DROPOUT > 0:
+        input_ids = apply_text_dropout(input_ids, batch["pos_category_map"], batch["has_query"], vq.TEXT_DROPOUT,
+                                       generator)
+    if not vq.ENABLED:
+        return input_ids, None, None
+    return input_ids, batch.get("queries"), batch.get("query_mask")
+
+
+def _gate_loss(model, tx, cfg, device):
+    """The gate loss over the trainable set's gates (the JAX package takes
+    it over the trainable leaves), on `device`."""
     params = dict(model.named_parameters())
+    gates = [n for n in L.gate_parameters(model.named_parameters(), model) if n in tx.lr]
+    vq = cfg.VISION_QUERY
+
+    def loss():
+        return L.gate_loss_from_params(((n, params[n]) for n in gates), scale=vq.GATE_REGULARIZATION_SCALE,
+                                       regularize=vq.GATE_REGULARIZATION, model=model).to(device)
+
+    return loss
+
+
+def make_train_step(model: torch.nn.Module, tx: O.AdamW, anchors: torch.Tensor, level_sizes: Sequence[int], cfg):
+    """MQ-GLIP's step. Returns train_step(state, batch, generator,
+    times=None) -> (state, metrics), `batch` from `batch_to_device`. The
+    state's tensors are updated in place. Given a dict `times`, the step
+    synchronises the device at the boundaries of its forward, backward and
+    update and adds each one's seconds there."""
+    _refuse_unported(cfg)
     tower_trains = any(n.startswith("backbone.") for n in tx.lr)
-    # the JAX package takes the gate loss over the trainable set's gates
-    gates = [n for n in L.gate_parameters(model.named_parameters()) if n in tx.lr]
+    gate_loss = _gate_loss(model, tx, cfg, anchors.device)
 
-    def clock(times, key=None, t0=0.0):
-        if times is None:
-            return t0
-        if anchors.is_cuda:
-            torch.cuda.synchronize(anchors.device)
-        now = time.perf_counter()
-        if key is not None:
-            times[key] = times.get(key, 0.0) + now - t0
-        return now
-
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator, times=None):
-        t0 = clock(times)
-        load_trainable(model, state.trainable)
-        for n in state.trainable:
-            params[n].grad = None
-        input_ids = batch["input_ids"]
-        if use_queries and text_dropout > 0:
-            input_ids = apply_text_dropout(input_ids, batch["pos_category_map"], batch["has_query"], text_dropout,
-                                           generator)
-        queries = batch.get("queries") if use_queries else None
-        query_mask = batch.get("query_mask") if use_queries else None
+    def loss_fn(batch, generator, times, t0):
+        input_ids, queries, query_mask = _text_and_queries(batch, cfg, generator)
         with torch.set_grad_enabled(tower_trains):
             feats = model.encode_image(batch["images"], deterministic=False, generator=generator)
         head_out = model.forward_head(feats, input_ids, batch["attention_mask"], queries, query_mask,
@@ -178,15 +201,87 @@ def make_train_step(model: torch.nn.Module, tx: O.AdamW, anchors: torch.Tensor, 
             batch["gt_token_map"], batch["attention_mask"], topk=cfg.MODEL.ATSS.TOPK,
             reg_loss_weight=cfg.MODEL.ATSS.REG_LOSS_WEIGHT,
         )
-        losses["loss_gate"] = L.gate_loss_from_params(
-            ((n, params[n]) for n in gates), scale=vq.GATE_REGULARIZATION_SCALE, regularize=vq.GATE_REGULARIZATION,
-        ).to(anchors.device)
+        losses["loss_gate"] = gate_loss()
+        return losses, t0
+
+    return _finish_train_step(model, tx, loss_fn, cfg.SOLVER.MODEL_EMA, anchors.device)
+
+
+def gdino_targets(batch, num_queries: int):
+    """(gt cxcywh normalised by `image_sizes` (B, 2) = (h, w), gt_valid,
+    gt_token_map), cut to G <= num_queries: the loader's gt boxes are pixel
+    xyxy in the resized frame (the reference's `normed_cxcy_boxes`)."""
+    sizes = batch["image_sizes"].float()
+    wh = torch.stack([sizes[:, 1], sizes[:, 0]], -1)[:, None, :]
+    b = batch["gt_boxes"].float()
+    cxcy = (b[..., :2] + b[..., 2:]) / 2
+    gt = torch.cat([cxcy, b[..., 2:] - b[..., :2]], -1) / torch.cat([wh, wh], -1)
+    # 1-to-1 matching needs G <= num_queries (the reference's ragged targets always do)
+    return gt[:, :num_queries], batch["gt_valid"][:, :num_queries], batch["gt_token_map"][:, :num_queries]
+
+
+def make_gdino_train_step(model: torch.nn.Module, tx: O.AdamW, cfg):
+    """MQ-GroundingDINO's step (JAX's `make_gdino_train_step`): text dropout,
+    the training forward, the ground truth normalised (`gdino_targets`),
+    `gdino_set_loss` with the config's coefficients and matcher costs, the
+    gate loss, then the shared tail. Returns train_step(state, batch,
+    generator, times=None, assignment=None) -> (state, metrics); `batch`
+    carries `image_sizes`. `times` adds the matcher's host seconds apart
+    (`matcher`: the cost's transfer, which waits for the forward's device
+    work, and scipy). `assignment` fixes the matching (`gdino_set_loss`: for
+    comparing runs, never in training); `train_step.assignment` holds the
+    one the last step used, (L, B, G)."""
+    _refuse_unported(cfg)
+    g = cfg.GROUNDINGDINO
+    device = next(model.parameters()).device
+    tower_trains = any(n.startswith(("backbone.", "input_proj.")) for n in tx.lr)
+    gate_loss = _gate_loss(model, tx, cfg, device)
+    costs = dict(cost_class=g.matcher.set_cost_class, cost_bbox=g.matcher.set_cost_bbox,
+                 cost_giou=g.matcher.set_cost_giou, alpha=g.matcher.focal_alpha)
+
+    def loss_fn(batch, generator, times, t0, assignment=None):
+        input_ids, queries, query_mask = _text_and_queries(batch, cfg, generator)
+        with torch.set_grad_enabled(tower_trains):
+            srcs = model.encode_image(batch["images"], deterministic=False, generator=generator)
+        out = model.forward_head(srcs, input_ids, batch["attention_mask"], queries, query_mask,
+                                 deterministic=False, generator=generator)
+        gt, valid, token_map = gdino_targets(batch, g.num_queries)
+        if assignment is None:
+            t0 = _clock(times, device, "forward", t0)
+            assignment = G.match_layers(out, gt, valid, token_map, **costs)
+            t0 = _clock(times, device, "matcher", t0)
+        train_step.assignment = assignment
+        losses = G.gdino_set_loss(out, gt, valid, token_map, batch["attention_mask"], **costs,
+                                  loss_ce_coef=g.loss_ce_coef, loss_bbox_coef=g.loss_bbox_coef,
+                                  loss_giou_coef=g.loss_giou_coef, assignment=assignment)
+        losses["loss_gate"] = gate_loss()
+        return losses, t0
+
+    train_step = _finish_train_step(model, tx, loss_fn, cfg.SOLVER.MODEL_EMA, device)
+    train_step.assignment = None
+    return train_step
+
+
+def _finish_train_step(model: torch.nn.Module, tx: O.AdamW, loss_fn, ema_decay: float, device):
+    """The shared tail of both steps (JAX's `_finish_train_step`): the
+    masters into the model, `loss_fn(batch, generator, times, t0, **kw) ->
+    (losses, t0)`, the NaN/Inf guard on the total, the backward, the
+    gradients' NaN/Inf zeroing, the optimizer times `lr_scale`, the EMA."""
+    params = dict(model.named_parameters())
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator, times=None,
+                   **kw):
+        t0 = _clock(times, device)
+        load_trainable(model, state.trainable)
+        for n in state.trainable:
+            params[n].grad = None
+        losses, t0 = loss_fn(batch, generator, times, t0, **kw)
         total = sum(losses.values())
         # NaN/Inf zeroing (trainer.py:150-152): the step's loss, and so its gradients, become 0
         total = torch.where(torch.isfinite(total), total, torch.zeros_like(total))
-        t0 = clock(times, "forward", t0)
+        t0 = _clock(times, device, "forward", t0)
         total.backward()
-        t0 = clock(times, "backward", t0)
+        t0 = _clock(times, device, "backward", t0)
         grads = {}
         for n, master in state.trainable.items():
             gr = params[n].grad
@@ -199,7 +294,7 @@ def make_train_step(model: torch.nn.Module, tx: O.AdamW, anchors: torch.Tensor, 
             if state.ema is not None:
                 O.ema_update(state.ema, state.trainable, ema_decay)
         state.step += 1
-        clock(times, "update", t0)
+        _clock(times, device, "update", t0)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss_total"] = total.detach()
         return state, metrics

@@ -30,28 +30,45 @@ from mqdet_torch.io import torch_import as TI
 IN_PROJ = ("in_proj_weight", "in_proj_bias")
 
 
-@functools.lru_cache(maxsize=1)
-def reference_rules() -> Dict[str, Tuple[str, Callable]]:
-    """MQ-GLIP: reference key -> (flax path, forward transform
-    reference->flax). Where two flax paths share a reference key (the DyConv
-    conv with and without DCN), the first rule, the deformable one this
-    package builds, wins."""
+def reference_rules(model: Optional[torch.nn.Module] = None) -> Dict[str, Tuple[str, Callable]]:
+    """Reference key -> (flax path, forward transform reference->flax) of
+    `model`'s family (`rule_table`; MQ-GLIP without a model). Where several
+    flax paths share a reference key, the first rule wins: for MQ-GLIP's
+    DyConv conv with and without DCN the deformable one this package builds,
+    for a GroundingDINO in-proj tensor its q leaf (its k and v leaves sit in
+    the same module, so every path rule of the JAX package groups the three
+    alike). A rule naming candidate keys maps the first, the port's."""
+    return _reference_rules(_family(model))
+
+
+def _family(model: Optional[torch.nn.Module]) -> Optional[Tuple[int, int]]:
+    """None for MQ-GLIP (and no model); (encoder, decoder) depth for GroundingDINO."""
+    from mqdet_torch.models.gdino import MQGroundingDINO
+
+    if isinstance(model, MQGroundingDINO):
+        tr = model.transformer
+        return len(tr.encoder.layers), len(tr.decoder.layers)
+    return None
+
+
+@functools.lru_cache(maxsize=8)
+def _reference_rules(family: Optional[Tuple[int, int]]) -> Dict[str, Tuple[str, Callable]]:
     out = {}
-    for flax_name, (ref, tf) in TI.build_rule_table().items():
-        if isinstance(ref, str) and ref not in out:
+    for flax_name, (ref, tf) in _table(family).items():
+        ref = ref[0] if isinstance(ref, tuple) else ref
+        if ref not in out:
             out[ref] = (flax_name, tf)
     return out
+
+
+def _table(family: Optional[Tuple[int, int]]) -> Dict:
+    return TI.build_rule_table() if family is None else TI.build_gdino_rule_table(*family)
 
 
 def rule_table(model: Optional[torch.nn.Module] = None) -> Dict:
     """The rule table for `model`'s family: the GroundingDINO
     table at the model's depth, else (and without a model) MQ-GLIP's."""
-    from mqdet_torch.models.gdino import MQGroundingDINO
-
-    if isinstance(model, MQGroundingDINO):
-        tr = model.transformer
-        return TI.build_gdino_rule_table(len(tr.encoder.layers), len(tr.decoder.layers))
-    return TI.build_rule_table()
+    return _table(_family(model))
 
 
 def inverse_transform(tf: Callable, val: np.ndarray, torch_shape: Optional[tuple] = None) -> np.ndarray:

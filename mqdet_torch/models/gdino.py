@@ -1,5 +1,5 @@
-"""MQ-GroundingDINO, eval only (counterpart of `mqdet_tpu/models/gdino.py`;
-reference groundingdino_new/models/GroundingDINO/).
+"""MQ-GroundingDINO (counterpart of `mqdet_tpu/models/gdino.py`; reference
+groundingdino_new/models/GroundingDINO/).
 
 Swin -> input_proj -> GCP-BERT text tower with sub-sentence masks -> 6
 encoder layers (bi-attention fusion, text enhancer, deformable
@@ -19,6 +19,14 @@ does. Their attention is plain matmul and softmax. MSDA goes through
 Images are NCHW. The compute dtype is the parameters' dtype; sampling
 locations, attention weights, reference boxes and logits stay fp32, as in
 the JAX package.
+
+`deterministic` is the JAX package's switch, with `mq_glip.py`'s rule: False
+runs the training forward, Swin's stochastic depth (the JAX model's default
+rate, `SWIN_DROP_PATH`) and each encoder fusion's composite with attention
+dropout, drawing from `generator` (required then); True (the default) runs
+neither. The text enhancer, the deformable layers and the decoder have no
+dropout, as in JAX. The decoder's box chain stops gradients where JAX does:
+at the two-stage reference and at each layer's refined reference.
 """
 from __future__ import annotations
 
@@ -32,11 +40,12 @@ from torch import nn
 from mqdet_torch.core.detections import Detections
 from mqdet_torch.models.bert import QVBertModel
 from mqdet_torch.models.fusion import BiAttentionBlock
-from mqdet_torch.models.layers import GroupNorm, LayerNorm, avg_pool_2x, cl
+from mqdet_torch.models.layers import GroupNorm, LayerNorm, avg_pool_2x, cl, training_draws
 from mqdet_torch.models.swin import SwinTransformer
 from mqdet_torch.ops.ms_deform_attn import ms_deform_attn
 
 SPECIAL_IDS = (101, 102, 1012, 1029)  # [CLS] [SEP] . ?
+SWIN_DROP_PATH = 0.2  # the JAX model builds its SwinTransformer with the class default (no config key)
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -343,7 +352,8 @@ class MQGroundingDINO(nn.Module):
         self.special_ids = SPECIAL_IDS
         self.debug_outputs = False  # add encoder and two-stage intermediates to the outputs
         self.backbone = nn.ModuleList([
-            SwinTransformer(sw.EMBED_DIM, tuple(sw.DEPTHS), tuple(sw.NUM_HEADS), sw.WINDOW_SIZE, sw.MLP_RATIO)
+            SwinTransformer(sw.EMBED_DIM, tuple(sw.DEPTHS), tuple(sw.NUM_HEADS), sw.WINDOW_SIZE, sw.MLP_RATIO,
+                            SWIN_DROP_PATH)
         ])
         e = sw.EMBED_DIM
         in_ch = [2 * e, 4 * e, 8 * e, 8 * e]
@@ -363,10 +373,11 @@ class MQGroundingDINO(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.transformer.level_embed.dtype
 
-    def encode_image(self, images: torch.Tensor) -> List[torch.Tensor]:
+    def encode_image(self, images: torch.Tensor, deterministic: bool = True,
+                     generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         """Swin stages 1..3 + input_proj on (B, 3, H, W) -> 4 levels
         (B, C, H_l, W_l) at strides 8, 16, 32, 64."""
-        feats = self.backbone[0](cl(images.to(self.dtype)))[1:4]
+        feats = self.backbone[0](cl(images.to(self.dtype)), training_draws(deterministic, generator))[1:4]
         return [proj(cl(f)) for proj, f in zip(self.input_proj, feats + feats[-1:])]
 
     def forward_head(
@@ -376,10 +387,13 @@ class MQGroundingDINO(nn.Module):
         attention_mask: torch.Tensor,
         queries: Optional[torch.Tensor] = None,
         query_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         """Text tower, encoder, two-stage selection, decoder and per-layer
         heads. srcs may have batch 1 while the text has batch CP (chunk
         parallelism): the levels are broadcast to the text batch."""
+        draws = training_draws(deterministic, generator)
         b = input_ids.shape[0]
         dt = self.dtype
         dev = input_ids.device
@@ -412,7 +426,7 @@ class MQGroundingDINO(nn.Module):
         pos_text = sine_embed_1d(position_ids.float(), c).to(dt)
 
         for fusion, text_layer, layer in zip(tr.encoder.fusion_layers, tr.encoder.text_layers, tr.encoder.layers):
-            memory, text = fusion(memory, text, text_mask)
+            memory, text = fusion(memory, text, text_mask, draws)
             text = text_layer(text, attn_matrix, pos_text)
             memory = layer(memory, pos_embed, enc_ref, shapes, enc_wh)
 
@@ -429,7 +443,8 @@ class MQGroundingDINO(nn.Module):
         # top-k as jax.lax.top_k: among equal scores the lower index first
         scores = enc_logits.masked_fill(~torch.isfinite(enc_logits), float("-inf")).amax(-1)
         topk_idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, : self.num_queries]
-        init_ref = torch.gather(enc_boxes_unsig, 1, topk_idx[..., None].expand(-1, -1, 4)).sigmoid()
+        # JAX stops the gradient at the selected proposals (gdino.py:654)
+        init_ref = torch.gather(enc_boxes_unsig, 1, topk_idx[..., None].expand(-1, -1, 4)).detach().sigmoid()
 
         tgt = tr.tgt_embed.weight[None].to(dt).expand(b, -1, -1)
         reference = init_ref
@@ -443,7 +458,7 @@ class MQGroundingDINO(nn.Module):
             new_ref = torch.sigmoid(bbox_embed(normed).float() + inverse_sigmoid(reference))
             classes.append(contrastive_embed(normed, text, text_mask, self.max_text_len))
             coords.append(new_ref)
-            reference = new_ref
+            reference = new_ref.detach()  # as JAX (gdino.py:686): no gradient through the next layer's reference
 
         out = {
             "pred_logits": classes[-1],   # (B, Q, max_text_len)
@@ -459,8 +474,10 @@ class MQGroundingDINO(nn.Module):
                        dbg_topk_idx=topk_idx, dbg_init_ref=init_ref)
         return out
 
-    def forward(self, images, input_ids, attention_mask, queries=None, query_mask=None):
-        return self.forward_head(self.encode_image(images), input_ids, attention_mask, queries, query_mask)
+    def forward(self, images, input_ids, attention_mask, queries=None, query_mask=None,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
+        srcs = self.encode_image(images, deterministic, generator)
+        return self.forward_head(srcs, input_ids, attention_mask, queries, query_mask, deterministic, generator)
 
 
 def gdino_postprocess(pred_logits: torch.Tensor, pred_boxes: torch.Tensor, agg_map: torch.Tensor,

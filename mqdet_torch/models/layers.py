@@ -7,6 +7,8 @@ taken in fp32 whatever the compute dtype, as flax does; GELU is exact.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -47,6 +49,15 @@ class Scale(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.scale.to(x.dtype)
+
+
+def training_draws(deterministic: bool, generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    """The generator a training forward draws from; None when deterministic."""
+    if deterministic:
+        return None
+    if generator is None:
+        raise ValueError("deterministic=False needs a torch.Generator for its draws")
+    return generator
 
 
 def drop_path(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:

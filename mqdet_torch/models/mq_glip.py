@@ -24,7 +24,7 @@ from torch import nn
 
 from mqdet_torch.models.bert import LanguageBackbone
 from mqdet_torch.models.fpn import FPN
-from mqdet_torch.models.layers import avg_pool_2x, cl
+from mqdet_torch.models.layers import avg_pool_2x, cl, training_draws
 from mqdet_torch.models.swin import SwinTransformer
 from mqdet_torch.models.vldyhead import VLDyHead
 
@@ -36,15 +36,6 @@ def flatten_fpn_features(feats: List[torch.Tensor]) -> torch.Tensor:
         p = avg_pool_2x(f)
         parts.append(p.permute(0, 2, 3, 1).reshape(p.shape[0], -1, p.shape[1]))
     return torch.cat(parts, dim=1)
-
-
-def _draws(deterministic: bool, generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
-    """The generator the training forward draws from; None when deterministic."""
-    if deterministic:
-        return None
-    if generator is None:
-        raise ValueError("deterministic=False needs a torch.Generator for its draws")
-    return generator
 
 
 class _Backbone(nn.Module):
@@ -91,7 +82,7 @@ class MQGLIP(nn.Module):
     def encode_image(self, images: torch.Tensor, deterministic: bool = True,
                      generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         """Swin + FPN on (B, 3, H, W) -> 5 pyramid levels (B, C, H_l, W_l)."""
-        feats = self.backbone.body(cl(images.to(self.dtype)), _draws(deterministic, generator))
+        feats = self.backbone.body(cl(images.to(self.dtype)), training_draws(deterministic, generator))
         return self.backbone.fpn(feats[1:4])
 
     def forward_head(
@@ -117,7 +108,7 @@ class MQGLIP(nn.Module):
             query_mask=query_mask,
             image_tokens=image_tokens,
         )
-        out = self.rpn.head(fpn_feats, lang["hidden"], lang["masks"], _draws(deterministic, generator))
+        out = self.rpn.head(fpn_feats, lang["hidden"], lang["masks"], training_draws(deterministic, generator))
         out["lang"] = lang
         return out
 

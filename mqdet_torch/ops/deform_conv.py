@@ -64,12 +64,17 @@ MAX_STAGES, MIN_STAGES = 8, 4  # the weight ring's stages
 MAX_BOX = 256         # a TMA box's largest side
 
 
-def _sample_patches(x, offset, mask, stride, fold_mask):
+def _sample_patches(x, offset, mask, stride, fold_mask, exact=True):
     """(B, Ho, Wo, 9, C) modulated bilinear samples in x.dtype. Zero for
-    samples with y <= -1, y >= H, x <= -1 or x >= W, and for each corner
-    outside the image (deformable im2col semantics). With fold_mask the mask
-    multiplies each corner weight in fp32 before the weight is cast to
-    x.dtype; else it multiplies the blended sample."""
+    each corner outside the image and, where `exact`, for samples with
+    y <= -1, y >= H, x <= -1 or x >= W (deformable im2col semantics; for
+    finite clipped offsets the corners' zero padding gives the same). As in
+    JAX's composites the corner's value is zeroed, not its weight, so a NaN
+    offset gives a NaN sample, unless `exact` and its other coordinate lies
+    outside (JAX's exact composite zeroes it; its window composite does
+    not). With fold_mask the mask multiplies each corner weight in fp32
+    before the weight is cast to x.dtype; else it multiplies the blended
+    sample."""
     b, h, w, c = x.shape
     ho, wo = offset.shape[1], offset.shape[2]
     dev = x.device
@@ -96,12 +101,13 @@ def _sample_patches(x, offset, mask, stride, fold_mask):
         (y0 + 1, x0, ly * (1 - lx)),
         (y0 + 1, x0 + 1, ly * lx),
     ):
-        inb = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1) & ~oob
+        inb = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
         idx = torch.nan_to_num(yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()  # NaN offsets: any index
         if fold_mask:
             wt = wt * mk
-        wt = torch.where(inb, wt, torch.zeros_like(wt)).to(x.dtype)
-        out += flat[bidx, idx] * wt[..., None]
+        out += torch.where(inb[..., None], flat[bidx, idx], 0.0) * wt.to(x.dtype)[..., None]
+    if exact:
+        out = torch.where(oob[..., None], 0.0, out)
     out = out.reshape(b, ho, wo, 9, c)
     if not fold_mask:
         out = out * mask.reshape(b, ho, wo, 9, 1).to(x.dtype)
@@ -128,9 +134,10 @@ def modulated_deform_conv_plain(
 
 
 def modulated_deform_conv_clipped_plain(x, offset, mask, weight, bias=None, stride=1, radius=2):
-    """The clipped DCNv2 of the window composite, K1 and K2: the exact plain
-    version on offsets clamped to [-radius, radius]."""
-    return modulated_deform_conv_plain(x, offset.clamp(-radius, radius), mask, weight, bias, stride)
+    """The clipped DCNv2 of the window composite, K1 and K2: the bilinear
+    im2col on offsets clamped to [-radius, radius], zero padding corner by
+    corner (a NaN offset stays NaN)."""
+    return _contract(_sample_patches(x, offset.clamp(-radius, radius), mask, stride, False, exact=False), weight, bias)
 
 
 def modulated_deform_conv_v3_plain(x, offset, mask, weight, bias=None, stride=1, radius=2):
@@ -138,7 +145,7 @@ def modulated_deform_conv_v3_plain(x, offset, mask, weight, bias=None, stride=1,
     x.dtype. Each corner weight (bilinear times mask, fp32) is cast to
     x.dtype, and the products and their sum are taken in x.dtype. For fp32
     inputs it is the clipped plain version up to fp32 rounding."""
-    return _contract(_sample_patches(x, offset.clamp(-radius, radius), mask, stride, True), weight, bias)
+    return _contract(_sample_patches(x, offset.clamp(-radius, radius), mask, stride, True, exact=False), weight, bias)
 
 
 def reinterpret_offsets_strided(

@@ -1,4 +1,4 @@
-"""Multi-scale deformable attention (MSDA) sampling, eval only.
+"""Multi-scale deformable attention (MSDA) sampling.
 
 Counterpart of `mqdet_tpu/ops/ms_deform_attn.py::ms_deform_attn` with its
 signature and layouts:
@@ -36,6 +36,17 @@ function `msda_forward_kernel`, the clipped one `msda_band_kernel` (counted
 as `ms_deform_attn_clip`), which stages each tile's band of the value levels
 in shared memory by the rule of `msda_band_geometry`; or raise. On a CPU
 tensor they run the plain PyTorch versions below.
+
+Training. Where an input needs a gradient, `ms_deform_attn` runs through
+`MSDeformAttnFunction`, as the JAX package's `_encoder_pallas_diff`
+(`mqdet_tpu/ops/ms_deform_attn.py:81-108`) does: the same forward (kernel or
+plain version, clipped or exact by the rule above), the inputs saved, and a
+backward that recomputes in fp32 the VJP of the **exact** composite at the
+**unclipped** locations (`ms_deform_attn_vjp`), for encoder queries too:
+JAX's backward differentiates `ms_deform_attn_sample`, not the clipped
+form, so a sample clamped to its window still passes its location the
+gradient of where it would have sampled. The launchers refuse a call that
+needs a gradient: their output would have no `grad_fn`.
 """
 from __future__ import annotations
 
@@ -185,7 +196,9 @@ def window_bounds(spatial_shapes, device) -> torch.Tensor:
 
 def _bilinear_sample(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """v (N, H, W, C); x, y (N, M) pixel coordinates -> (N, M, C) in fp32,
-    zero for each corner outside the map."""
+    zero for each corner outside the map. As JAX's composite, the corner's
+    value is zeroed, not its weight: a NaN coordinate (and an infinite one,
+    whose fraction is inf - inf) gives NaN."""
     n, h, w, c = v.shape
     flat = v.reshape(n, h * w, c)
     nidx = torch.arange(n, device=v.device)[:, None]
@@ -200,9 +213,9 @@ def _bilinear_sample(v: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch
         (y0 + 1, x0 + 1, ly * lx),
     ):
         inb = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
-        idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()
-        wt = torch.where(inb, wt, torch.zeros_like(wt))
-        out += flat[nidx, idx].float() * wt[..., None]
+        idx = torch.nan_to_num(yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).long()  # NaN: any index
+        corner = torch.where(inb[..., None], flat[nidx, idx].float(), 0.0)
+        out += corner * wt[..., None]
     return out
 
 
@@ -309,6 +322,41 @@ def _launch(value, spatial_shapes, loc, attn, clip=False) -> torch.Tensor:
     return out
 
 
+class MSDeformAttnFunction(torch.autograd.Function):
+    """forward: `run(value, loc, attn)` (a kernel or a plain version),
+    saving the inputs; backward: `ms_deform_attn_vjp`, the exact
+    composite's fp32 VJP at the unclipped locations, in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, value, loc, attn, run, spatial_shapes):
+        ctx.save_for_backward(value, loc, attn)
+        ctx.spatial_shapes = spatial_shapes
+        return run(value, loc, attn)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = ctx.saved_tensors
+        with torch.profiler.record_function("msda_backward"):  # the span chip_smoke's phase 9 reads
+            grads = ms_deform_attn_vjp(ins[0], ctx.spatial_shapes, ins[1], ins[2], g, ctx.needs_input_grad[:3])
+        grads = [gr.to(t.dtype) if gr is not None else None for gr, t in zip(grads, ins)]
+        return (*grads, None, None)
+
+
+def ms_deform_attn_vjp(value, spatial_shapes, sampling_locations, attention_weights, g, needs=(True,) * 3):
+    """VJP of the exact MSDA in fp32: PyTorch autograd of
+    `ms_deform_attn_plain` (the gather composite's autodiff: floor corners,
+    d(frac)/d(x) = 1 everywhere, no gradient through a corner's clamp or
+    in-map test), at the locations as given. Returns (dvalue, dloc, dattn),
+    None where `needs` is False."""
+    ins = [t.detach().float().requires_grad_(bool(n))
+           for t, n in zip((value, sampling_locations, attention_weights), needs)]
+    with torch.enable_grad():
+        out = ms_deform_attn_plain(ins[0], spatial_shapes, ins[1], ins[2])
+        wanted = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, g.float()))
+    return tuple(next(got) if t.requires_grad else None for t in ins)
+
+
 def ms_deform_attn(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -319,7 +367,14 @@ def ms_deform_attn(
     if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no MSDA kernel for device {value.device}")
     clip = clips(value, spatial_shapes, sampling_locations)
-    if value.device.type == "cpu":
-        plain = ms_deform_attn_clipped_plain if clip else ms_deform_attn_plain
-        return plain(value, spatial_shapes, sampling_locations, attention_weights)
-    return _launch(value, spatial_shapes, sampling_locations, attention_weights, clip)
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+
+    def run(value, loc, attn):
+        if value.device.type == "cpu":
+            plain = ms_deform_attn_clipped_plain if clip else ms_deform_attn_plain
+            return plain(value, shapes, loc, attn)
+        return _launch(value, shapes, loc, attn, clip)
+
+    if kernels.needs_grad(value, sampling_locations, attention_weights):
+        return MSDeformAttnFunction.apply(value, sampling_locations, attention_weights, run, shapes)
+    return run(value, sampling_locations, attention_weights)

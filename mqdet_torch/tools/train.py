@@ -1,5 +1,5 @@
-"""MQ-GLIP modulated pre-training: the body of the JAX package's
-`tools/train.py` (:140-296) as a function, on one device.
+"""Modulated pre-training of MQ-GLIP and MQ-GroundingDINO: the body of the
+JAX package's `tools/train.py` (:140-296) as a function, on one device.
 
     from mqdet_torch.tools.train import train
     state, best = train(cfg, dataset, bank, output_dir, resume=False)
@@ -7,11 +7,13 @@
 It builds the model from `SOLVER.SEED` (or takes `model`, e.g. weights loaded
 through the bridge), the query selector over `bank` (a `QueryBank` or None),
 the grounding train loader over `dataset` (a `CocoDetectionDataset`), the
-train state and step (`engine/train.py`), the checkpointer in `output_dir`,
-and runs `do_train`. The model's frozen parameters and activations are in
-`TPU.COMPUTE_DTYPE` on the card (fp32 on the CPU); the trainable set keeps
-fp32 masters. Loading the config from yaml waits for ROADMAP Queue A's
-yaml-free reader (Queue A 3); MQ-GroundingDINO training is Queue A 2.
+train state and step (`engine/train.py`: GLIP's with the anchors of the
+first bucket, or, where `GROUNDINGDINO.enabled`, GroundingDINO's, which
+needs none, as the JAX dispatch at `tools/train.py:259-265`), the
+checkpointer in `output_dir`, and runs `do_train`. The model's frozen
+parameters and activations are in `TPU.COMPUTE_DTYPE` on the card (fp32 on
+the CPU); the trainable set keeps fp32 masters. Loading the config from yaml
+waits for ROADMAP Queue A's yaml-free reader (Queue A 3).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 from mqdet_torch.core.config import frozen_patterns, trainable_patterns
 from mqdet_torch.data.loader import GroundingTrainLoader
 from mqdet_torch.data.tokenizer import get_tokenizer
-from mqdet_torch.engine.train import glip_anchors, init_train_state, make_train_step
+from mqdet_torch.engine.train import glip_anchors, init_train_state, make_gdino_train_step, make_train_step
 from mqdet_torch.engine.trainer import do_train
 from mqdet_torch.io.checkpoints import Checkpointer
 from mqdet_torch.mq.selector import QuerySelector
@@ -34,9 +36,6 @@ def build_training(cfg, dataset, bank, output_dir: str, device="cuda", model: Op
                    tokenizer=None):
     """(model, loader, state, train_step, checkpointer), as `train` builds
     them; `cfg.SOLVER.MAX_ITER` is set from MAX_EPOCH where it is 0."""
-    if cfg.GROUNDINGDINO.enabled:
-        raise NotImplementedError("MQ-GroundingDINO training (set loss, matcher, train step, MSDA VJP) is not "
-                                  "ported: ROADMAP Queue A 2")
     device = torch.device(device)
     cfg.OUTPUT_DIR = output_dir
     os.makedirs(output_dir, exist_ok=True)
@@ -52,8 +51,11 @@ def build_training(cfg, dataset, bank, output_dir: str, device="cuda", model: Op
     if cfg.SOLVER.MAX_ITER <= 0:
         cfg.SOLVER.MAX_ITER = cfg.SOLVER.MAX_EPOCH * loader.steps_per_epoch()
     state, tx = init_train_state(model, cfg, trainable_patterns(cfg), frozen_patterns(cfg))
-    anchors, level_sizes = glip_anchors(cfg, cfg.TPU.IMAGE_BUCKETS[0], device)
-    step = make_train_step(model, tx, anchors, level_sizes, cfg)
+    if cfg.GROUNDINGDINO.enabled:
+        step = make_gdino_train_step(model, tx, cfg)
+    else:
+        anchors, level_sizes = glip_anchors(cfg, cfg.TPU.IMAGE_BUCKETS[0], device)
+        step = make_train_step(model, tx, anchors, level_sizes, cfg)
     return model, loader, state, step, Checkpointer(output_dir, cfg.SOLVER.MAX_TO_KEEP)
 
 

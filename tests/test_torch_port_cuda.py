@@ -756,8 +756,9 @@ def test_dcn_function_gradients_match_the_plain_vjp(dev, route, stride, offsets)
 @pytest.mark.cuda
 def test_launchers_raise_under_grad_on_the_card(dev):
     """No kernel returns a detached output to a caller that needs a
-    gradient: the DCN routes go through their Functions, the bi-attention
-    and MSDA launchers raise."""
+    gradient: the DCN and MSDA routes go through their Functions, the
+    bi-attention launchers and every launcher called outside its Function
+    raise."""
     q = torch.randn(1, 128, 2048, device=dev, dtype=torch.bfloat16, requires_grad=True)
     k = torch.randn(1, 128, 2048, device=dev, dtype=torch.bfloat16)
     with pytest.raises(RuntimeError, match="no gradient"):
@@ -765,10 +766,12 @@ def test_launchers_raise_under_grad_on_the_card(dev):
     with pytest.raises(RuntimeError, match="no gradient"):
         tba.flash_bi_attention_levels([q], k, [q], k, None, 8)
     value = torch.randn(1, 64, 8, 32, device=dev, dtype=torch.bfloat16, requires_grad=True)
-    loc = torch.rand(1, 64, 8, 1, 4, 2, device=dev, dtype=torch.bfloat16)
-    attn = torch.rand(1, 64, 8, 1, 4, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError, match="no gradient"):
-        tms.ms_deform_attn(value, [(8, 8)], loc, attn)
+    loc = torch.rand(1, 64, 8, 1, 4, 2, device=dev)
+    attn = torch.rand(1, 64, 8, 1, 4, device=dev)
+    for clip in (False, True):
+        with pytest.raises(RuntimeError, match="no gradient"):
+            tms._launch(value, [(8, 8)], loc, attn, clip)
+    assert tms.ms_deform_attn(value, [(8, 8)], loc, attn).grad_fn is not None  # through MSDeformAttnFunction
     x = torch.randn(1, 8, 8, 128, device=dev, dtype=torch.bfloat16, requires_grad=True)
     rest = [torch.zeros(1, 8, 8, 18, device=dev, dtype=torch.bfloat16), torch.ones(1, 8, 8, 9, device=dev,
             dtype=torch.bfloat16), torch.zeros(3, 3, 128, 128, device=dev, dtype=torch.bfloat16)]
@@ -811,6 +814,137 @@ def test_tiny_train_step_on_the_card(dev):
         state, metrics = step(state, batch_to_device(batch, dev), step_generator(0, it, dev))
         assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert {k: v for k, v in launch_counts().items() if v} == {"dcn_band": 2 * 13}
+    params = dict(model.named_parameters())
+    assert all(torch.equal(params[n], t) for n, t in frozen.items())
+    assert all(not torch.equal(t, start[n]) and t.dtype == torch.float32 for n, t in state.trainable.items())
+
+
+MSDA_GRAD_CASES = [  # (level shapes, Q (None: encoder queries, Q = S), loc range, hd)
+    ([(25, 42), (13, 21), (7, 11), (4, 6)], None, (-0.5, 1.5), 32),  # clipped: most points past their windows
+    (GDINO_800, 900, (-0.2, 1.2), 32),                                # exact: decoder queries
+    ([(9, 7), (5, 4)], None, (-0.5, 1.5), 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MSDA_GRAD_CASES)
+def test_msda_function_gradients_match_the_plain_vjp(dev, monkeypatch, case):
+    """The MSDA Function on the card (the clipped or exact kernel forward,
+    bf16 value saved) against `ms_deform_attn_vjp`, the exact composite's
+    VJP in fp32 at the unclipped locations: every gradient within BOUND *
+    max|ref|; the forward launched its kernel once."""
+    from mqdet_torch.ops import launch_counts
+
+    monkeypatch.delenv("MQDET_MSDA_IMPL", raising=False)
+    shapes, q, (lo, hi), hd = case
+    value, loc, attn = _msda(dev, 2, shapes, q, lo, hi, hd=hd, seed=hd)
+    gout = torch.randn(2, loc.shape[1], 8 * hd, device=dev).bfloat16()
+    leaves = [t.clone().requires_grad_(True) for t in (value, loc, attn)]
+    launch_counts(reset=True)
+    y = tms.ms_deform_attn(*leaves[:1], shapes, *leaves[1:])
+    kernel = "ms_deform_attn_clip" if q is None else "ms_deform_attn"
+    assert {k: v for k, v in launch_counts().items() if v} == {kernel: 1} and y.grad_fn is not None
+    y.backward(gout)
+    refs = tms.ms_deform_attn_vjp(value.float(), shapes, loc, attn, gout.float())
+    for leaf, ref in zip(leaves, refs):
+        assert leaf.grad.dtype == leaf.dtype and bool(torch.isfinite(leaf.grad).all()) and _close(leaf.grad, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["band", "window", "gather"])
+def test_dcn_nan_offset_gives_nan_as_the_plain_version(dev, route):
+    """A NaN offset (one tap's dy at one position, one tap's dx at the last
+    position, whose tap-8 sample lies past the bottom edge whenever its dy
+    is >= 0) through each DCN kernel: NaN at exactly the positions where the
+    plain version is NaN, every other output within BOUND of it (Queue C 2:
+    the clip's `fmaxf` and the exact mode's in-image tests dropped the NaN).
+    The clipped routes give both positions NaN (the window composite has no
+    out-of-image rule); the exact route only the first, as the exact
+    composite drops a sample whose other coordinate lies outside."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, h, w, c = 2, 13, 21, 128
+    x = torch.randn(b, h, w, c, generator=g, device=dev).bfloat16()
+    off = (torch.randn(b, h, w, 18, generator=g, device=dev) * 3).bfloat16()
+    off[0, 4, 7, 6] = float("nan")
+    off[1, 12, 20, 16:18] = torch.tensor([0.5, float("nan")])
+    mask = torch.rand(b, h, w, 9, generator=g, device=dev).bfloat16()
+    wt = (torch.randn(3, 3, c, c, generator=g, device=dev) * 0.05).bfloat16()
+    fn, plain = {
+        "band": (lambda *a: tdc.modulated_deform_conv_pallas(*a, radius=2), tdc.modulated_deform_conv_clipped_plain),
+        "window": (lambda *a: tdc.modulated_deform_conv_window(*a, radius=2), tdc.modulated_deform_conv_clipped_plain),
+        "gather": (tdc.modulated_deform_conv, tdc.modulated_deform_conv_plain),
+    }[route]
+    got = fn(x, off, mask, wt, None)
+    torch.cuda.synchronize()
+    ref = plain(*(t.float() for t in (x, off, mask, wt)), None) if route == "gather" else \
+        plain(*(t.float() for t in (x, off, mask, wt)), None, radius=2)
+    nan = torch.isnan(ref)
+    want = 1 if route == "gather" else 2
+    assert torch.equal(torch.isnan(got), nan) and int(nan.any(-1).sum()) == want and bool(nan[0, 4, 7].all())
+    assert _close(torch.where(nan, 0.0, got.float()), torch.where(nan, 0.0, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["clipped", "exact encoder", "exact decoder"])
+def test_msda_nan_location_gives_nan_as_the_plain_version(dev, monkeypatch, mode):
+    """A NaN location, and an infinite one, through each MSDA kernel mode:
+    NaN at exactly the (query, head) rows where the plain version is NaN
+    (the NaN always; the inf where its pair has no window), every other
+    output within BOUND of it."""
+    shapes = [(25, 42), (13, 21), (7, 11), (4, 6)]
+    q = 900 if mode == "exact decoder" else None
+    if mode == "exact encoder":
+        monkeypatch.setenv("MQDET_MSDA_IMPL", "gather")
+    else:
+        monkeypatch.delenv("MQDET_MSDA_IMPL", raising=False)
+    value, loc, attn = _msda(dev, 2, shapes, q, -0.2, 1.2, seed=3)
+    loc[0, 17, 3, 1, 2, 0] = float("nan")   # a COARSE pair for an encoder query at level 0
+    loc[1, 700, 5, 3, 0, 1] = float("inf")  # level 3: lq 0 to lv 3 is no exact ratio (25/4), so no window
+    loc[1, 60, 0, 0, 1, 1] = float("-inf")  # level 0, its own level: a window clamps it for encoder queries
+    got = tms.ms_deform_attn(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    plain = tms.ms_deform_attn_clipped_plain if mode == "clipped" else tms.ms_deform_attn_plain
+    ref = plain(value.float(), shapes, loc, attn)
+    nan = torch.isnan(ref)
+    rows = nan.reshape(2, -1, 8, 32).any(-1)
+    want_rows = 3 if mode != "clipped" else 2
+    assert torch.equal(torch.isnan(got), nan) and int(rows.sum()) == want_rows and bool(rows[0, 17, 3])
+    assert _close(torch.where(nan, 0.0, got.float()), torch.where(nan, 0.0, ref))
+
+
+@pytest.mark.cuda
+def test_tiny_gdino_train_step_on_the_card(dev):
+    """Two training steps of tiny MQ-GroundingDINO in bf16 on the card: per
+    forward one clipped MSDA launch (its one encoder layer) and two exact
+    ones (its two decoder layers), no bi-attention kernel (the fusion's
+    training composite); every loss finite; the trainable fp32 masters
+    move, the frozen parameters do not."""
+    import numpy as np
+
+    from mqdet_torch.core.config import trainable_patterns
+    from mqdet_torch.engine.train import batch_to_device, init_train_state, make_gdino_train_step, step_generator
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import build_model, init_params, synthetic_caption_batch, tiny_gdino_config
+
+    cfg = tiny_gdino_config()
+    cfg.SOLVER.TUNING_HIGHLEVEL_OVERRIDE, cfg.SOLVER.MODEL_EMA, cfg.SOLVER.WARMUP_ITERS = "vision_query", 0.999, 0
+    cfg.VISION_QUERY.TEXT_DROPOUT = 0.4
+    b = synthetic_caption_batch(cfg, 2, (96, 96), num_labels=3, k_shot=2, seed=1)
+    batch = {k: b[k] for k in ("images", "input_ids", "attention_mask", "queries", "query_mask")}
+    boxes = np.array([[[4, 6, 40, 30], [20, 20, 60, 62]]] * 2, np.float32)
+    batch.update(gt_boxes=boxes, gt_labels=np.array([[1, 2]] * 2, np.int32), gt_valid=np.ones((2, 2), bool),
+                 gt_token_map=b["agg_map"][:, :2], pos_category_map=(b["agg_map"] > 0).astype(np.float32),
+                 has_query=np.ones((2, 3), np.int32), image_sizes=np.array([[96, 96]] * 2, np.float32))
+    model = init_params(build_model(cfg), seed=0).to(dev, torch.bfloat16)
+    state, tx = init_train_state(model, cfg, trainable_patterns(cfg))
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if n in state.frozen}
+    start = {n: t.clone() for n, t in state.trainable.items()}
+    step = make_gdino_train_step(model, tx, cfg)
+    launch_counts(reset=True)
+    for it in range(2):
+        state, metrics = step(state, batch_to_device(batch, dev), step_generator(0, it, dev))
+        assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert {k: v for k, v in launch_counts().items() if v} == {"ms_deform_attn_clip": 2, "ms_deform_attn": 4}
     params = dict(model.named_parameters())
     assert all(torch.equal(params[n], t) for n, t in frozen.items())
     assert all(not torch.equal(t, start[n]) and t.dtype == torch.float32 for n, t in state.trainable.items())

@@ -638,7 +638,9 @@ def test_training_forward_draws_from_its_generator(pair):
     assert rel_err(ref, z) < 1e-5
 
 
-def test_unported_training_options_are_refused(pair):
+def test_unported_training_options_are_refused(pair, coco, tmp_path):
+    """MLM_LOSS and REMAT raise; MQ-GroundingDINO, once refused here (ROADMAP
+    Queue A 2), builds its own step: the set criterion's, with no anchors."""
     tcfg = pair[4].clone()
     model = copy.deepcopy(pair[2])
     state, tx = tt.init_train_state(model, tcfg, [""])
@@ -651,11 +653,15 @@ def test_unported_training_options_are_refused(pair):
             c.TPU.REMAT = True
         with pytest.raises(NotImplementedError, match=match):
             tt.make_train_step(model, tx, anchors, level_sizes, c)
-    from mqdet_torch.tools.train import train
+    from mqdet_torch.data.coco import CocoDetectionDataset
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.models.gdino import MQGroundingDINO
+    from mqdet_torch.tools.train import build_training
 
-    g = tb.tiny_gdino_config()
-    with pytest.raises(NotImplementedError, match="Queue A 2"):
-        train(g, None, None, "/nonexistent", device="cpu")
+    model, _, state, step, _ = build_training(tb.tiny_gdino_config(), CocoDetectionDataset(*coco), None,
+                                              str(tmp_path), device="cpu", tokenizer=WordPieceTokenizer())
+    assert isinstance(model, MQGroundingDINO) and state.trainable
+    assert hasattr(step, "assignment") and step.assignment is None  # make_gdino_train_step's, not yet run
 
 
 # ------------------------------------------------------- data and loop
