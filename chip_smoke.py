@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--seed N] [--runs N]
 
 Run from the root of a checkout. It needs a CUDA device and the CUDA toolkit
-(`nvcc`); it imports nothing of JAX. It drives both evaluation paths of the
-port, MQ-GLIP-T and MQ-GroundingDINO-T, and the modulated pre-training of
-both. Phases, each printing lines:
+(`nvcc`); it imports nothing of JAX, and neither PyYAML nor PIL. It drives
+both evaluation paths of the port, MQ-GLIP-T and MQ-GroundingDINO-T, the
+modulated pre-training of both, and the evaluation CLI. Phases, each
+printing lines:
 
   1. the card (`nvidia-smi` name and power limit) and the kernels' build from
      `mqdet_torch/csrc/` with nvcc for sm_90a (one nvcc per source, in
@@ -131,7 +132,10 @@ both. Phases, each printing lines:
      memory, launches (gated: 78 `dcn_band` a forward, no bi-attention
      kernel: the fusion's training composite); one step split at forward /
      backward / update; one profiled step (device busy, idle share, the DCN
-     backward's device time and share); gates: every loss term finite, the
+     backward's device time and share); one timed step on phase 7's 2
+     portrait images, batched in the rotated bucket 1344x800 and trained
+     against that bucket's anchors (ROADMAP Queue C 1; loss finite, 78
+     `dcn_band` launches); gates: every loss term finite, the
      frozen parameters bitwise unchanged, every trainable tensor moved and
      its EMA apart from it, a checkpoint saved and restored equal;
   9. last, MQ-GroundingDINO-T modulated pre-training at full width
@@ -149,12 +153,30 @@ both. Phases, each printing lines:
      per backward; then phase 8's steps, split (the matcher's host time
      apart), profile (the `msda_backward` spans' device time and share) and
      gates, launches gated at 6 `ms_deform_attn_clip` + 6 `ms_deform_attn` a
-     forward and no bi-attention kernel.
+     forward and no bi-attention kernel;
+ 10. last, the evaluation CLI (`mqdet_torch.tools.eval.evaluate`, the body
+     of `python -m mqdet_torch.tools.eval`): first every yaml under
+     configs/ merged into the port's tree by its own reader (this machine
+     has no PyYAML), counted and timed; then per model the shipped
+     configs/vision_query_5shot yaml (lvis_minival.yaml,
+     lvis_minival_groundingdino-T.yaml) with a user's overrides
+     (DATA_ROOT, QUERY_BANK_PATH, MODEL.WEIGHT) and those that give it
+     phase 7's settings (thresholds 0; MQ-GLIP-T's NUM_CLASSES 81, the
+     saved classifier's; GDINO's 800x1344 bucket), the weights phase 7's
+     model saved as a reference-layout .pth (`module.` keys), the bank
+     phase 7's saved and read back, the dataset phase 7's: gated on the
+     import report (0 missing, 0 unused), the AP fields and every image's
+     detections bitwise equal to phase 7's `run_inference` (same weights,
+     bank, images), the launches (as phase 7's run_inference) and bbox.csv; img/s and the seconds of the config,
+     import and evaluation stages printed. For MQ-GLIP-T also the VOC and
+     phrase-grounding styles on 2 synthetic images each (XML / caption
+     json written from the seed, seeded pixels), one head group an image,
+     launches gated.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches summed over the counted paths: the protocols, phase 3's card runs,
-the sweep path, phase 7's evaluation and update and phases 8 and 9's timed
-training steps); the last line is {"ok": true, "device": {...}}. Any failure exits
+the sweep path, phase 7's evaluation and update, phases 8 and 9's timed
+training steps and phase 10's CLI runs); the last line is {"ok": true, "device": {...}}. Any failure exits
 non-zero without those lines.
 """
 from __future__ import annotations
@@ -1197,9 +1219,11 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, k
             if not ok:
                 fail(f"{label} run_inference: image {image_id} has a detection not finite or outside {(ih, iw)}")
             self.n_dets = getattr(self, "n_dets", 0) + len(det_scores)
+            self.dets[image_id] = (det_boxes.copy(), det_scores.copy(), det_labels.copy())
             super().add_image(image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw)
 
     evaluator = Checked(style="lvis_fixed", max_dets=300, category_frequency=freq)
+    evaluator.dets = {}
     torch.cuda.synchronize()
     launch_counts(reset=True)
     t0 = time.perf_counter()
@@ -1218,6 +1242,8 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, k
         fail(f"{label} run_inference: launches {eval_launches} != predicted {want}")
     if not all(v is not None and np.isfinite(v) for v in aps.values()):
         fail(f"{label} run_inference: AP fields not all finite: {aps}")
+    if keep is not None:
+        keep.update(results=res, detections=evaluator.dets)
 
     # 4. one online-update turn over 2 images from an empty bank
     update_bank = QueryBank(channels=c.MODEL.BACKBONE.OUT_CHANNELS)
@@ -1309,7 +1335,7 @@ def phase_train_reference(torch, cfg, model_cpu, seed):
     import numpy as np
 
     from mqdet_torch.core.config import trainable_patterns
-    from mqdet_torch.engine.train import batch_to_device, glip_anchors, init_train_state, make_train_step
+    from mqdet_torch.engine.train import batch_to_device, init_train_state, make_train_step
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.utils.builders import synthetic_batch
 
@@ -1331,8 +1357,7 @@ def phase_train_reference(torch, cfg, model_cpu, seed):
 
     def step(model, dev, scale=1.0):
         state, tx = init_train_state(model, c, trainable_patterns(c))
-        anchors, level_sizes = glip_anchors(c, hw, dev)
-        run = make_train_step(model, tx, anchors, level_sizes, c)
+        run = make_train_step(model, tx, c)
         inputs = dict(batch, images=(batch["images"] * np.float32(scale)).astype(np.float32))
         _, metrics = run(state, batch_to_device(inputs, dev), torch.Generator(device=dev).manual_seed(seed))
         params = dict(model.named_parameters())
@@ -1448,12 +1473,12 @@ def phase_dcn_backward(torch, seed, smi):
     return times
 
 
-def landscape(dataset):
-    """A shallow copy of phase 7's dataset holding its landscape images: the
-    loader stacks one bucket's images, as the JAX loader does (ROADMAP Queue
-    C 1: portrait batches)."""
+def landscape(dataset, portrait=False):
+    """A shallow copy of phase 7's dataset holding its landscape images (or
+    its portrait ones): the timed steps train on the landscape images, as
+    before the loader grouped batches by bucket (ROADMAP Queue C 1)."""
     ds = copy.copy(dataset)
-    ds.ids = [i for i in dataset.ids if dataset.image_size(i)[0] < dataset.image_size(i)[1]]
+    ds.ids = [i for i in dataset.ids if (dataset.image_size(i)[0] < dataset.image_size(i)[1]) != portrait]
     return ds
 
 
@@ -1474,10 +1499,11 @@ def phase_train(torch, seed, dataset, bank, smi):
     return train_steps(torch, "phase 8", "MQ-GLIP-T", cfg, model_cpu, landscape(dataset), bank, smi,
                        predicted(dcn_band=stages * (3 * levels - 2)),  # 78 a forward; no bi-attention kernel
                        "dcn_backward", "`DeformConvFunction`", ("dcn_band_kernel",),
-                       f"level-0 backward alone (CUDA events) {bwd_ms}")
+                       f"level-0 backward alone (CUDA events) {bwd_ms}", portrait=landscape(dataset, portrait=True))
 
 
-def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, span, function, fwd_kernels, note):
+def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, span, function, fwd_kernels, note,
+                portrait=None):
     """The timed part of a training phase, through the port's train entry
     (`tools.train.build_training`: model, selector, loader, state, step,
     checkpointer): two warm-up steps, 8 timed steps (launches gated at
@@ -1485,9 +1511,12 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, sp
     backward / update (and the matcher's host time, where the step has
     one), one profiled step (device busy, idle share, the kernels inside
     the `span` annotations of the `function` backwards, the forward kernels
-    named like `fwd_kernels`), a checkpoint save and restore; then the gates
-    (losses finite, frozen bitwise, every trainable tensor and its EMA
-    moved). Returns the launch counts of the timed steps."""
+    named like `fwd_kernels`), where `portrait` (a dataset of portrait
+    images) is given one step on a batch of them in the rotated bucket
+    (ROADMAP Queue C 1: its own anchors; loss finite, launches as a step's),
+    a checkpoint save and restore; then the gates (losses finite, frozen
+    bitwise, every trainable tensor and its EMA moved). Returns the launch
+    counts of the timed steps."""
     import numpy as np
 
     from mqdet_torch.data.tokenizer import WordPieceTokenizer
@@ -1568,6 +1597,31 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, sp
             f"{fwd!r} ms; {note}")
     else:
         say(f"{phase}: the profiler recorded no device kernels; the backward's device share not measured")
+
+    if portrait is not None:
+        from mqdet_torch.data.loader import GroundingTrainLoader
+
+        pcfg = cfg.clone()
+        pcfg.AUGMENT.MULT_MIN_SIZE_TRAIN = (800,)  # 640x480 -> 1066x800: only the rotated bucket holds it
+        pb = next(iter(GroundingTrainLoader(portrait, pcfg, loader.tokenizer, loader.selector)))
+        pb.pop("num_positive")
+        launch_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch_to_device(pb, dev), step_generator(cfg.SOLVER.SEED, state.step, dev))
+        values = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000.0
+        plaunch = launch_counts()
+        say(f"{phase}: one step on phase 7's {len(portrait.ids)} portrait images (ROADMAP Queue C 1): batch "
+            f"{tuple(pb['images'].shape)}, the rotated bucket's anchors, in {ms!r} ms (host clock, synchronised; "
+            f"{smi}); losses {values}; launches {({k: v for k, v in plaunch.items() if v})} (predicted {per_step})")
+        if tuple(pb["images"].shape[1:3]) != tuple(cfg.TPU.IMAGE_BUCKETS[0])[::-1]:
+            fail(f"{phase}: the portrait batch is not in the rotated bucket: {tuple(pb['images'].shape)}")
+        if not all(np.isfinite(v) for v in values.values()):
+            fail(f"{phase}: the portrait step's loss is not finite: {values}")
+        if plaunch != per_step:
+            fail(f"{phase}: the portrait step's launches {plaunch} != predicted {per_step}")
 
     for rec in losses:
         if not all(np.isfinite(v) for v in rec.values()):
@@ -1788,6 +1842,235 @@ def phase_train_gdino(torch, seed, dataset, bank, smi):
                        f"one MSDA backward alone (CUDA events) {bwd_ms}")
 
 
+def merge_shipped_configs():
+    """Phase 10, first: every yaml under configs/ merged into the port's
+    default tree by its own reader (this machine has no PyYAML). Returns
+    (count, seconds)."""
+    import glob
+
+    from mqdet_torch.core.config import default_config
+
+    paths = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.yaml"), recursive=True))
+    t0 = time.perf_counter()
+    for path in paths:
+        default_config().merge_from_file(path)
+    return len(paths), time.perf_counter() - t0
+
+
+def save_reference_pth(torch, model, path):
+    """The model's weights as a reference-layout .pth: its state dict (the
+    reference's key names) under DataParallel's `module.` prefix, in a
+    DetectronCheckpointer-like {"model": ...} file."""
+    torch.save({"model": {f"module.{k}": v for k, v in model.state_dict().items()}, "iteration": 0}, path)
+    return path
+
+
+def synthetic_voc(root, seed):
+    """A PascalVOC-format dataset of 2 images written from `seed` (XML
+    annotations of 2-4 objects, ImageSets/Main/test.txt); `load_image` serves
+    seeded pixels (this machine has no PIL)."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    from mqdet_torch.data.datasets_extra import VOC_CLASSES, PascalVOCDataset
+
+    rng = np.random.default_rng(seed + 11)
+    for d in ("Annotations", "ImageSets/Main"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    sizes = {"voc0": (375, 500), "voc1": (333, 500)}
+    for name, (h, w) in sizes.items():
+        ann = ET.Element("annotation")
+        for _ in range(int(rng.integers(2, 5))):
+            obj = ET.SubElement(ann, "object")
+            ET.SubElement(obj, "name").text = VOC_CLASSES[1 + int(rng.integers(0, 20))]
+            ET.SubElement(obj, "difficult").text = "0"
+            bb = ET.SubElement(obj, "bndbox")
+            x0, y0 = rng.uniform(1, w * 0.5), rng.uniform(1, h * 0.5)
+            corners = (("xmin", x0), ("ymin", y0), ("xmax", rng.uniform(x0 + 20, w)), ("ymax", rng.uniform(y0 + 20, h)))
+            for k, v in corners:
+                ET.SubElement(bb, k).text = f"{v:.1f}"
+        ET.ElementTree(ann).write(os.path.join(root, "Annotations", f"{name}.xml"))
+    with open(os.path.join(root, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(sizes) + "\n")
+
+    class SeededVOC(PascalVOCDataset):
+        def load_image(self, img_id):
+            return seeded_pixels(seed, sum(map(ord, img_id)), *sizes[img_id])
+
+    return SeededVOC(root, "test")
+
+
+def synthetic_grounding(root, seed):
+    """A phrase-grounding (ModulatedDataset) json of 2 images from `seed`:
+    per image a caption and per box the character span of its phrase;
+    `load_image` serves seeded pixels."""
+    import numpy as np
+
+    from mqdet_torch.data.datasets_extra import GroundingCaptionDataset
+
+    rng = np.random.default_rng(seed + 13)
+    captions = ["a brown dog chases a red ball across the grass", "two people ride bicycles past a parked car"]
+    phrases = [["a brown dog", "a red ball", "the grass"], ["two people", "bicycles", "a parked car"]]
+    images, anns = [], []
+    for i, (cap, ph) in enumerate(zip(captions, phrases)):
+        h, w = 480, 640
+        images.append({"id": i + 1, "file_name": f"{i + 1}.jpg", "height": h, "width": w, "caption": cap})
+        for p in ph:
+            beg = cap.index(p)
+            for _ in range(int(rng.integers(1, 3))):
+                x0, y0 = rng.uniform(0, w * 0.6), rng.uniform(0, h * 0.6)
+                anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": 1, "iscrowd": 0,
+                             "bbox": [x0, y0, rng.uniform(20, w - x0), rng.uniform(20, h - y0)],
+                             "tokens_positive": [[beg, beg + len(p)]]})
+    path = os.path.join(root, "grounding_synthetic.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [{"id": 1, "name": "object"}]}, f)
+
+    class SeededGrounding(GroundingCaptionDataset):
+        def load_image(self, img_id):
+            im = self.images[img_id]
+            return seeded_pixels(seed, 100 + img_id, im["height"], im["width"])
+
+    return SeededGrounding(path, root)
+
+
+def seeded_pixels(seed, key, h, w):
+    """uint8 (h, w, 3) smooth noise from (seed, key), as phase 7's images."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed * 1000 + key)
+    low = torch.rand(1, 3, max(1, h // 32), max(1, w // 32), generator=g) * 255.0
+    img = torch.nn.functional.interpolate(low, size=(h, w), mode="bilinear")
+    return img[0].permute(1, 2, 0).round().to(torch.uint8).numpy()
+
+
+def phase_cli(torch, label, cfg, seed, keep, per_image, per_group, root, smi, configs, other_styles=False):
+    """Phase 10, per model: the evaluation CLI's body
+    (`mqdet_torch.tools.eval.evaluate`) on the shipped
+    configs/vision_query_5shot yaml of the family, with the overrides a user
+    passes (DATA_ROOT, QUERY_BANK_PATH, MODEL.WEIGHT) and those that give it
+    phase 7's settings (thresholds 0; MQ-GLIP-T's NUM_CLASSES 81, the saved
+    classifier's; GDINO's bucket 800x1344, the port's); the weights: phase 7's
+    model (init_params(seed) again) saved as a reference-layout .pth; the
+    bank: phase 7's, saved and read back; the dataset: phase 7's. Gates: the
+    import report (0 missing, 0 unused), the AP fields and every image's
+    detections (boxes, scores, labels) equal to phase 7's `run_inference`,
+    bitwise, the launches (phase 7's), bbox.csv written. `per_image`: the predicted launches of one image's
+    head groups; `per_group`: of one group; `configs`: (count, seconds) of
+    the shipped configs' merge. With `other_styles`, the VOC and
+    phrase-grounding styles on 2 synthetic images each, their launches
+    predicted (one head group an image). Returns the launch counts by
+    path."""
+    import argparse
+
+    import numpy as np
+
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.tools.eval import evaluate
+    from mqdet_torch.tools.train import load_config
+    from mqdet_torch.utils.builders import build_model, init_params
+
+    gdino = cfg.GROUNDINGDINO.enabled
+    yml = os.path.join(REPO, "configs", "vision_query_5shot",
+                       "lvis_minival_groundingdino-T.yaml" if gdino else "lvis_minival.yaml")
+    ds, bank, want_res = keep["dataset"], keep["bank"], keep["results"]
+    tag = "gdino" if gdino else "glip"
+    t0 = time.perf_counter()
+    weight = save_reference_pth(torch, init_params(build_model(cfg), seed=seed), os.path.join(root, f"{tag}.pth"))
+    bank_path = os.path.join(root, f"{tag}_bank.npz")
+    bank.save(bank_path)
+    save_s = time.perf_counter() - t0
+    opts = ["DATASETS.DATA_ROOT", root, "VISION_QUERY.QUERY_BANK_PATH", bank_path, "MODEL.WEIGHT", weight,
+            "OUTPUT_DIR", os.path.join(root, f"{tag}_out")]
+    opts += (["GROUNDINGDINO.box_threshold", "0.0", "TPU.IMAGE_BUCKETS", "[[800, 1344]]"] if gdino else
+             ["MODEL.ATSS.INFERENCE_TH", "0.0", "MODEL.DYHEAD.NUM_CLASSES", "81"])
+    t0 = time.perf_counter()
+    c = load_config(argparse.Namespace(config_file=yml, task_config=None, additional_model_config=None, opts=opts))
+    config_s = time.perf_counter() - t0
+    tok = WordPieceTokenizer()  # phase 7's: the hash vocab
+    n_img = len(ds.ids)
+    from mqdet_torch.engine import eval_dispatch
+    from mqdet_torch.engine.evaluator import DetectionEvaluator
+
+    class Recording(DetectionEvaluator):
+        dets = {}
+
+        def add_image(self, image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw):
+            self.dets[image_id] = (det_boxes.copy(), det_scores.copy(), det_labels.copy())
+            super().add_image(image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw)
+
+    record = {}
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    build_evaluator = eval_dispatch.build_evaluator
+    eval_dispatch.build_evaluator = lambda cfg_, style: Recording(style, max_dets=cfg_.MODEL.ATSS.DETECTIONS_PER_IMG)
+    try:
+        res = evaluate(c, dataset=ds, device="cuda", tokenizer=tok, log=lambda m: None, record=record)
+    finally:
+        eval_dispatch.build_evaluator = build_evaluator
+    torch.cuda.synchronize()
+    used = launch_counts()
+    want_dets = keep["detections"]
+    same_dets = set(Recording.dets) == set(want_dets) and all(
+        all(np.array_equal(a, b) for a, b in zip(Recording.dets[i], want_dets[i])) for i in want_dets)
+    n_dets = sum(len(d[1]) for d in Recording.dets.values())
+    want = {k: v * n_img for k, v in per_image.items()}
+    report = record["import_report"]
+    keys = [k for k in ("AP", "AP50", "AP75", "APs", "APm", "APl", "APr", "APc", "APf") if k in res]
+    differ = {k: (res[k], want_res.get(k)) for k in keys if not (res[k] == want_res.get(k)
+                                                                  or (np.isnan(res[k]) and np.isnan(want_res.get(k))))}
+    csv_path = os.path.join(c.OUTPUT_DIR, "bbox.csv")
+    header = open(csv_path).readline().strip() if os.path.exists(csv_path) else None
+    say(f"phase 10: {label} through mqdet_torch.tools.eval.evaluate on {os.path.relpath(yml, REPO)} with "
+        f"{len(opts) // 2} overrides ({smi}): {configs[0]} shipped configs merged without PyYAML in "
+        f"{configs[1]!r} s; this config in {config_s!r} s; weights and bank saved in {save_s!r} s; "
+        f"seconds by stage {record['seconds']}; import report {len(report['matched'])} matched, "
+        f"{len(report['missing'])} missing, {len(report['unused'])} unused; {res['images_per_second']!r} img/s over "
+        f"{n_img} images (phase 7's run_inference {want_res['images_per_second']!r}); AP fields {keys} equal to "
+        f"phase 7's: {not differ} {differ or ''}; {({k: res[k] for k in keys})}; {n_dets} detections, every "
+        f"image's boxes, scores and labels bitwise phase 7's: {same_dets}; launches "
+        f"{({k: v for k, v in used.items() if v})} (predicted {({k: v for k, v in want.items() if v})}); "
+        f"bbox.csv header {header!r}")
+    if report["missing"] or report["unused"]:
+        fail(f"{label} CLI: import report missing {report['missing'][:5]}, unused {report['unused'][:5]}")
+    if differ or not same_dets:
+        fail(f"{label} CLI: AP fields {differ} or detections (equal: {same_dets}) differ from phase 7's run_inference")
+    if used != want:
+        fail(f"{label} CLI: launches {used} != predicted {want}")
+    if header is None or not header.startswith("AP"):
+        fail(f"{label} CLI: bbox.csv not written in {c.OUTPUT_DIR}")
+    out = {f"{label} CLI lvis": used}
+    if not other_styles:
+        return out
+    for style, make, name, metric in (("voc", synthetic_voc, "voc_synthetic", "mAP"),
+                                      ("grounding", synthetic_grounding, "flickr_synthetic", "recall@1")):
+        sub = os.path.join(root, style)
+        os.makedirs(sub, exist_ok=True)
+        sds = make(sub, seed)
+        sc = c.clone()
+        sc.DATASETS.TEST = (name,)
+        sc.OUTPUT_DIR = os.path.join(root, f"{tag}_{style}_out")
+        rec = {}
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        sres = evaluate(sc, dataset=sds, device="cuda", tokenizer=tok, log=lambda m: None, record=rec)
+        torch.cuda.synchronize()
+        sused = launch_counts()
+        swant = {k: v * len(sds.ids) for k, v in per_group.items()}  # one head group an image
+        vals = {k: v for k, v in sres.items() if not isinstance(v, dict)}
+        say(f"phase 10: {label} {style} style on {len(sds.ids)} synthetic images ({smi}): "
+            f"{sres['images_per_second']!r} img/s, seconds by stage {rec['seconds']}; {vals}; launches "
+            f"{({k: v for k, v in sused.items() if v})} (predicted {({k: v for k, v in swant.items() if v})})")
+        if sused != swant:
+            fail(f"{label} CLI {style}: launches {sused} != predicted {swant}")
+        if metric not in sres or not np.isfinite(sres[metric]):
+            fail(f"{label} CLI {style}: {metric} missing or not finite: {vals}")
+        out[f"{label} CLI {style}"] = sused
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1897,6 +2180,22 @@ def main() -> int:
     launches["MQ-GLIP-T training"] = phase_train(torch, args.seed, glip_vq["dataset"], glip_vq["bank"], smi)
     launches["MQ-GroundingDINO-T training"] = phase_train_gdino(torch, args.seed, gdino_vq["dataset"],
                                                                 gdino_vq["bank"], smi)
+
+    # ---- phase 10: the evaluation CLI ------------------------------------
+    configs = merge_shipped_configs()
+    cli_root = os.path.join(tmp.name, "cli")
+    os.makedirs(cli_root)
+    glip_cfg = mq_glip_t_config()
+    stages = glip_cfg.MODEL.DYHEAD.NUM_CONVS
+    per_group = predicted(dcn_band=stages * (3 * levels - 2), bi_attention=stages)
+    launches.update(phase_cli(torch, "MQ-GLIP-T", glip_cfg, args.seed, glip_vq,
+                              predicted(dcn_band=dcn, bi_attention=groups * stages), per_group, cli_root, smi,
+                              configs, other_styles=True))
+    torch.cuda.empty_cache()
+    launches.update(phase_cli(torch, "MQ-GroundingDINO-T", mq_groundingdino_t_config(), args.seed, gdino_vq,
+                              predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention=fuse), None,
+                              cli_root, smi, configs))
+    torch.cuda.empty_cache()
 
     say(f"wall time {time.perf_counter() - t_start!r} s (build included)")
     entries = []

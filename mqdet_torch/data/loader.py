@@ -1,8 +1,12 @@
 """Training data loader: OD annotations -> fixed-shape grounding batches. The
 port's copy of `mqdet_tpu/data/loader.py` (numpy; pinned to the original by
 `tests/test_torch_port_train.py`), reading the port's dataset, tokenizer,
-grounding helpers, `TrainTransform` and `QuerySelector`. One difference: the
-caption keeps its positives when the label cap cuts it (`_one_example`).
+grounding helpers, `TrainTransform` and `QuerySelector`. Two differences,
+both where the JAX module fails: the caption keeps its positives when the
+label cap cuts it (`_one_example`), and each batch holds one bucket's
+images (`__iter__`; ROADMAP Queue C 1), so a portrait image trains in the
+rotated bucket with that bucket's anchors instead of failing to stack (a
+mixed batch) or training against the landscape anchors (a portrait batch).
 One process: the
 host sharding of the JAX module (`num_hosts`, `host_id`) defaults to 1 and 0
 here; DDP over NCCL is ROADMAP Queue A 4.1.
@@ -172,11 +176,20 @@ class GroundingTrainLoader:
             seed=self.seed, epoch=self.epoch,
         )
         self.epoch += 1
-        batch = []
+        # one batch per bucket as it fills (the reference's aspect-ratio
+        # GroupedBatchSampler). The bucket is known only after the
+        # transform's multi-scale draw, so examples are grouped as they are
+        # made; with one bucket this is the JAX module's order. A bucket's
+        # partial batch at the end of the epoch is dropped, as before.
+        pending: Dict[tuple, list] = {}
+        yielded = False
         for img_id in ids:
-            batch.append(self._one_example(img_id))
+            ex = self._one_example(img_id)
+            batch = pending.setdefault(ex["images"].shape[:2], [])
+            batch.append(ex)
             if len(batch) == self.batch_size:
-                yield {
-                    k: np.stack([b[k] for b in batch]) for k in batch[0]
-                }
-                batch = []
+                yielded = True
+                yield {k: np.stack([b[k] for b in batch]) for k in batch[0]}
+                batch.clear()
+        if ids and not yielded:
+            raise ValueError(f"no image bucket filled a batch of {self.batch_size} in this epoch: {sorted(pending)}")

@@ -14,8 +14,7 @@ explicitly negative) with a global per-category cap of 10k detections
 instead of a per-image cap.
 
 The cross-process merge (`state_dict`, `merge_state`) waits for the port's
-distributed runs (ROADMAP Queue A 4), `check_expected_results` for its
-evaluation CLI (Queue A 3).
+distributed runs (ROADMAP Queue A 4).
 """
 from __future__ import annotations
 
@@ -248,3 +247,19 @@ class DetectionEvaluator:
                     out[tag] = float(np.nanmean(np.stack([per_cat_ap[c] for c in sel])))
         out["per_category_AP"] = {c: float(np.nanmean(per_cat_ap[c])) for c in valid}
         return out
+
+
+def check_expected_results(results: Dict[str, float], expected, sigma_tol: float):
+    """TEST.EXPECTED_RESULTS guard (evaluation/coco/coco_eval.py:512):
+    each entry (metric, mean, std); asserts |actual - mean| <= tol*std."""
+    errors = []
+    for metric, mean, std in expected:
+        actual = results.get(metric)
+        if actual is None:
+            errors.append(f"metric {metric} missing")
+            continue
+        lo, hi = mean - sigma_tol * std, mean + sigma_tol * std
+        if not (lo <= actual <= hi):
+            errors.append(f"{metric}={actual:.4f} outside [{lo:.4f}, {hi:.4f}]")
+    if errors:
+        raise AssertionError("; ".join(errors))

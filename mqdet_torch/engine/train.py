@@ -180,17 +180,26 @@ def _gate_loss(model, tx, cfg, device):
     return loss
 
 
-def make_train_step(model: torch.nn.Module, tx: O.AdamW, anchors: torch.Tensor, level_sizes: Sequence[int], cfg):
+def make_train_step(model: torch.nn.Module, tx: O.AdamW, cfg):
     """MQ-GLIP's step. Returns train_step(state, batch, generator,
     times=None) -> (state, metrics), `batch` from `batch_to_device`. The
-    state's tensors are updated in place. Given a dict `times`, the step
-    synchronises the device at the boundaries of its forward, backward and
-    update and adds each one's seconds there."""
+    anchors are those of the batch's bucket (its images' padded (H, W)),
+    built once per bucket by `glip_anchors`: a portrait batch trains against
+    the rotated bucket's anchors (ROADMAP Queue C 1; the JAX module takes
+    the first declared bucket's). The state's tensors are updated in place.
+    Given a dict `times`, the step synchronises the device at the boundaries
+    of its forward, backward and update and adds each one's seconds there."""
     _refuse_unported(cfg)
+    device = next(model.parameters()).device
     tower_trains = any(n.startswith("backbone.") for n in tx.lr)
-    gate_loss = _gate_loss(model, tx, cfg, anchors.device)
+    gate_loss = _gate_loss(model, tx, cfg, device)
+    anchors_of: Dict[Tuple[int, int], Tuple[torch.Tensor, Tuple[int, ...]]] = {}
 
     def loss_fn(batch, generator, times, t0):
+        bucket = tuple(batch["images"].shape[-2:])
+        if bucket not in anchors_of:
+            anchors_of[bucket] = glip_anchors(cfg, bucket, device)
+        anchors, level_sizes = anchors_of[bucket]
         input_ids, queries, query_mask = _text_and_queries(batch, cfg, generator)
         with torch.set_grad_enabled(tower_trains):
             feats = model.encode_image(batch["images"], deterministic=False, generator=generator)
@@ -204,7 +213,7 @@ def make_train_step(model: torch.nn.Module, tx: O.AdamW, anchors: torch.Tensor, 
         losses["loss_gate"] = gate_loss()
         return losses, t0
 
-    return _finish_train_step(model, tx, loss_fn, cfg.SOLVER.MODEL_EMA, anchors.device)
+    return _finish_train_step(model, tx, loss_fn, cfg.SOLVER.MODEL_EMA, device)
 
 
 def gdino_targets(batch, num_queries: int):

@@ -83,3 +83,19 @@ class Checkpointer:
             with open(path) as f:
                 return json.load(f)
         return {}
+
+
+def load_params_npz(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a JAX package `save_params_npz` file (its flax tree flattened,
+    paths joined by '/') into `model` through the weight bridge
+    (`io/from_jax.params_from_jax`: every leaf must have a rule, every
+    model key must be filled, shapes must agree); the fp32 values are cast
+    to the model's dtype. Returns the model."""
+    import numpy as np
+
+    from mqdet_torch.io.from_jax import params_from_jax
+
+    with np.load(path) as data:
+        flat = {(k[len("params/"):] if k.startswith("params/") else k): data[k] for k in data.files}
+    model.load_state_dict(params_from_jax(flat, model))
+    return model

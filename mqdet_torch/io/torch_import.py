@@ -497,3 +497,98 @@ def _gdino_rules(enc_layers: int = 6, dec_layers: int = 6):
 
 def build_gdino_rule_table(enc_layers: int = 6, dec_layers: int = 6):
     return {our: (theirs, tf) for our, theirs, tf in _gdino_rules(enc_layers, dec_layers)}
+
+
+# ---------------------------------------------------------------------------
+# importing a reference checkpoint into the port's model, with the JAX
+# package's report (`_import_with_rules` / `import_glip_checkpoint` /
+# `import_gdino_checkpoint`)
+# ---------------------------------------------------------------------------
+
+
+def _flax_leaves(model, table) -> List[Tuple[str, str, Optional[int]]]:
+    """(flax path, the port's key, in-proj third or None) for every leaf the
+    JAX package's tree of the same model holds: one per key, or three (q, k,
+    v) for an in-proj tensor, which the JAX tree keeps as three leaves."""
+    from mqdet_torch.io.from_jax import IN_PROJ, _inproj_slot, reference_rules
+
+    keys = list(model.state_dict())
+    first = {k: reference_rules(model)[k][0] for k in keys if not k.endswith(IN_PROJ)}
+    inproj: Dict[str, List[Tuple[int, str]]] = {}
+    for name, (ref, tf) in table.items():
+        ref = ref[0] if isinstance(ref, tuple) else ref
+        if ref.endswith(IN_PROJ):
+            inproj.setdefault(ref, []).append((_inproj_slot(ref, tf), name))
+    out = []
+    for k in keys:
+        if k in first:
+            out.append((first[k], k, None))
+        else:
+            out += [(name, k, slot) for slot, name in sorted(inproj[k])]
+    return out
+
+
+def _import_with_rules(model, state: Dict[str, np.ndarray], table, strict: bool = False) -> Dict[str, List[str]]:
+    """Fill `model` (in place) from a reference state dict by the rule table,
+    leaf by leaf as the JAX package fills its flax tree: a rule's candidate
+    keys are tried in order, the first present wins; a shape other than the
+    leaf's counts as missing. The values are loaded in fp32, then cast to the
+    model's dtype by `load_state_dict`. Returns {"matched", "missing",
+    "unused"}: flax paths, flax paths (with the shapes where they differ),
+    reference keys."""
+    import torch
+
+    from mqdet_torch.io.from_jax import inverse_transform
+
+    state = strip_prefixes(state)
+    current = {k: v.detach().to("cpu", torch.float32).clone() for k, v in model.state_dict().items()}
+    matched, missing, used = [], [], set()
+    for name, key, slot in _flax_leaves(model, table):
+        refs, tf = table[name]
+        refs = (refs,) if isinstance(refs, str) else refs
+        ref = next((r for r in refs if r in state), None)
+        if ref is None:
+            missing.append(name)
+            continue
+        val = np.asarray(tf(np.asarray(state[ref], np.float32)))
+        want = np.shape(tf(current[key].numpy()))
+        if val.shape != want:
+            missing.append(f"{name} (shape {val.shape} vs {want})")
+            continue
+        used.add(ref)
+        matched.append(name)
+        if slot is None:
+            current[key] = torch.from_numpy(inverse_transform(tf, val, tuple(current[key].shape)).copy())
+        else:
+            rows = np.asarray(state[ref], np.float32)
+            c = rows.shape[0] // 3
+            current[key][slot * c : (slot + 1) * c] = torch.from_numpy(rows[slot * c : (slot + 1) * c].copy())
+    report = {"matched": matched, "missing": missing, "unused": [k for k in state if k not in used]}
+    if strict and missing:
+        raise KeyError(f"{len(missing)} parameters not found: {missing[:20]}")
+    model.load_state_dict(current)
+    return report
+
+
+def import_glip_checkpoint(model, state: Dict[str, np.ndarray], strict: bool = False) -> Dict[str, List[str]]:
+    """A GLIP / MQ-GLIP .pth's state dict -> the port's MQ-GLIP model (in
+    place); the JAX package's report."""
+    return _import_with_rules(model, state, build_rule_table(), strict)
+
+
+def import_gdino_checkpoint(model, state: Dict[str, np.ndarray], strict: bool = False) -> Dict[str, List[str]]:
+    """groundingdino_swint_ogc.pth / an MQ-GroundingDINO .pth -> the port's
+    MQ-GroundingDINO model (in place), at the model's depth; the JAX
+    package's report. The reference registers one box MLP both as
+    `bbox_embed` and as `transformer.decoder.bbox_embed` (and the class
+    embedding likewise), so the decoder's aliases are consumed by proxy and
+    are not reported unused."""
+    tr = model.transformer
+    report = _import_with_rules(
+        model, state, build_gdino_rule_table(len(tr.encoder.layers), len(tr.decoder.layers)), strict
+    )
+    report["unused"] = [
+        k for k in report["unused"]
+        if not k.startswith(("transformer.decoder.bbox_embed.", "transformer.decoder.class_embed."))
+    ]
+    return report

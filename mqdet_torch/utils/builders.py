@@ -42,6 +42,7 @@ def tiny_test_config() -> CfgNode:
     cfg.MODEL.LANGUAGE_BACKBONE.VOCAB_SIZE = 30522
     cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN = 16
     cfg.VISION_QUERY.START_QV_LAYER = 1
+    cfg.MODEL.GROUP_NORM.NUM_GROUPS = 4
     cfg.TPU.IMAGE_BUCKETS = ((64, 64),)
     return cfg
 
@@ -53,6 +54,7 @@ def mq_groundingdino_t_config() -> CfgNode:
     is the yaml's 800x1344, where the JAX package's builder sets the TPU-only
     832x1408 (chosen for its Pallas MSDA kernel's exact level ratios)."""
     cfg = default_config()
+    cfg.MODEL.META_ARCHITECTURE = "MQGroundingDINO"
     cfg.GROUNDINGDINO.enabled = True
     cfg.VISION_QUERY.ENABLED = True
     return cfg
@@ -62,6 +64,7 @@ def tiny_gdino_config() -> CfgNode:
     """Miniature MQ-GroundingDINO config for CPU tests (the JAX package's
     values for the keys this package reads)."""
     cfg = tiny_test_config()
+    cfg.MODEL.META_ARCHITECTURE = "MQGroundingDINO"
     cfg.GROUNDINGDINO.enabled = True
     cfg.GROUNDINGDINO.hidden_dim = 16  # == MODEL.BACKBONE.OUT_CHANNELS
     cfg.GROUNDINGDINO.nheads = 2

@@ -789,7 +789,7 @@ def test_tiny_train_step_on_the_card(dev):
     import numpy as np
 
     from mqdet_torch.core.config import trainable_patterns
-    from mqdet_torch.engine.train import batch_to_device, glip_anchors, init_train_state, make_train_step, step_generator
+    from mqdet_torch.engine.train import batch_to_device, init_train_state, make_train_step, step_generator
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.utils.builders import build_model, init_params, synthetic_batch, tiny_test_config
 
@@ -807,8 +807,7 @@ def test_tiny_train_step_on_the_card(dev):
     state, tx = init_train_state(model, cfg, trainable_patterns(cfg))
     frozen = {n: p.detach().clone() for n, p in model.named_parameters() if n in state.frozen}
     start = {n: t.clone() for n, t in state.trainable.items()}
-    anchors, level_sizes = glip_anchors(cfg, (64, 64), dev)
-    step = make_train_step(model, tx, anchors, level_sizes, cfg)
+    step = make_train_step(model, tx, cfg)
     launch_counts(reset=True)
     for it in range(2):
         state, metrics = step(state, batch_to_device(batch, dev), step_generator(0, it, dev))
@@ -948,3 +947,98 @@ def test_tiny_gdino_train_step_on_the_card(dev):
     params = dict(model.named_parameters())
     assert all(torch.equal(params[n], t) for n, t in frozen.items())
     assert all(not torch.equal(t, start[n]) and t.dtype == torch.float32 for n, t in state.trainable.items())
+
+
+@pytest.mark.cuda
+def test_eval_cli_on_the_card_against_the_cpu(dev, tmp_path):
+    """The evaluation CLI's body (`mqdet_torch.tools.eval.evaluate`) on a
+    yaml written by `dump_yaml` and read by the port's reader (the card
+    machine has no PyYAML), a reference-layout .pth and an .npz bank, tiny
+    MQ-GLIP (T 64) on the card in bf16 and on the CPU in fp32: the same
+    import report (0 missing, 0 unused), 13 gather-kernel DCN and one
+    bi-attention launch per head group on the card, the same result keys,
+    finite AP, bbox.csv written by both, and per image as many detections
+    with the top score within 2e-2 (bf16 against fp32)."""
+    import argparse
+    import json
+
+    import numpy as np
+
+    from mqdet_torch.data.coco import CocoDetectionDataset
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.engine import eval_dispatch
+    from mqdet_torch.engine.evaluator import DetectionEvaluator
+    from mqdet_torch.mq.bank import QueryBank
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.tools.eval import evaluate
+    from mqdet_torch.tools.train import load_config
+    from mqdet_torch.utils.builders import build_model, init_params, tiny_test_config
+
+    cfg = tiny_test_config()
+    cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN = 64
+    cfg.TPU.IMAGE_BUCKETS = ((64, 96),)
+    cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = 48, 80
+    cfg.TEST.CHUNKED_EVALUATION, cfg.TEST.CHUNK_PARALLELISM = 3, 2
+    cfg.VISION_QUERY.MAX_CLASSES_PER_PROMPT, cfg.VISION_QUERY.NUM_QUERY_PER_CLASS = 3, 2
+    cfg.MODEL.ATSS.INFERENCE_TH, cfg.MODEL.ATSS.DETECTIONS_PER_IMG = 0.0, 6
+    sizes = [(60, 80), (60, 80), (80, 60)]
+    images = [{"id": i, "file_name": f"{i}.png", "height": h, "width": w} for i, (h, w) in enumerate(sizes)]
+    anns = [{"id": i + 1, "image_id": i, "category_id": i % 8 + 1, "bbox": [5.0, 6.0, 30.0, 20.0], "area": 600.0,
+             "iscrowd": 0} for i in range(3)]
+    cats = [{"id": i + 1, "name": n} for i, n in enumerate(["cat", "dog", "hot_dog", "ski pole", "bow_(weapon)",
+                                                             "tie", "frisbee", "person"])]
+    (tmp_path / "ann.json").write_text(json.dumps({"images": images, "annotations": anns, "categories": cats}))
+    pixels = {i: np.random.default_rng(i).integers(0, 256, hw + (3,), dtype=np.uint8) for i, hw in enumerate(sizes)}
+
+    class Seeded(CocoDetectionDataset):
+        def load_image(self, img_id):
+            return pixels[img_id]
+
+    bank = QueryBank(channels=16)
+    for lab in (1, 2, 4, 7):
+        bank.add(lab, np.random.default_rng(lab).standard_normal((3, 1, 16)).astype(np.float32))
+    bank.save(str(tmp_path / "bank.npz"))
+    model = init_params(build_model(cfg), seed=0)
+    torch.save({"model": {f"module.{k}": v for k, v in model.state_dict().items()}}, tmp_path / "w.pth")
+    cfg.DATASETS.TEST = ("coco_val",)
+    (tmp_path / "c.yaml").write_text(cfg.dump_yaml())
+
+    class Recording(DetectionEvaluator):
+        def add_image(self, image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw):
+            self.seen[image_id] = np.asarray(det_scores, np.float32)
+            super().add_image(image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw)
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / device
+        c = load_config(argparse.Namespace(
+            config_file=str(tmp_path / "c.yaml"), task_config=None, additional_model_config=None,
+            opts=["MODEL.WEIGHT", str(tmp_path / "w.pth"), "VISION_QUERY.QUERY_BANK_PATH", str(tmp_path / "bank.npz"),
+                  "OUTPUT_DIR", str(out)]))
+        evaluators = []
+
+        def build(cfg_, style):
+            evaluators.append(Recording(style=style, max_dets=cfg_.MODEL.ATSS.DETECTIONS_PER_IMG))
+            evaluators[-1].seen = {}
+            return evaluators[-1]
+
+        record = {}
+        launch_counts(reset=True)
+        original = eval_dispatch.build_evaluator
+        eval_dispatch.build_evaluator = build
+        try:
+            res = evaluate(c, dataset=Seeded(str(tmp_path / "ann.json"), str(tmp_path)), device=device,
+                           tokenizer=WordPieceTokenizer(), log=lambda m: None, record=record)
+        finally:
+            eval_dispatch.build_evaluator = original
+        runs[device] = (res, record, evaluators[0].seen, {k: v for k, v in launch_counts().items() if v})
+        assert (out / "bbox.csv").read_text().startswith("AP,")
+    (card, card_rec, card_seen, used), (cpu, cpu_rec, cpu_seen, cpu_used) = runs["cuda"], runs["cpu"]
+    assert used == {"dcn_gather_clip": 3 * 2 * 13, "bi_attention": 3 * 2} and not cpu_used
+    assert {k: len(v) for k, v in card_rec["import_report"].items()} == \
+        {k: len(v) for k, v in cpu_rec["import_report"].items()}
+    assert not card_rec["import_report"]["missing"] and not card_rec["import_report"]["unused"]
+    assert set(card) == set(cpu) and np.isfinite(card["AP"]) and np.isfinite(cpu["AP"])
+    for i in card_seen:
+        assert len(card_seen[i]) == len(cpu_seen[i]) > 0
+        assert abs(float(card_seen[i].max()) - float(cpu_seen[i].max())) <= 2e-2

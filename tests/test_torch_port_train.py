@@ -543,15 +543,14 @@ def train_pair():
         total = sum(losses.values())
         return jnp.where(jnp.isfinite(total), total, 0.0), losses
 
-    return dict(jmodel=jmodel, state=state, tx=tx, loss_fn=loss_fn, tmodel=no_dropout(tmodel), jcfg=jcfg,
-                tcfg=tcfg, batch=batch, jbatch={k: jnp.asarray(v) for k, v in batch.items()})
+    return dict(jmodel=jmodel, state=state, tx=tx, merge=merge, loss_fn=loss_fn, tmodel=no_dropout(tmodel),
+                jcfg=jcfg, tcfg=tcfg, batch=batch, jbatch={k: jnp.asarray(v) for k, v in batch.items()})
 
 
 def _port_step(tp, model=None):
     model = model if model is not None else copy.deepcopy(tp["tmodel"])
     state, tx = tt.init_train_state(model, tp["tcfg"], trainable_patterns(tp["tcfg"]))
-    anchors, level_sizes = tt.glip_anchors(tp["tcfg"], HW, "cpu")
-    return model, state, tt.make_train_step(model, tx, anchors, level_sizes, tp["tcfg"])
+    return model, state, tt.make_train_step(model, tx, tp["tcfg"])
 
 
 def test_gcp_gradients_match_jax(train_pair):
@@ -644,7 +643,6 @@ def test_unported_training_options_are_refused(pair, coco, tmp_path):
     tcfg = pair[4].clone()
     model = copy.deepcopy(pair[2])
     state, tx = tt.init_train_state(model, tcfg, [""])
-    anchors, level_sizes = tt.glip_anchors(tcfg, HW, "cpu")
     for key, match in (("MLM", "MLM head"), ("REMAT", "REMAT")):
         c = tcfg.clone()
         if key == "MLM":
@@ -652,7 +650,7 @@ def test_unported_training_options_are_refused(pair, coco, tmp_path):
         else:
             c.TPU.REMAT = True
         with pytest.raises(NotImplementedError, match=match):
-            tt.make_train_step(model, tx, anchors, level_sizes, c)
+            tt.make_train_step(model, tx, c)
     from mqdet_torch.data.coco import CocoDetectionDataset
     from mqdet_torch.data.tokenizer import WordPieceTokenizer
     from mqdet_torch.models.gdino import MQGroundingDINO
@@ -895,3 +893,80 @@ def test_checkpoint_resume_ends_where_the_uninterrupted_run_does(coco, tmp_path)
         assert torch.equal(t, resumed.trainable[n]), n
         assert torch.equal(full.ema[n], resumed.ema[n]), n
         assert torch.equal(full.opt_state["nu"][n], resumed.opt_state["nu"][n]), n
+
+
+# ------------------------------------------------ portrait images (Queue C 1)
+
+
+def test_portrait_batch_trains_against_its_own_buckets_anchors(train_pair):
+    """ROADMAP Queue C 1, repaired: with a landscape bucket declared, an
+    all-portrait batch (padded to the rotated bucket) gives the port's step
+    the losses of JAX's deterministic loss with the anchors of the rotated
+    bucket, rtol 1e-4; the JAX CLI's anchors, the declared bucket's, give
+    other losses (both orientations hold the same number of anchors a level,
+    so nothing else catches it)."""
+    tp = train_pair
+    portrait, landscape = (HW[0] + 32, HW[1]), (HW[1], HW[0] + 32)
+    b, _ = jax_init_args(tp["jcfg"], batch=2, num_labels=3, k_shot=2, seed=5)
+    images = np.random.default_rng(5).standard_normal((2,) + portrait + (3,)).astype(np.float32)
+    gt = _gt(9, g=4, n_valid=(3, 2), hw=portrait)
+    batch = {k: b[k] for k in ("input_ids", "attention_mask", "queries", "query_mask")}
+    batch.update(images=images, gt_boxes=gt[0], gt_labels=gt[1], gt_valid=gt[2], gt_token_map=gt[3],
+                 pos_category_map=(b["agg_map"] > 0).astype(np.float32), has_query=np.ones((2, 3), np.int32))
+    jmodel, state = tp["jmodel"], tp["state"]
+
+    def jax_losses(anchors, level_sizes):
+        out = jmodel.apply(tp["merge"](state.trainable, state.frozen), *(jnp.asarray(batch[k]) for k in (
+            "images", "input_ids", "attention_mask", "queries", "query_mask")), deterministic=True)
+        losses = jl.glip_losses(out, jnp.asarray(anchors), level_sizes, *(jnp.asarray(batch[k]) for k in (
+            "gt_boxes", "gt_labels", "gt_valid", "gt_token_map", "attention_mask")))
+        return {k: float(v) for k, v in losses.items()}
+
+    def anchors_of(hw):
+        al = jax_anchors(hw)
+        return np.concatenate(al), tuple(a.shape[0] for a in al)
+
+    want, declared = jax_losses(*anchors_of(portrait)), jax_losses(*anchors_of(landscape))
+    tp["tcfg"].TPU.IMAGE_BUCKETS = (landscape,)
+    try:
+        model, tstate, step = _port_step(tp)
+        _, metrics = step(tstate, tt.batch_to_device(batch, "cpu"), torch.Generator().manual_seed(0))
+    finally:
+        tp["tcfg"].TPU.IMAGE_BUCKETS = (HW,)
+    for k, v in want.items():
+        assert rel_err(v, metrics[k]) < 1e-4, k
+    assert max(rel_err(want[k], declared[k]) for k in want) > 1e-2
+
+
+def test_mixed_orientations_batch_by_bucket_and_train(coco, tmp_path):
+    """A dataset of landscape and portrait images with a landscape bucket
+    declared: every batch of the port's loader holds one bucket, both
+    buckets come up, and `train` runs 4 steps on them (where the JAX loader
+    fails to stack a mixed batch)."""
+    from mqdet_tpu.data.coco import CocoDetectionDataset as JDS
+    from mqdet_tpu.data.loader import GroundingTrainLoader as JLoader
+    from mqdet_tpu.data.tokenizer import WordPieceTokenizer as JTok
+    from mqdet_tpu.utils import builders as jb
+    from mqdet_torch.data.coco import CocoDetectionDataset as TDS
+    from mqdet_torch.data.loader import GroundingTrainLoader as TLoader
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer as TTok
+
+    mixed = write_coco(tmp_path, [(30, 40), (40, 30), (30, 40), (40, 30), (36, 44), (44, 36)], boxes_per_image=2,
+                       seed=4)
+
+    def mixed_cfg(cfg):
+        cfg = _loader_cfg(cfg)
+        cfg.TPU.IMAGE_BUCKETS = ((48, 64),)
+        return cfg
+
+    loader = TLoader(TDS(*mixed), mixed_cfg(tb.tiny_test_config()), TTok(), None, seed=2)
+    shapes = [b["images"].shape[1:3] for _ in range(3) for b in loader]
+    assert set(shapes) == {(48, 64), (64, 48)} and len(shapes) >= 3
+    with pytest.raises(ValueError):
+        for _ in range(3):
+            list(JLoader(JDS(*mixed), mixed_cfg(jb.tiny_test_config()), JTok(), None, num_hosts=1, host_id=0, seed=2))
+
+    state, logs = _run_train(mixed, tmp_path / "run", 4, False, cfg_fn=lambda out: mixed_cfg(_train_cfg(out)))
+    assert state.step == 4 and "iter 4/4" in logs[-1]
+    recs = [json.loads(line) for line in open(tmp_path / "run" / "metrics.jsonl")]
+    assert recs and all(np.isfinite(v) for r in recs for k, v in r.items() if k.startswith("loss"))
