@@ -6,8 +6,9 @@
 Run from the root of a checkout. It needs a CUDA device and the CUDA toolkit
 (`nvcc`); it imports nothing of JAX, and neither PyYAML nor PIL. It drives
 both evaluation paths of the port, MQ-GLIP-T and MQ-GroundingDINO-T, the
-modulated pre-training of both, and the evaluation CLI. Phases, each
-printing lines:
+modulated pre-training of both, the evaluation CLI, MQ-GLIP-L through the
+same entry points (with TPU.REMAT in training) and the few-shot finetuning
+CLI. Phases, each printing lines:
 
   1. the card (`nvidia-smi` name and power limit) and the kernels' build from
      `mqdet_torch/csrc/` with nvcc for sm_90a (one nvcc per source, in
@@ -171,13 +172,47 @@ printing lines:
      import and evaluation stages printed. For MQ-GLIP-T also the VOC and
      phrase-grounding styles on 2 synthetic images each (XML / caption
      json written from the seed, seeded pixels), one head group an image,
-     launches gated.
+     launches gated;
+ 11. MQ-GLIP-L (`mq_glip_l_config`: Swin-L 192 / (2, 2, 18, 2) / window 12,
+     8 head stages) at full width from init_params(seed), built once on the
+     host and reused by every part: phase 3's reference check at 256x256
+     (default route; the bound twice the CPU bf16 drift, floor 1e-2); phase
+     4's LVIS protocol with phases 5 and 6, launches gated at 832
+     `dcn_band` (13 a stage x 8 stages x 8 groups) and 64 `bi_attention`;
+     phase 7's route on phase 7's dataset (the GLIP-L bank extracted,
+     `run_inference` with launches 8 x one protocol's, the online update);
+     the evaluation CLI (`evaluate`) on configs/pretrain/mq-glip-l.yaml +
+     configs/vision_query_5shot/lvis_minival_L.yaml with phase 10's
+     overrides, the model saved as a reference .pth and that GLIP-L bank:
+     import 0 missing and 0 unused, launches 8 x one protocol's, the AP
+     fields finite and every image's detections bitwise the direct
+     `run_inference`'s; then modulated pre-training with mq-glip-l.yaml's
+     settings and phase 8's cuts (`train_config_l`), TPU.REMAT off and on:
+     the 256x256 step, dropout on, REMAT against five plain runs on one
+     generator seed (the loss within twice their spread; the median over
+     the gradients of the REMAT step's distance from them within twice the
+     median plain spread, and each gradient's within twice its own spread
+     or 4 bf16 units), then
+     `train_steps` for each (launches 104 / 208 `dcn_band` a step: the
+     REMAT recompute runs DyConv's forward again; no bi-attention kernel;
+     phase 8's gates), the REMAT peak memory gated below the plain one;
+ 12. few-shot finetuning: `mqdet_torch.tools.finetune.main` in process at
+     MQ-GLIP-L full width (phase 11's model and .pth) on an ODinW-shaped
+     task written from the seed (2 categories renamed by
+     OVERRIDE_CATEGORY, train and val splits as COCO json, seeded pixels; a
+     task yaml with an odinw_13 task's keys and odinw.yaml's settings, so
+     the bank is extracted), shot 1, 1 epoch, copies 1: gated on the CLI
+     returning, a temporary bank of exactly the 2 classes, finite printed
+     AP lines, and the launches predicted from the step count and the
+     evaluations (104 `dcn_band` a step; 104 `dcn_band` + 8 `bi_attention`
+     per val image and head group).
 
 The line before the last is a JSON object with one entry per kernel (its
 launches summed over the counted paths: the protocols, phase 3's card runs,
 the sweep path, phase 7's evaluation and update, phases 8 and 9's timed
-training steps and phase 10's CLI runs); the last line is {"ok": true, "device": {...}}. Any failure exits
-non-zero without those lines.
+training steps, phase 10's CLI runs and phases 11 and 12's paths); the last
+line is {"ok": true, "device": {...}}. Any failure exits non-zero without
+those lines.
 """
 from __future__ import annotations
 
@@ -214,6 +249,8 @@ KERNELS = (  # name, source, the TPU kernel (or XLA composite) it replaces; the 
     ("ms_deform_attn", "mqdet_torch/csrc/ms_deform_attn.cu", "mqdet_tpu/ops/ms_deform_attn.py:47"),
     ("ms_deform_attn_clip", "mqdet_torch/csrc/ms_deform_attn.cu", "mqdet_tpu/ops/pallas/msda_pallas.py:455"),
 )
+L_YAML = os.path.join(REPO, "configs", "pretrain", "mq-glip-l.yaml")
+LVIS_L_YAML = os.path.join(REPO, "configs", "vision_query_5shot", "lvis_minival_L.yaml")
 GDINO_800 = [(100, 168), (50, 84), (25, 42), (13, 21)]  # the 800x1344 pyramid
 GLIP_800 = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
 SWITCHES = {"default": {}, "stream": {"MQDET_FLASH_LEVELS": "stream"}, "dual": {"MQDET_FLASH_SCORES": "dual"}}
@@ -700,7 +737,7 @@ def compare_to_reference(torch, label, names, ref, plain16, card):
     return worst
 
 
-def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed):
+def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed, label="MQ-GLIP-T", routes=None):
     """Small input, same weights: the card's bf16 kernel path against the
     CPU's fp32 plain path, by relative L2 error ||x - ref|| / ||ref|| per
     FPN level and per level of dot-product logits. bf16 drifts from fp32
@@ -715,7 +752,9 @@ def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed):
     exact for gather), taken under the default fusion switches. Where the
     fp32 model's offsets stay inside the radius, the clip changes nothing
     and the two routes' CPU references are the same computation, so it is
-    taken once. Returns the launch counts of each card run."""
+    taken once. `routes`, [(fusion switch, MQDET_DEFORM_IMPL)], limits the
+    card runs (default: all five). Returns the launch counts of each card
+    run."""
     from mqdet_torch.models.vldyhead import DyConv
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.utils.builders import synthetic_batch
@@ -744,16 +783,17 @@ def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed):
         (ref, off32), (plain16, off16) = run(model_cpu, "cpu"), run(copy.deepcopy(model_cpu).to(torch.bfloat16), "cpu")
         return ref, plain16, max(off32, off16)
 
+    routes = routes or [(sw, None) for sw in SWITCHES] + [("default", "window"), ("default", "gather")]
     radius = cfg.TPU.DEFORM_RADIUS
     with switched("default"):
         refs = {"clipped": reference()}
     max_off = refs["clipped"][2]
     if max_off <= radius:
         refs["exact"] = refs["clipped"]
-    else:
+    elif any(deform == "gather" for _, deform in routes):
         with switched("default", "gather"):
             refs["exact"] = reference()
-    say(f"phase 3: MQ-GLIP-T full width, random init (seed {seed}) at {hw}: max |offset| {max_off!r} "
+    say(f"phase 3: {label} full width, random init (seed {seed}) at {hw}: max |offset| {max_off!r} "
         f"(CPU, fp32 and bf16) against TPU.DEFORM_RADIUS {radius}: the clip "
         f"{'binds' if max_off > radius else 'does not bind; the exact and clipped CPU references are one run'}")
     names = [f"fpn{i}" for i in range(5)] + [f"logits{i}" for i in range(5)]
@@ -762,21 +802,21 @@ def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed):
     fusion = {"default": {"bi_attention": stages}, "stream": {"bi_attention_levels": stages * levels},
               "dual": {"bi_attention_dual": stages}}
     launches = {}
-    for switch, deform in [(sw, None) for sw in SWITCHES] + [("default", "window"), ("default", "gather")]:
+    for switch, deform in routes:
         with switched(switch, deform):
             launch_counts(reset=True)
             card, _ = run(model_gpu, torch.device("cuda"))
             used = launch_counts()
         want = predicted(**fusion[switch], **{DEFORM_ROUTES[deform]: stages * (3 * levels - 2)})
-        label = f"MQ-GLIP-T ({switch} fusion switches, MQDET_DEFORM_IMPL {deform or 'unset'})"
+        run_label = f"{label} ({switch} fusion switches, MQDET_DEFORM_IMPL {deform or 'unset'})"
         if used != want:
-            fail(f"{label}: launches {used} != predicted {want}")
-        launches[f"MQ-GLIP-T reference {switch} {deform or 'unset'}"] = used
+            fail(f"{run_label}: launches {used} != predicted {want}")
+        launches[f"{label} reference {switch} {deform or 'unset'}"] = used
         ref, plain16, _ = refs["exact" if deform == "gather" else "clipped"]
-        worst = compare_to_reference(torch, label, names, ref, plain16, card)
+        worst = compare_to_reference(torch, run_label, names, ref, plain16, card)
         said = {k: v for k, v in used.items() if v}
         say(
-            f"phase 3: reference check, {label} full width at {hw}, card bf16 kernels vs CPU fp32 "
+            f"phase 3: reference check, {run_label} full width at {hw}, card bf16 kernels vs CPU fp32 "
             f"plain on 5 FPN levels and 5 logit levels: worst err / bound {worst[0]!r} at {worst[1]} "
             f"(card relative L2 err {worst[2]!r}, plain bf16 {worst[3]!r}; bound max(2 * plain, "
             f"{E2E_FLOOR})); launches {said}; ok"
@@ -1131,7 +1171,7 @@ def synced_seconds(torch, fn, reps=1):
     return (time.perf_counter() - t0) / reps
 
 
-def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, keep=None):
+def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, keep=None, phase="phase 7"):
     """Phase 7, per model after its phase 6: the vision-query path on the
     card at full width, with the settings of
     configs/vision_query_5shot/lvis_minival.yaml (300 detections an image,
@@ -1140,7 +1180,8 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, k
     scores reach the evaluator and the update. `per_image`: the predicted
     launches of one image's 8 head groups; `slots`: detection slots per
     chunk row. Returns the launch counts of the evaluation and the update;
-    `keep`, a dict, receives the dataset and the extracted bank."""
+    `keep`, a dict, receives the dataset, the extracted bank, the results
+    and the detections; `phase` prefixes the lines."""
     import numpy as np
 
     from mqdet_torch.data.tokenizer import WordPieceTokenizer
@@ -1175,7 +1216,7 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, k
         max_query_number=c.VISION_QUERY.MAX_QUERY_NUMBER))
     used = {k: v for k, v in launch_counts().items() if v}
     queries = sum(bank.count(l) for l in bank.labels)
-    say(f"phase 7: {label} extraction over {n_img} images: {ext_s * 1000.0 / n_img!r} ms per image (host clock, "
+    say(f"{phase}: {label} extraction over {n_img} images: {ext_s * 1000.0 / n_img!r} ms per image (host clock, "
         f"synchronised; transform, image tower, ROIAlign, bank); {len(bank)} classes, {queries} queries banked; "
         f"hand-written kernel launches {used}")
     if set(bank.labels) != with_gt:
@@ -1194,7 +1235,7 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, k
         enc_ms = synced_seconds(torch, lambda: model.encode_image(batch["image"]), 20) * 1000.0
         pool_ms = {k: synced_seconds(torch, lambda: pool_queries(c, feats, b, h, w), 20) * 1000.0
                    for k, b in boxes.items()}
-    say(f"phase 7: {label} extraction split (first image, mean of 20 synchronised calls each): image tower "
+    say(f"{phase}: {label} extraction split (first image, mean of 20 synchronised calls each): image tower "
         f"{enc_ms!r} ms; ROIAlign with box expansion and means (`pool_queries`) of "
         + "; of ".join(f"{k} {len(boxes[k])} boxes {v!r} ms, a share {v / (v + enc_ms)!r}" for k, v in pool_ms.items()))
 
@@ -1206,7 +1247,7 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, k
     plan_s = time.perf_counter() - t0
     shapes = {k: tuple(getattr(plan, k).shape) for k in
               ("input_ids", "attention_mask", "all_map", "agg_map", "slot_to_label", "queries", "query_mask")}
-    say(f"phase 7: {label} ChunkedEvaluationPlan: {len(plan)} chunks, arrays {shapes}; built in {plan_s!r} s "
+    say(f"{phase}: {label} ChunkedEvaluationPlan: {len(plan)} chunks, arrays {shapes}; built in {plan_s!r} s "
         f"(host)")
 
     # 3. run_inference with the LVIS evaluator
@@ -1233,7 +1274,7 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, k
     eval_launches = launch_counts()
     want = {k: v * n_img for k, v in per_image.items()}
     aps = {k: res.get(k) for k in ("AP", "AP50", "AP75", "APr", "APc", "APf")}
-    say(f"phase 7: {label} run_inference over {n_img} images (6 landscape, 2 portrait; LVIS fixed AP, 300 "
+    say(f"{phase}: {label} run_inference over {n_img} images (6 landscape, 2 portrait; LVIS fixed AP, 300 "
         f"detections): {res['images_per_second']!r} img/s ({eval_s!r} s host clock); {evaluator.n_dets} "
         f"detections; {aps}; seconds by stage {res['seconds']} (transform, encode, head: the stream's time "
         f"between marks; fetch: host clock of the copies, waiting for the queue; evaluator: host); launches "
@@ -1268,7 +1309,7 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, k
     update_launches = launch_counts()
     want = {k: v * 2 for k, v in per_image.items()}
     added = sum(update_bank.count(l) for l in update_bank.labels)
-    say(f"phase 7: {label} online_update, one turn over 2 images (MAX_TEST_QUERY_NUMBER "
+    say(f"{phase}: {label} online_update, one turn over 2 images (MAX_TEST_QUERY_NUMBER "
         f"{c.VISION_QUERY.MAX_TEST_QUERY_NUMBER}, SCORE_THRESHOLD 0): {added} queries added over "
         f"{len(update_bank)} classes in {update_s!r} s ({update_s / 2!r} s per image; extract_fn "
         f"{spent['extract_fn']!r} s in {spent['calls']} calls, each re-encoding the image); launches "
@@ -1318,6 +1359,29 @@ def dropout_off(model):
     return model
 
 
+def reference_batch(cfg, seed, hw=(256, 256)):
+    """The reference steps' batch: `synthetic_batch` of 2 images at `hw`,
+    40 labels x 5 queries, 8 seeded ground-truth boxes an image on the
+    labels' token spans, every label with a query (numpy)."""
+    import numpy as np
+
+    from mqdet_torch.utils.builders import synthetic_batch
+
+    b = synthetic_batch(cfg, batch=2, image_hw=hw, num_labels=40, k_shot=5, seed=seed + 2)
+    rng = np.random.default_rng(seed + 2)
+    g_max = 8
+    boxes = np.zeros((2, g_max, 4), np.float32)
+    labels = rng.integers(0, 40, (2, g_max))
+    for i in range(2):
+        xy = rng.uniform(0, hw[0] * 0.625, (g_max, 2))
+        boxes[i] = np.concatenate([xy, xy + rng.uniform(24, 96, (g_max, 2))], 1).clip(0, hw[0] - 1)
+    batch = {k: b[k] for k in ("images", "input_ids", "attention_mask", "queries", "query_mask")}
+    batch.update(gt_boxes=boxes, gt_labels=(labels + 1).astype(np.int32), gt_valid=np.ones((2, g_max), bool),
+                 gt_token_map=np.take_along_axis(b["agg_map"], labels[..., None], 1).astype(np.float32),
+                 pos_category_map=(b["agg_map"] > 0).astype(np.float32), has_query=np.ones((2, 40), np.int32))
+    return batch
+
+
 def phase_train_reference(torch, cfg, model_cpu, seed):
     """One training step at 256x256, full width, batch 2, dropout off: the
     card (bf16, kernels) against the same step on the CPU in fp32 (plain
@@ -1337,23 +1401,11 @@ def phase_train_reference(torch, cfg, model_cpu, seed):
     from mqdet_torch.core.config import trainable_patterns
     from mqdet_torch.engine.train import batch_to_device, init_train_state, make_train_step
     from mqdet_torch.ops import launch_counts
-    from mqdet_torch.utils.builders import synthetic_batch
 
     hw = (256, 256)
     c = cfg.clone()
     c.VISION_QUERY.TEXT_DROPOUT = 0.0
-    b = synthetic_batch(c, batch=2, image_hw=hw, num_labels=40, k_shot=5, seed=seed + 2)
-    rng = np.random.default_rng(seed + 2)
-    g_max = 8
-    boxes = np.zeros((2, g_max, 4), np.float32)
-    labels = rng.integers(0, 40, (2, g_max))
-    for i in range(2):
-        xy = rng.uniform(0, 160, (g_max, 2))
-        boxes[i] = np.concatenate([xy, xy + rng.uniform(24, 96, (g_max, 2))], 1).clip(0, 255)
-    batch = {k: b[k] for k in ("images", "input_ids", "attention_mask", "queries", "query_mask")}
-    batch.update(gt_boxes=boxes, gt_labels=(labels + 1).astype(np.int32), gt_valid=np.ones((2, g_max), bool),
-                 gt_token_map=np.take_along_axis(b["agg_map"], labels[..., None], 1).astype(np.float32),
-                 pos_category_map=(b["agg_map"] > 0).astype(np.float32), has_query=np.ones((2, 40), np.int32))
+    batch = reference_batch(c, seed, hw)
 
     def step(model, dev, scale=1.0):
         state, tx = init_train_state(model, c, trainable_patterns(c))
@@ -1503,7 +1555,7 @@ def phase_train(torch, seed, dataset, bank, smi):
 
 
 def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, span, function, fwd_kernels, note,
-                portrait=None):
+                portrait=None, out=None):
     """The timed part of a training phase, through the port's train entry
     (`tools.train.build_training`: model, selector, loader, state, step,
     checkpointer): two warm-up steps, 8 timed steps (launches gated at
@@ -1515,8 +1567,9 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, sp
     images) is given one step on a batch of them in the rotated bucket
     (ROADMAP Queue C 1: its own anchors; loss finite, launches as a step's),
     a checkpoint save and restore; then the gates (losses finite, frozen
-    bitwise, every trainable tensor and its EMA moved). Returns the launch
-    counts of the timed steps."""
+    bitwise, every trainable tensor and its EMA, where MODEL_EMA keeps one,
+    moved). Returns the launch counts of the timed steps; `out`, a dict,
+    receives the median ms per step and the peak memory in GiB."""
     import numpy as np
 
     from mqdet_torch.data.tokenizer import WordPieceTokenizer
@@ -1569,6 +1622,8 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, sp
         f"peak {peak!r} GiB; launches {({k: v for k, v in used.items() if v})} (predicted {want})")
     if used != want:
         fail(f"{phase}: training launches {used} != predicted {want}")
+    if out is not None:
+        out.update(ms=p50, peak=peak)
 
     times = {}
     one(times)
@@ -1632,7 +1687,7 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, sp
     if changed:
         fail(f"{phase}: frozen parameters changed: {changed[:5]}")
     still = [n for n, t in state.trainable.items() if torch.equal(t, start[n])]
-    same_ema = [n for n, t in state.trainable.items() if torch.equal(t, state.ema[n])]
+    same_ema = [n for n, t in state.trainable.items() if state.ema is not None and torch.equal(t, state.ema[n])]
     if still or same_ema:
         fail(f"{phase}: trainable tensors unchanged {still[:5]}; EMA equal to the parameters {same_ema[:5]}")
 
@@ -1640,11 +1695,14 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, sp
     path = ckpt.save(state.step, state, {"iteration": state.step})
     restored, at = ckpt.restore(state)
     same = (at == state.step and restored.opt_state["count"] == state.opt_state["count"]
-            and all(torch.equal(restored.trainable[n], t) and torch.equal(restored.ema[n], state.ema[n])
+            and (restored.ema is None) == (state.ema is None)
+            and all(torch.equal(restored.trainable[n], t)
+                    and (state.ema is None or torch.equal(restored.ema[n], state.ema[n]))
                     and torch.equal(restored.opt_state["nu"][n], state.opt_state["nu"][n])
                     for n, t in state.trainable.items()))
-    say(f"{phase}: {len(frozen)} frozen tensors bitwise unchanged; all {len(start)} trainable tensors moved and "
-        f"their EMA apart from them; checkpoint of step {state.step} saved ({os.path.getsize(path) / 2**20!r} MiB) "
+    ema = "their EMA apart from them" if state.ema is not None else "no EMA (SOLVER.MODEL_EMA 0)"
+    say(f"{phase}: {len(frozen)} frozen tensors bitwise unchanged; all {len(start)} trainable tensors moved, "
+        f"{ema}; checkpoint of step {state.step} saved ({os.path.getsize(path) / 2**20!r} MiB) "
         f"and restored in {time.perf_counter() - t0!r} s, equal: {same}")
     if not same:
         fail(f"{phase}: the restored checkpoint differs from the saved state")
@@ -1945,7 +2003,8 @@ def seeded_pixels(seed, key, h, w):
     return img[0].permute(1, 2, 0).round().to(torch.uint8).numpy()
 
 
-def phase_cli(torch, label, cfg, seed, keep, per_image, per_group, root, smi, configs, other_styles=False):
+def phase_cli(torch, label, cfg, seed, keep, per_image, per_group, root, smi, configs, other_styles=False,
+              yamls=None, weights=None, phase="phase 10"):
     """Phase 10, per model: the evaluation CLI's body
     (`mqdet_torch.tools.eval.evaluate`) on the shipped
     configs/vision_query_5shot yaml of the family, with the overrides a user
@@ -1960,8 +2019,11 @@ def phase_cli(torch, label, cfg, seed, keep, per_image, per_group, root, smi, co
     head groups; `per_group`: of one group; `configs`: (count, seconds) of
     the shipped configs' merge. With `other_styles`, the VOC and
     phrase-grounding styles on 2 synthetic images each, their launches
-    predicted (one head group an image). Returns the launch counts by
-    path."""
+    predicted (one head group an image). `yamls` (config file, task
+    config) replaces the family's shipped yaml; `weights`, a model of `cfg`
+    on the CPU, is the model saved (and a copy of it is what `evaluate`
+    imports into) instead of a fresh init_params(seed). Returns the launch
+    counts by path."""
     import argparse
 
     import numpy as np
@@ -1973,12 +2035,14 @@ def phase_cli(torch, label, cfg, seed, keep, per_image, per_group, root, smi, co
     from mqdet_torch.utils.builders import build_model, init_params
 
     gdino = cfg.GROUNDINGDINO.enabled
-    yml = os.path.join(REPO, "configs", "vision_query_5shot",
-                       "lvis_minival_groundingdino-T.yaml" if gdino else "lvis_minival.yaml")
+    yml, task_yml = yamls or (os.path.join(REPO, "configs", "vision_query_5shot",
+                                           "lvis_minival_groundingdino-T.yaml" if gdino else "lvis_minival.yaml"), None)
     ds, bank, want_res = keep["dataset"], keep["bank"], keep["results"]
-    tag = "gdino" if gdino else "glip"
+    tag = label.lower().replace("-", "_")
     t0 = time.perf_counter()
-    weight = save_reference_pth(torch, init_params(build_model(cfg), seed=seed), os.path.join(root, f"{tag}.pth"))
+    saved = weights if weights is not None else init_params(build_model(cfg), seed=seed)
+    weight = save_reference_pth(torch, saved, os.path.join(root, f"{tag}.pth"))
+    keep["weight"] = weight
     bank_path = os.path.join(root, f"{tag}_bank.npz")
     bank.save(bank_path)
     save_s = time.perf_counter() - t0
@@ -1987,7 +2051,8 @@ def phase_cli(torch, label, cfg, seed, keep, per_image, per_group, root, smi, co
     opts += (["GROUNDINGDINO.box_threshold", "0.0", "TPU.IMAGE_BUCKETS", "[[800, 1344]]"] if gdino else
              ["MODEL.ATSS.INFERENCE_TH", "0.0", "MODEL.DYHEAD.NUM_CLASSES", "81"])
     t0 = time.perf_counter()
-    c = load_config(argparse.Namespace(config_file=yml, task_config=None, additional_model_config=None, opts=opts))
+    c = load_config(argparse.Namespace(config_file=yml, task_config=task_yml, additional_model_config=None,
+                                       opts=opts))
     config_s = time.perf_counter() - t0
     tok = WordPieceTokenizer()  # phase 7's: the hash vocab
     n_img = len(ds.ids)
@@ -2007,7 +2072,8 @@ def phase_cli(torch, label, cfg, seed, keep, per_image, per_group, root, smi, co
     build_evaluator = eval_dispatch.build_evaluator
     eval_dispatch.build_evaluator = lambda cfg_, style: Recording(style, max_dets=cfg_.MODEL.ATSS.DETECTIONS_PER_IMG)
     try:
-        res = evaluate(c, dataset=ds, device="cuda", tokenizer=tok, log=lambda m: None, record=record)
+        res = evaluate(c, dataset=ds, device="cuda", tokenizer=tok, log=lambda m: None, record=record,
+                       model=copy.deepcopy(weights) if weights is not None else None)
     finally:
         eval_dispatch.build_evaluator = build_evaluator
     torch.cuda.synchronize()
@@ -2023,7 +2089,8 @@ def phase_cli(torch, label, cfg, seed, keep, per_image, per_group, root, smi, co
                                                                   or (np.isnan(res[k]) and np.isnan(want_res.get(k))))}
     csv_path = os.path.join(c.OUTPUT_DIR, "bbox.csv")
     header = open(csv_path).readline().strip() if os.path.exists(csv_path) else None
-    say(f"phase 10: {label} through mqdet_torch.tools.eval.evaluate on {os.path.relpath(yml, REPO)} with "
+    said_yml = os.path.relpath(yml, REPO) + (f" + {os.path.relpath(task_yml, REPO)}" if task_yml else "")
+    say(f"{phase}: {label} through mqdet_torch.tools.eval.evaluate on {said_yml} with "
         f"{len(opts) // 2} overrides ({smi}): {configs[0]} shipped configs merged without PyYAML in "
         f"{configs[1]!r} s; this config in {config_s!r} s; weights and bank saved in {save_s!r} s; "
         f"seconds by stage {record['seconds']}; import report {len(report['matched'])} matched, "
@@ -2069,6 +2136,291 @@ def phase_cli(torch, label, cfg, seed, keep, per_image, per_group, root, smi, co
             fail(f"{label} CLI {style}: {metric} missing or not finite: {vals}")
         out[f"{label} CLI {style}"] = sused
     return out
+
+
+def train_config_l():
+    """MQ-GLIP-L's training config through the port's config entry
+    (`mqdet_torch.tools.train.load_config`): configs/pretrain/mq-glip-l.yaml
+    (recipe vision_query, the default LRs and no EMA, text dropout 0.4, 5
+    queries a class, the 800-1333 resize, RANDOM_SAMPLE_NEG -1) with phase
+    8's cuts: batch 2 (the default 16 over 8 GPUs), warmup 0, MAX_ITER 1000."""
+    from mqdet_torch.tools.train import load_config
+
+    return load_config(argparse.Namespace(
+        config_file=L_YAML, task_config=None, additional_model_config=None,
+        opts=["SOLVER.IMS_PER_BATCH", "2", "SOLVER.WARMUP_ITERS", "0", "SOLVER.MAX_ITER", "1000"]))
+
+
+def phase_remat_reference(torch, cfg, model_off, model_on, seed, smi):
+    """Phase 11: one training step at 256x256 on the card (bf16, kernels),
+    MQ-GLIP-L with TPU.REMAT off (run 5 times) and on, the same batch and
+    generator seed, dropout on (text dropout, the fusion's attention
+    dropout, stochastic depth). Gates: the REMAT step's loss within twice
+    the spread of the plain runs (0: equal); the median over the trainable
+    gradients of the REMAT step's median distance (relative L2) from the 5
+    plain runs within twice the median of their largest pairwise
+    distances; and every gradient's distance within twice its own spread,
+    or 4 bf16 units in the last place (2^-5). The backward is not bitwise
+    repeatable (the DCN VJP's scatter-adds, the bilinear upsampling's
+    backward), and the REMAT graph sums the text layers' gradients in
+    another order in bf16: a scalar gate's gradient, a sum with
+    cancellation, sat 2 units from all 5 plain runs while they spread by
+    0.7 units, and the median REMAT distance (0.0091) below the median
+    plain spread (0.0120) (measured on one H100). A recompute that drew other
+    dropout masks errs by order 1 (the CPU test's control: 2.9 of the
+    gradient's largest value). Launches 104 `dcn_band` a plain step and 208
+    a REMAT step (the recompute runs DyConv's forward again). Returns the
+    REMAT step's launch counts."""
+    from mqdet_torch.core.config import trainable_patterns
+    from mqdet_torch.engine.train import batch_to_device, init_train_state, make_train_step
+    from mqdet_torch.ops import launch_counts
+
+    dev = torch.device("cuda")
+    batch = batch_to_device(reference_batch(cfg, seed), dev)
+
+    def step(model):
+        state, tx = init_train_state(model, cfg, trainable_patterns(cfg))
+        run = make_train_step(model, tx, cfg)
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        _, metrics = run(state, batch, torch.Generator(device=dev).manual_seed(seed))
+        loss = float(metrics["loss_total"])
+        ms = (time.perf_counter() - t0) * 1000.0
+        params = dict(model.named_parameters())
+        return loss, {n: params[n].grad.float().clone() for n in state.trainable}, launch_counts(), ms
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp(min=1e-30))
+
+    plain = [step(model_off) for _ in range(5)]
+    l0, g0, u0, ms0 = plain[0]
+    lr, gr, ur, msr = step(model_on)
+    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
+    per = stages * (3 * levels - 2)
+    if u0 != predicted(dcn_band=per) or ur != predicted(dcn_band=2 * per):
+        fail(f"phase 11 REMAT reference step: launches {u0} / {ur} != predicted {per} / {2 * per} dcn_band")
+    grads = [p[1] for p in plain]
+    pairs = [(a, b) for i, a in enumerate(grads) for b in grads[i + 1:]]
+    rows = [(n, statistics.median(rel(gr[n], g[n]) for g in grads), max(rel(a[n], b[n]) for a, b in pairs))
+            for n in g0]
+    bound = lambda r: max(2 * r[2], 2.0 ** -5)  # noqa: E731
+    bad = [r for r in rows if not r[1] <= bound(r)]
+    worst = max(rows, key=lambda r: r[1] / bound(r))
+    medians = (statistics.median(r[1] for r in rows), statistics.median(r[2] for r in rows))
+    losses = [p[0] for p in plain]
+    loss_ok = abs(lr - l0) <= 2 * (max(losses) - min(losses)) and medians[0] <= 2 * medians[1]
+    say(f"phase 11: REMAT reference step, MQ-GLIP-L full width at (256, 256), batch 2, dropout on, one generator "
+        f"seed ({smi}): loss REMAT {lr!r}, plain {losses}; {len(rows)} trainable gradients, "
+        f"{sum(r[2] == 0.0 for r in rows)} bitwise equal across the plain runs, {sum(r[1] == 0.0 for r in rows)} "
+        f"bitwise equal REMAT to plain; worst REMAT err / bound {worst[1] / bound(worst)!r} at {worst[0]} (REMAT "
+        f"relative L2 {worst[1]!r}, plain spread {worst[2]!r}; bound max(2 * spread, 2^-5)); the median REMAT err "
+        f"{medians[0]!r} and plain spread {medians[1]!r} (bound: twice the latter); launches plain "
+        f"{({k: v for k, v in u0.items() if v})}, REMAT {({k: v for k, v in ur.items() if v})}; step {ms0!r} ms "
+        f"plain, {msr!r} ms REMAT (first calls, host clock); {'ok' if loss_ok and not bad else 'FAIL'}")
+    if not loss_ok or bad:
+        fail(f"phase 11 REMAT reference step: loss {lr!r} vs {losses}; medians {medians}; {len(bad)} gradients "
+             f"outside the bound, e.g. {bad[:3]}")
+    return ur
+
+
+def phase_glip_l(torch, seed, runs, smi, root, configs, keep):
+    """Phase 11: MQ-GLIP-L at full width from init_params(seed), built once
+    on the host: phase 3's reference check at 256x256 (default route), phase
+    4's LVIS protocol with phases 5 and 6, phase 7's route (the GLIP-L bank
+    extracted, run_inference, the online update), the evaluation CLI on
+    mq-glip-l.yaml + lvis_minival_L.yaml (phase 10's overrides, the model
+    saved as a reference .pth), then modulated pre-training with
+    mq-glip-l.yaml's settings, REMAT off and on (the reference step, then
+    `train_steps` for each; the REMAT peak must be below the plain one).
+    Returns the launch counts by path; `keep` receives the model on the CPU,
+    the .pth and phase 7's dataset."""
+    from mqdet_torch.utils.builders import build_model, init_params, mq_glip_l_config, synthetic_batch
+
+    dev = torch.device("cuda")
+    cfg = mq_glip_l_config()
+    cfg.MODEL.ATSS.DETECTIONS_PER_IMG = 300
+    t0 = time.perf_counter()
+    model_cpu = init_params(build_model(cfg), seed=seed).eval()
+    n_params = sum(p.numel() for p in model_cpu.parameters())
+    say(f"phase 11: MQ-GLIP-L (Swin-L 192, depths {tuple(cfg.MODEL.SWINT.DEPTHS)}, window "
+        f"{cfg.MODEL.SWINT.WINDOW_SIZE}, {cfg.MODEL.DYHEAD.NUM_CONVS} head stages) built from init_params({seed}) "
+        f"in {time.perf_counter() - t0!r} s (host): {n_params} parameters")
+    model = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+    launches = phase_reference_glip(torch, cfg, model_cpu, model, seed, "MQ-GLIP-L", [("default", None)])
+
+    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
+    groups = -(-31 // 4)
+    per_image = predicted(dcn_band=groups * stages * (3 * levels - 2), bi_attention=groups * stages)  # 832, 64
+    tower = model.rpn.head.dyhead_tower
+    parts = {"image tower": [model.backbone.body, model.backbone.fpn], "language tower": [model.language_backbone],
+             "VLFuse": list(tower[0::3]), "head BERT layers": list(tower[1::3]), "DyConv": list(tower[2::3])}
+    launches["MQ-GLIP-L default"] = phase_protocol(torch, "MQ-GLIP-L", model, cfg, synthetic_batch, 300, per_image,
+                                                   runs, seed, parts)
+    vq = {}
+    launches.update(phase_vision_query(torch, "MQ-GLIP-L", cfg, model, seed, per_image, root, 300, vq, "phase 11"))
+    del model, tower, parts
+    torch.cuda.empty_cache()
+    launches.update(phase_cli(torch, "MQ-GLIP-L", cfg, seed, vq, per_image, None, root, smi, configs,
+                              yamls=(L_YAML, LVIS_L_YAML), weights=model_cpu, phase="phase 11"))
+    torch.cuda.empty_cache()
+
+    tcfg = train_config_l()
+    rcfg = tcfg.clone()
+    rcfg.TPU.REMAT = True
+    model_on = build_model(rcfg)
+    model_on.load_state_dict(model_cpu.state_dict())
+    off_gpu = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+    on_gpu = copy.deepcopy(model_on).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+    launches["MQ-GLIP-L REMAT reference step"] = phase_remat_reference(torch, tcfg, off_gpu, on_gpu, seed, smi)
+    del off_gpu, on_gpu
+    torch.cuda.empty_cache()
+    per_step = stages * (3 * levels - 2)
+    runs_out = {}
+    for remat in (False, True):
+        run_model = model_on if remat else copy.deepcopy(model_cpu)  # build_training moves it to the card
+        out = runs_out[remat] = {}
+        launches[f"MQ-GLIP-L training{' REMAT' if remat else ''}"] = train_steps(
+            torch, "phase 11", f"MQ-GLIP-L (TPU.REMAT {remat})", rcfg if remat else tcfg, run_model,
+            landscape(vq["dataset"]), vq["bank"], smi, predicted(dcn_band=per_step * (2 if remat else 1)),
+            "dcn_backward", "`DeformConvFunction`", ("dcn_band_kernel",),
+            "the DCN forward runs twice a step under REMAT" if remat else "REMAT off", out=out)
+        del run_model
+        torch.cuda.empty_cache()
+    del model_on
+    off, on = runs_out[False], runs_out[True]
+    say(f"phase 11: MQ-GLIP-L training, TPU.REMAT off / on ({smi}): {off['ms']!r} / {on['ms']!r} ms per step, "
+        f"{2000.0 / off['ms']!r} / {2000.0 / on['ms']!r} train img/s, peak {off['peak']!r} / {on['peak']!r} GiB")
+    if not on["peak"] < off["peak"]:
+        fail(f"phase 11: the REMAT peak {on['peak']!r} GiB is not below the plain peak {off['peak']!r} GiB")
+    keep.update(model_cpu=model_cpu, weight=vq["weight"], per_step=per_step, stages=stages)
+    return launches
+
+
+def phase_finetune(torch, seed, keep, root, smi):
+    """Phase 12: few-shot finetuning, `mqdet_torch.tools.finetune.main` in
+    process at MQ-GLIP-L full width on an ODinW-shaped task written from the
+    seed: 2 categories renamed through OVERRIDE_CATEGORY, 4 train images (one
+    category each) and 2 val images (COCO json; seeded pixels, this machine
+    has no PIL), a task yaml with an odinw_13 task's keys and odinw.yaml's
+    settings (QUERY_BANK_PATH "", so the bank is extracted), over
+    configs/pretrain/mq-glip-l.yaml; shot 1, 1 epoch, copies 1, phase 11's
+    .pth as --weight (NUM_CLASSES 81, its classifier's; thresholds 0; batch
+    2, warmup 0). The model is a copy of phase 11's (`model_fn`: the import
+    overwrites every weight). Gates: main returns (rc 0); the temporary bank
+    holds exactly the 2 classes; the AP lines printed and finite; the
+    launches equal the prediction from the step count and the evaluations
+    (104 `dcn_band` a step; 104 `dcn_band` + 8 `bi_attention` per val image
+    and head group). Returns the launch counts."""
+    import io
+
+    import numpy as np
+
+    from mqdet_torch.core import yaml_lite
+    from mqdet_torch.engine.inference import ChunkedEvaluationPlan, chunk_groups
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.tools import finetune as ft
+    from mqdet_torch.tools.train import build_dataset
+
+    rng = np.random.default_rng(seed + 17)
+    raw = [{"id": 1, "name": "raw_a"}, {"id": 2, "name": "raw_b"}]
+    override = [{"id": 1, "name": "fish", "supercategory": "creatures"},
+                {"id": 2, "name": "shark", "supercategory": "creatures"}]
+    register = {}
+    for split, labels in (("train", [1, 2, 1, 2]), ("valid", [1, 2])):
+        images, anns = [], []
+        for i, lab in enumerate(labels):
+            h, w = 480, 640
+            images.append({"id": i + 1, "file_name": f"{split}{i}.jpg", "height": h, "width": w})
+            for _ in range(int(rng.integers(1, 3))):
+                bw, bh = rng.uniform(40, w * 0.5), rng.uniform(40, h * 0.5)
+                x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": lab, "bbox": [x0, y0, bw, bh],
+                             "area": bw * bh, "iscrowd": 0})
+        path = os.path.join(root, f"odinw_{split}.json")
+        with open(path, "w") as f:
+            json.dump({"images": images, "annotations": anns, "categories": raw}, f)
+        register["train" if split == "train" else "val"] = {"ann_file": os.path.basename(path), "img_dir": "."}
+    task = {  # an odinw_13 task's keys and configs/vision_query_5shot/odinw.yaml's settings
+        "DATASETS": {"GENERAL_COPY": 16, "OVERRIDE_CATEGORY": json.dumps(override), "USE_OVERRIDE_CATEGORY": True,
+                     "REGISTER": register, "TRAIN": ["train"], "TEST": ["val"], "FEW_SHOT": 5},
+        "MODEL": {"ATSS": {"NUM_CLASSES": 3}, "DYHEAD": {"NUM_CLASSES": 3}},
+        "SOLVER": {"AUTOTERMINATE_PATIENCE": 8, "MAX_EPOCH": 12, "TEST_WITH_INFERENCE": True, "USE_AUTOSTEP": True,
+                   "WEIGHT_DECAY": 0.05},
+        "VISION_QUERY": {"ENABLED": True, "DATASET_NAME": "Fishes", "NUM_QUERY_PER_CLASS": 5,
+                         "QUERY_BANK_PATH": "", "TEXT_DROPOUT": 0.0},
+        "TPU": {"IMAGE_BUCKETS": [[800, 1344]]},
+    }
+    task_yml = os.path.join(root, "Fishes.yaml")
+    with open(task_yml, "w") as f:
+        f.write(yaml_lite.dump(task))
+    argv = ["--config-file", L_YAML, "--ft-tasks", task_yml, "--custom_shot_and_epoch_and_general_copy", "1_1_1",
+            "--weight", keep["weight"], "--seeds", "0", "--device", "cuda",
+            "DATASETS.DATA_ROOT", root, "MODEL.DYHEAD.NUM_CLASSES", "81", "MODEL.ATSS.NUM_CLASSES", "81",
+            "MODEL.ATSS.INFERENCE_TH", "0.0", "SOLVER.IMS_PER_BATCH", "2", "SOLVER.WARMUP_ITERS", "0",
+            "OUTPUT_DIR", os.path.join(root, "finetune_out")]
+
+    def dataset_fn(cfg, name, train):
+        ds = build_dataset(cfg, name, train)
+        ds.load_image = lambda img_id: seeded_pixels(seed, 300 + 10 * int(train) + img_id, *ds.image_size(img_id))
+        return ds
+
+    seen = {"banks": [], "evals": [], "states": []}
+    real = {k: getattr(ft, k) for k in ("extract_queries_into_bank", "run_inference", "do_train")}
+
+    def extract(*a, **kw):
+        seen["banks"].append(real["extract_queries_into_bank"](*a, **kw))
+        return seen["banks"][-1]
+
+    def run_inference(cfg, model, dataset, tokenizer, selector, **kw):
+        seen["evals"].append((cfg, dataset, tokenizer, selector))
+        return real["run_inference"](cfg, model, dataset, tokenizer, selector, **kw)
+
+    def do_train(*a, **kw):
+        state, best = real["do_train"](*a, **kw)
+        seen["states"].append(state)
+        return state, best
+
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    ft.extract_queries_into_bank, ft.run_inference, ft.do_train = extract, run_inference, do_train
+    try:
+        with contextlib.redirect_stdout(printed):
+            results = ft.main(argv, model_fn=lambda cfg: copy.deepcopy(keep["model_cpu"]), dataset_fn=dataset_fn,
+                              log=lambda m: None)
+    except Exception as exc:  # noqa: BLE001 - the phase fails with the CLI's error
+        fail(f"phase 12: mqdet_torch.tools.finetune.main raised {type(exc).__name__}: {exc}")
+    finally:
+        ft.extract_queries_into_bank, ft.run_inference, ft.do_train = (
+            real["extract_queries_into_bank"], real["run_inference"], real["do_train"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    used = launch_counts()
+    lines = [l for l in printed.getvalue().splitlines() if l.startswith("[finetune]")]
+    steps = sum(st.step for st in seen["states"])
+    images_groups = 0
+    for cfg, ds, tok, sel in seen["evals"]:
+        plan = ChunkedEvaluationPlan(cfg, ds, tok, sel)
+        images_groups += len(ds.ids) * len(chunk_groups(plan, max(1, cfg.TEST.CHUNK_PARALLELISM)))
+    per_step = keep["per_step"]  # a forward's DCN calls: one training step's, one head group's
+    want = predicted(dcn_band=per_step * (steps + images_groups), bi_attention=keep["stages"] * images_groups)
+    banks = [sorted(b.labels) for b in seen["banks"]]
+    aps = [float(l.rsplit("AP=", 1)[1]) for l in lines if "AP=" in l]
+    say(f"phase 12: MQ-GLIP-L few-shot finetuning through mqdet_torch.tools.finetune.main (shot 1, 1 epoch, "
+        f"copies 1; {smi}): {seconds!r} s; {steps} training steps, {len(seen['evals'])} evaluations over "
+        f"{images_groups} val image-groups; temporary bank classes {banks}; printed {lines}; launches "
+        f"{({k: v for k, v in used.items() if v})} (predicted {({k: v for k, v in want.items() if v})})")
+    if list(results) != [(task_yml, 0)] or not lines:
+        fail(f"phase 12: finetune returned {results} and printed {lines}")
+    if banks != [[1, 2]]:
+        fail(f"phase 12: the temporary bank's classes {banks} != [[1, 2]]")
+    if not aps or not all(np.isfinite(a) for a in aps):
+        fail(f"phase 12: AP lines missing or not finite: {lines}")
+    if used != want:
+        fail(f"phase 12: launches {used} != predicted {want}")
+    return used
 
 
 def main() -> int:
@@ -2195,6 +2547,15 @@ def main() -> int:
     launches.update(phase_cli(torch, "MQ-GroundingDINO-T", mq_groundingdino_t_config(), args.seed, gdino_vq,
                               predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention=fuse), None,
                               cli_root, smi, configs))
+    torch.cuda.empty_cache()
+
+    # ---- phases 11 and 12: MQ-GLIP-L --------------------------------------
+    l_root = os.path.join(tmp.name, "glip_l")
+    os.makedirs(l_root)
+    glip_l = {}  # phase 11's model on the CPU and .pth, for phase 12
+    launches.update(phase_glip_l(torch, args.seed, args.runs, smi, l_root, configs, glip_l))
+    launches["MQ-GLIP-L finetune"] = phase_finetune(torch, args.seed, glip_l, l_root, smi)
+    del glip_l
     torch.cuda.empty_cache()
 
     say(f"wall time {time.perf_counter() - t_start!r} s (build included)")

@@ -16,6 +16,10 @@ and of the gradients, the optax chain of `engine/optim.py` times
 (`requires_grad`); where the image tower holds no trainable parameter it runs
 under `torch.no_grad()`, as JAX stops gradients at the frozen leaves.
 
+`TPU.REMAT` is the model's (`models/mq_glip.py`: the text layers and head
+stages checkpointed, their draws replayed in the recompute); the step is the
+same either way. MQ-GroundingDINO has no remat, as in JAX.
+
 Every draw comes from the generator the caller passes, which `do_train`
 makes from `(SOLVER.SEED, iteration)` alone (`step_generator`), as JAX's
 `fold_in(rng, iteration)`: a resumed run replays the same stream.
@@ -137,8 +141,6 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 def _refuse_unported(cfg) -> None:
     if cfg.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS:
         raise NotImplementedError("MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS: the MLM head is not ported (ROADMAP Queue A 4.2)")
-    if cfg.TPU.REMAT:
-        raise NotImplementedError("TPU.REMAT: activation checkpointing is not ported (ROADMAP Queue A 4.3)")
 
 
 def _clock(times, device, key=None, t0=0.0):

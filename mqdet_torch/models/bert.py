@@ -7,7 +7,9 @@ are those of the JAX package's rule table (`language_backbone.body.model.*`).
 The query->token cross-attention is the JAX package's dense masked form:
 additive -1e4 on masked logits, then masked probabilities zeroed, so a token
 with no query receives exactly zero and its gated residual is the identity.
-Eval only: dropout is the identity.
+Eval only: dropout is the identity. With `remat` (`TPU.REMAT`, as the JAX
+package's `bert.py`) each of the encoder's BertLayers is one checkpointed
+segment (`layers.remat`) wherever autograd records the forward.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mqdet_torch.models.layers import GCPFeedForward, LayerNorm
+from mqdet_torch.models.layers import GCPFeedForward, LayerNorm, remat
 
 MASK_FILL = -1e4
 
@@ -197,8 +199,9 @@ class QVBertModel(nn.Module):
     `vision_dim` is the width of the queries and image tokens
     (MODEL.BACKBONE.OUT_CHANNELS unless given)."""
 
-    def __init__(self, cfg, vision_dim: Optional[int] = None):
+    def __init__(self, cfg, vision_dim: Optional[int] = None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         lb = cfg.MODEL.LANGUAGE_BACKBONE
         vq = cfg.VISION_QUERY
         self.start_qv_layer = vq.START_QV_LAYER
@@ -228,24 +231,24 @@ class QVBertModel(nn.Module):
         for i, layer in enumerate(self.encoder.layer):
             if vision is not None and i >= self.start_qv_layer:
                 x = self.encoder.qv_layer[i - self.start_qv_layer](x, vision, query_mask)
-            x = layer(x, attn_bias)
+            x = remat(layer, x, attn_bias, enabled=self.remat)
             hidden_states.append(x)
         return {"last_hidden": x, "hidden_states": hidden_states, "augmented_vision": vision}
 
 
 class _Body(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, remat: bool = False):
         super().__init__()
-        self.model = QVBertModel(cfg)
+        self.model = QVBertModel(cfg, remat=remat)
 
 
 class LanguageBackbone(nn.Module):
     """The BertEncoder wrapper: aggregate / embedded / masks / hidden."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, remat: bool = False):
         super().__init__()
         self.n_agg = cfg.MODEL.LANGUAGE_BACKBONE.N_LAYERS
-        self.body = _Body(cfg)
+        self.body = _Body(cfg, remat)
 
     def forward(self, input_ids, attention_mask, queries=None, query_mask=None, image_tokens=None):
         out = self.body.model(input_ids, attention_mask, queries, query_mask, image_tokens)

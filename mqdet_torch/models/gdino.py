@@ -27,6 +27,9 @@ dropout, drawing from `generator` (required then); True (the default) runs
 neither. The text enhancer, the deformable layers and the decoder have no
 dropout, as in JAX. The decoder's box chain stops gradients where JAX does:
 at the two-stage reference and at each layer's refined reference.
+
+`TPU.REMAT` (and the USE_CHECKPOINT keys) are ignored: JAX's
+`models/gdino.py` checkpoints nothing, so neither does this model.
 """
 from __future__ import annotations
 

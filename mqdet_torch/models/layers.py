@@ -7,11 +7,12 @@ taken in fp32 whatever the compute dtype, as flax does; GELU is exact.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def cl(x: torch.Tensor) -> torch.Tensor:
@@ -58,6 +59,38 @@ def training_draws(deterministic: bool, generator: Optional[torch.Generator]) ->
     if generator is None:
         raise ValueError("deterministic=False needs a torch.Generator for its draws")
     return generator
+
+
+def remat(fn: Callable, *args, enabled: bool = True, generator: Optional[torch.Generator] = None):
+    """fn(*args) as one activation-checkpointed segment (the JAX package's
+    `nn.remat`, `TPU.REMAT`): under `torch.utils.checkpoint` (non-reentrant)
+    where `enabled` and autograd records the call, so the backward recomputes
+    the segment's forward instead of keeping its activations; else, under
+    `no_grad` / `inference_mode` as in evaluation, fn(*args) directly with no
+    recompute. `generator`, the explicit source of the segment's draws
+    (checkpoint restores only the global RNGs), is set back to its state at
+    entry for the recompute and restored after it, so the backward
+    differentiates the masks the forward drew."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    entry = generator.get_state()
+    first = True
+
+    def segment(*a):
+        nonlocal first
+        if first:  # the forward
+            first = False
+            return fn(*a)
+        after = generator.get_state()
+        generator.set_state(entry)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(segment, *args, use_reentrant=False)
 
 
 def drop_path(x: torch.Tensor, rate: float, generator=None) -> torch.Tensor:

@@ -14,6 +14,13 @@ with `.to(device, torch.bfloat16)` for the card, keep fp32 for parity tests.
 `deterministic` is the JAX package's switch: False runs the training forward,
 Swin's stochastic depth and the fusion's composite with attention dropout,
 drawing from `generator` (required then); True (the default) runs neither.
+
+`TPU.REMAT`, `MODEL.DYHEAD.USE_CHECKPOINT` or
+`MODEL.LANGUAGE_BACKBONE.USE_CHECKPOINT` (any of them, as JAX's
+`mq_glip.py`) checkpoints the language tower's BertLayers and each head
+stage's VLFuse, BertLayer and DyConv (`layers.remat`): the same forward and
+gradients, fewer live activations, one more forward of those segments in the
+backward. Under `no_grad` / `inference_mode` it runs nothing more.
 """
 from __future__ import annotations
 
@@ -51,9 +58,9 @@ class _Backbone(nn.Module):
 
 
 class _RPN(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, remat: bool = False):
         super().__init__()
-        self.head = VLDyHead(cfg)
+        self.head = VLDyHead(cfg, remat)
 
 
 class MQGLIP(nn.Module):
@@ -71,9 +78,11 @@ class MQGLIP(nn.Module):
             raise NotImplementedError("only the bert language backbone is ported")
         if cfg.MODEL.SWINT.VERSION != "v1":
             raise NotImplementedError("only Swin v1 is ported")
+        # activation checkpointing of the text layers and head stages (JAX's rule)
+        remat = bool(cfg.TPU.REMAT or cfg.MODEL.DYHEAD.USE_CHECKPOINT or cfg.MODEL.LANGUAGE_BACKBONE.USE_CHECKPOINT)
         self.backbone = _Backbone(cfg)
-        self.language_backbone = LanguageBackbone(cfg)
-        self.rpn = _RPN(cfg)
+        self.language_backbone = LanguageBackbone(cfg, remat)
+        self.rpn = _RPN(cfg, remat)
 
     @property
     def dtype(self) -> torch.dtype:

@@ -30,7 +30,7 @@ from torch import nn
 
 from mqdet_torch.models.bert import BertLayer
 from mqdet_torch.models.fusion import VLFuse
-from mqdet_torch.models.layers import DYReLU, GroupNorm, Scale, cl, h_sigmoid, upsample_bilinear
+from mqdet_torch.models.layers import DYReLU, GroupNorm, Scale, cl, h_sigmoid, remat, upsample_bilinear
 from mqdet_torch.ops.deform_conv import (
     modulated_deform_conv,
     modulated_deform_conv_pallas,
@@ -137,10 +137,14 @@ class DyConv(nn.Module):
 
 class VLDyHead(nn.Module):
     """The fused head. forward returns per-level NCHW logits / bbox_reg /
-    centerness, the (B, HW, T) fp32 dot-product logits and the fused text."""
+    centerness, the (B, HW, T) fp32 dot-product logits and the fused text.
+    With `remat` (the JAX package's `TPU.REMAT` rule, `models/mq_glip.py`)
+    each stage's VLFuse, BertLayer and DyConv is one checkpointed segment
+    (`layers.remat`) wherever autograd records the forward."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, remat: bool = False):
         super().__init__()
+        self.remat = remat
         dy = cfg.MODEL.DYHEAD
         lb = cfg.MODEL.LANGUAGE_BACKBONE
         ch = cfg.MODEL.BACKBONE.OUT_CHANNELS
@@ -175,9 +179,10 @@ class VLDyHead(nn.Module):
         visual = feats
         for i in range(self.num_convs):
             fuse, lang_layer, dyconv = self.dyhead_tower[3 * i : 3 * i + 3]
-            visual, lang_hidden = fuse(visual, lang_hidden, lang_masks, generator)
-            lang_hidden = lang_layer(lang_hidden, attn_bias)
-            visual = dyconv(visual)
+            visual, lang_hidden = remat(fuse, visual, lang_hidden, lang_masks, generator, enabled=self.remat,
+                                        generator=generator)
+            lang_hidden = remat(lang_layer, lang_hidden, attn_bias, enabled=self.remat)
+            visual = remat(dyconv, visual, enabled=self.remat)
 
         emb = lang_hidden.float()
         emb = emb / emb.norm(dim=-1, keepdim=True).clamp(min=1e-6)

@@ -87,11 +87,14 @@ def _calibrate(cfg, model, device, dtype, log):
 
 def evaluate(cfg, dataset=None, device="cuda", tokenizer=None, max_images: Optional[int] = None,
              force_lvis: bool = False, calibrate_deform: bool = False, profile_dir: Optional[str] = None,
-             log: Callable = print, record: Optional[dict] = None) -> Dict[str, float]:
+             log: Callable = print, record: Optional[dict] = None,
+             model: Optional[torch.nn.Module] = None) -> Dict[str, float]:
     """The CLI's body on a merged config: the results of `run_evaluation`.
     `dataset` replaces the registry's DATASETS.TEST[0] (a reader whose
     `load_image` needs no PIL, say); `tokenizer` replaces
-    `get_tokenizer(TOKENIZER_TYPE)`. `record`, a dict, receives the import
+    `get_tokenizer(TOKENIZER_TYPE)`; `model`, a built model of `cfg` (fp32
+    on the CPU), replaces `build_cli_model(cfg)`, whose random init the
+    import overwrites. `record`, a dict, receives the import
     report ("import_report", None for an `.npz`) and the host seconds of
     each stage ("seconds": model, import, bank, update, evaluation, each
     ending synchronised on the card)."""
@@ -114,7 +117,7 @@ def evaluate(cfg, dataset=None, device="cuda", tokenizer=None, max_images: Optio
         seconds[stage] = seconds.get(stage, 0.0) + now - clock[0]
         clock[0] = now
 
-    model = build_cli_model(cfg)
+    model = build_cli_model(cfg) if model is None else model
     lap("model")
     record["import_report"] = load_weights(cfg, model, cfg.MODEL.WEIGHT, log) if cfg.MODEL.WEIGHT else None
     model = model.to(device, dtype).to(memory_format=torch.channels_last).eval()

@@ -136,10 +136,10 @@ def build_dataset(cfg, name: str, train: bool):
 
 
 def build_cli_model(cfg) -> torch.nn.Module:
-    """The model of `cfg` from init_params(SOLVER.SEED), fp32 on the CPU;
-    the configurations the port does not build are refused."""
-    if cfg.MODEL.SWINT.EMBED_DIM > 96:
-        raise NotImplementedError("Swin-B/L backbones (MQ-GLIP-L, mq-glip-l.yaml) are not ported (ROADMAP Queue A 5)")
+    """The model of `cfg` from init_params(SOLVER.SEED), fp32 on the CPU, at
+    any Swin v1 width (MQ-GLIP-T, MQ-GLIP-L); the models raise for the
+    options the port does not build (Swin v2, other language towers, heads
+    and fuse types)."""
     return init_params(build_model(cfg), seed=cfg.SOLVER.SEED)
 
 
@@ -254,8 +254,9 @@ def main(argv: Optional[List[str]] = None, device="cuda"):
         return extract_bank(cfg, model, dataset, device)[1]
     if not hasattr(dataset, "ind_to_class"):
         raise NotImplementedError(
-            f"training on {type(dataset).__name__} needs the caption-grounding loader, which is not ported "
-            "(ROADMAP Queue A 4.4)"
+            f"training on {type(dataset).__name__} is not supported: the grounding train loader reads a "
+            "detection dataset's ind_to_class, and the JAX package's loader does too, so neither package trains "
+            "on caption or TSV datasets (ROADMAP Queue A 4.4)"
         )
     prof = trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
     with prof:

@@ -23,6 +23,35 @@ def mq_glip_t_config() -> CfgNode:
     return cfg
 
 
+def mq_glip_l_config() -> CfgNode:
+    """MQ-GLIP-L (configs/pretrain/mq-glip-l.yaml SWINT block): Swin-L 192 /
+    (2, 2, 18, 2) / heads (6, 12, 24, 48) / window 12 / drop path 0.4 and 8
+    head stages."""
+    cfg = mq_glip_t_config()
+    cfg.MODEL.SWINT.EMBED_DIM = 192
+    cfg.MODEL.SWINT.DEPTHS = (2, 2, 18, 2)
+    cfg.MODEL.SWINT.NUM_HEADS = (6, 12, 24, 48)
+    cfg.MODEL.SWINT.WINDOW_SIZE = 12
+    cfg.MODEL.SWINT.OUT_CHANNELS = (192, 384, 768, 1536)
+    cfg.MODEL.SWINT.DROP_PATH_RATE = 0.4
+    cfg.MODEL.DYHEAD.NUM_CONVS = 8
+    return cfg
+
+
+def tiny_l_config() -> CfgNode:
+    """`tiny_test_config` in MQ-GLIP-L's shape, for CPU tests: window 12 (a
+    small image pads at every Swin stage), a third stage of 3 blocks (the
+    block indexing of depth 18), shifted blocks in every stage, drop path
+    0.4, 8 head stages."""
+    cfg = tiny_test_config()
+    cfg.MODEL.SWINT.DEPTHS = (2, 2, 3, 2)
+    cfg.MODEL.SWINT.WINDOW_SIZE = 12
+    cfg.MODEL.SWINT.OUT_CHANNELS = (16, 32, 64, 128)
+    cfg.MODEL.SWINT.DROP_PATH_RATE = 0.4
+    cfg.MODEL.DYHEAD.NUM_CONVS = 8
+    return cfg
+
+
 def tiny_test_config() -> CfgNode:
     """Miniature config for CPU tests (the JAX package's values for the keys
     this package reads)."""

@@ -1042,3 +1042,77 @@ def test_eval_cli_on_the_card_against_the_cpu(dev, tmp_path):
     for i in card_seen:
         assert len(card_seen[i]) == len(cpu_seen[i]) > 0
         assert abs(float(card_seen[i].max()) - float(cpu_seen[i].max())) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", list(DCN_ROUTES))
+def test_dcn_function_inside_the_remat_checkpoint(dev, route):
+    """A DCN route's Function inside `models.layers.remat` (TPU.REMAT's
+    checkpoint) on the card: the forward, then the recompute in the
+    backward, each launch the kernel (2 launches against 1 unchecked); the
+    gradients, checkpointed and not, each within BOUND * max|ref| of the
+    plain VJP in fp32; outside autograd (no_grad) one launch, no recompute."""
+    from mqdet_torch.models.layers import remat
+    from mqdet_torch.ops import launch_counts
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, h, w, c = 2, 13, 21, 128
+    ins = [torch.randn(b, h, w, c, generator=g, device=dev), torch.randn(b, h, w, 18, generator=g, device=dev) * 3,
+           torch.rand(b, h, w, 9, generator=g, device=dev), torch.randn(3, 3, c, c, generator=g, device=dev) * 0.05,
+           torch.randn(c, generator=g, device=dev)]
+    ins = [t.bfloat16() for t in ins]
+    gout = torch.randn(b, h, w, c, generator=g, device=dev).bfloat16()
+    fwd, vjp = DCN_ROUTES[route]
+    refs = vjp(*(t.float() for t in ins), gout.float(), s=1)
+    counts = {}
+    for checked in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        launch_counts(reset=True)
+        y = remat(lambda *a: fwd(*a, s=1), *leaves, enabled=checked)
+        y.backward(gout)
+        torch.cuda.synchronize()
+        counts[checked] = sum(launch_counts().values())
+        for leaf, ref in zip(leaves, refs):
+            assert _close(leaf.grad, ref)
+    assert counts == {False: 1, True: 2}
+    launch_counts(reset=True)
+    with torch.no_grad():
+        remat(lambda *a: fwd(*a, s=1), *ins, enabled=True)
+    assert sum(launch_counts().values()) == 1
+
+
+@pytest.mark.cuda
+def test_remat_protocol_launches_the_plain_protocols_kernels(dev):
+    """Tiny MQ-GLIP-L (C 128, so the band kernel runs; T 64, the
+    bi-attention kernel's multiple) in bf16 on the card, TPU.REMAT on and
+    off, the same weights: the LVIS protocol (2 groups of 2 chunks) launches
+    8 x 13 `dcn_band` and 8 `bi_attention` a group either way, and the
+    detections are bitwise equal (evaluation recomputes nothing)."""
+    import numpy as np
+
+    from mqdet_torch.engine.predict import make_protocol_fn
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import build_model, init_params, synthetic_batch, tiny_l_config
+
+    hw = (64, 64)
+    outs, counts = {}, {}
+    for remat in (False, True):
+        cfg = tiny_l_config()
+        cfg.MODEL.BACKBONE.OUT_CHANNELS = cfg.MODEL.DYHEAD.CHANNELS = 128
+        cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN = 64
+        cfg.MODEL.ATSS.INFERENCE_TH = 0.0
+        cfg.TPU.REMAT = remat
+        model = init_params(build_model(cfg), seed=0).eval().to(dev, torch.bfloat16)
+        text = [torch.from_numpy(np.stack([np.stack([synthetic_batch(cfg, 1, hw, 3, 2, seed=10 * g + c)[k][0]
+                                                     for c in range(2)]) for g in range(2)])).to(dev)
+                for k in ("input_ids", "attention_mask", "queries", "query_mask", "agg_map")]
+        image = torch.from_numpy(synthetic_batch(cfg, 1, hw, 3, 2, seed=5)["images"]).permute(0, 3, 1, 2).to(dev)
+        sizes = torch.tensor([[[64.0, 64.0], [60.0, 52.0]]] * 2, device=dev)
+        protocol = make_protocol_fn(model, hw, cfg)
+        launch_counts(reset=True)
+        outs[remat] = protocol(image, *text, sizes)
+        torch.cuda.synchronize()
+        counts[remat] = {k: v for k, v in launch_counts().items() if v}
+    assert counts[False] == counts[True] == {"dcn_band": 2 * 8 * 13, "bi_attention": 2 * 8}
+    for field in ("boxes", "scores", "labels", "valid"):
+        assert torch.equal(getattr(outs[False], field), getattr(outs[True], field))

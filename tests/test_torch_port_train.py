@@ -638,19 +638,16 @@ def test_training_forward_draws_from_its_generator(pair):
 
 
 def test_unported_training_options_are_refused(pair, coco, tmp_path):
-    """MLM_LOSS and REMAT raise; MQ-GroundingDINO, once refused here (ROADMAP
-    Queue A 2), builds its own step: the set criterion's, with no anchors."""
+    """MLM_LOSS raises; MQ-GroundingDINO, once refused here (ROADMAP Queue A
+    2), builds its own step: the set criterion's, with no anchors. (REMAT,
+    once refused here too, is ported: `test_torch_port_remat.py`.)"""
     tcfg = pair[4].clone()
     model = copy.deepcopy(pair[2])
     state, tx = tt.init_train_state(model, tcfg, [""])
-    for key, match in (("MLM", "MLM head"), ("REMAT", "REMAT")):
-        c = tcfg.clone()
-        if key == "MLM":
-            c.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS = True
-        else:
-            c.TPU.REMAT = True
-        with pytest.raises(NotImplementedError, match=match):
-            tt.make_train_step(model, tx, c)
+    c = tcfg.clone()
+    c.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS = True
+    with pytest.raises(NotImplementedError, match="MLM head"):
+        tt.make_train_step(model, tx, c)
     from mqdet_torch.data.coco import CocoDetectionDataset
     from mqdet_torch.data.tokenizer import WordPieceTokenizer
     from mqdet_torch.models.gdino import MQGroundingDINO
