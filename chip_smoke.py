@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the mqdet_torch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--seed N] [--runs N]
+    python3 chip_smoke.py [--seed N] [--runs N] [--cards N]
 
 Run from the root of a checkout. It needs a CUDA device and the CUDA toolkit
 (`nvcc`); it imports nothing of JAX, and neither PyYAML nor PIL. It drives
@@ -117,7 +117,7 @@ CLI. Phases, each printing lines:
      detections finite and inside their images, AP, APr, APc, APf finite)
      and one `online_update` turn over 2 images from an empty bank (launches
      2 x one protocol's, queries added > 0, seconds);
-  8. MQ-GLIP-T modulated pre-training at full width (`train_config`:
+  8. MQ-GLIP-T modulated pre-training at full width (`mq_glip_t_pretrain_config`:
      the settings of configs/pretrain/mq-glip-t.yaml, batch 2 at 800x1344,
      the warmup cut to 0) from init_params(seed), through the port's train
      entry (`mqdet_torch.tools.train.build_training`) on phase 7's synthetic
@@ -205,12 +205,50 @@ CLI. Phases, each printing lines:
      returning, a temporary bank of exactly the 2 classes, finite printed
      AP lines, and the launches predicted from the step count and the
      evaluations (104 `dcn_band` a step; 104 `dcn_band` + 8 `bi_attention`
-     per val image and head group).
+     per val image and head group);
+ 13. data parallelism on the one card (`phase_data_parallel`): two rank
+     processes of this script (`--rank-worker`, torchrun's variables set
+     by the parent, LOCAL_RANK 0 for both) join a gloo group through
+     `mqdet_torch.parallel.comm.init_distributed` (NCCL refuses two ranks on
+     one device; each rank within its timeout, one failing ends the run;
+     the kernels the parent built in phase 1 are loaded, not rebuilt).
+     MQ-GLIP-T training, phase 8's recipe at full width, 2 steps of 1 image
+     a rank against one process at batch 2 on the same global batches,
+     weights and generator (dropout off), and MQ-GroundingDINO-T, phase 9's,
+     1 step on the one process's assignment: the summed loss and the
+     summed gradients (each and concatenated) within the larger of phase
+     8's (9's) reference bounds (twice the largest of three CPU bf16
+     drifts, at 256x256) and twice the card's own bf16 noise at these
+     shapes (the one process on the images scaled by 1 +- 1e-3), the
+     masters' update from the initial masters (concatenated) within twice
+     that noise of the one process's (floor 1e-2; a step that moved nothing
+     is 1 from it), the masters bitwise equal across the ranks, the frozen
+     parameters unchanged, launches 78
+     `dcn_band` a step a rank (6 + 6 MSDA); `run_inference` over phase 7's
+     8 images, 4 a rank: every detection bitwise phase 7's, the merged AP
+     dict equal to phase 7's, launches 624 `dcn_band` and 48
+     `bi_attention` an image a rank; extraction over the same images: rank
+     0's saved bank equal to `QueryBank.merge` of the ranks' stores in rank
+     order, no other rank saving. Then one rank over NCCL, a world of one:
+     one GLIP step against the one process's first by the same rule (the
+     step is not bitwise repeatable on the card: its backward's atomic
+     adds sum in varying order). Each
+     rank's step ms, split and peak memory are printed.
+
+    python3 chip_smoke.py --cards N
+
+runs instead the one check that needs N >= 2 cards of one host
+(`multi_card`): phase 13's MQ-GLIP-T training over NCCL, one rank a card
+(LOCAL_RANK r on `cuda:r`), 2 steps of 1 image a rank against one process
+at batch N on card 0, gated by phase 13's rule with E2E_FLOOR in place of
+phase 8's bounds (twice the card's own noise, floor 1e-2); its last line is
+{"ok": true, "cards": N, ...}.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches summed over the counted paths: the protocols, phase 3's card runs,
 the sweep path, phase 7's evaluation and update, phases 8 and 9's timed
-training steps, phase 10's CLI runs and phases 11 and 12's paths); the last
+training steps, phase 10's CLI runs, phases 11 and 12's paths and phase
+13's, summed over its ranks); the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero without
 those lines.
 """
@@ -1098,69 +1136,6 @@ def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed
     return launches
 
 
-LVIS_FREQUENCIES = {"r": 337, "c": 461, "f": 405}  # LVIS v1's 1203 categories by frequency
-
-
-def synthetic_lvis(torch, root, seed):
-    """An LVIS-shaped dataset written from `seed` into `root`: 1203
-    categories with seeded pseudo-word names (some with LVIS's '_' and
-    '(...)') and r/c/f frequencies in LVIS v1's proportions; 8 images, 6
-    landscape 480x640 and 2 portrait 640x480; 2-6 boxes each over a pool of
-    40 categories; neg and not-exhaustive category ids per image. The json is
-    read by the port's `CocoDetectionDataset`; `load_image` is overridden
-    with the seeded pixels (smooth noise, uint8), because this machine may
-    have no PIL to read image files. Returns (dataset, {contiguous label:
-    frequency})."""
-    import numpy as np
-
-    from mqdet_torch.data.coco import CocoDetectionDataset
-
-    rng = np.random.default_rng(seed + 7)
-    syllables = ["ka", "lo", "mi", "ne", "ru", "ta", "vo", "zi", "pe", "sa", "do", "gu", "bri", "sto", "fen"]
-    freq = rng.permutation(np.repeat(list(LVIS_FREQUENCIES), list(LVIS_FREQUENCIES.values())))
-    names, cats = set(), []
-    for i in range(len(freq)):
-        name = "".join(rng.choice(syllables, rng.integers(2, 4)))
-        if i % 5 == 1:
-            name += "_" + "".join(rng.choice(syllables, 2))
-        elif i % 7 == 2:
-            name += "_(" + "".join(rng.choice(syllables, 2)) + ")"
-        while name in names:
-            name += "s"
-        names.add(name)
-        cats.append({"id": i + 1, "name": name, "frequency": str(freq[i])})
-    pool = np.concatenate([rng.choice(np.flatnonzero(freq == f), 14 if f == "r" else 13, replace=False)
-                           for f in LVIS_FREQUENCIES]) + 1
-    images, anns = [], []
-    for i in range(8):
-        h, w = (480, 640) if i < 6 else (640, 480)
-        n = int(rng.integers(2, 7))
-        labels = rng.choice(pool, n)
-        others = [int(c) for c in pool if c not in labels]
-        images.append({"id": i + 1, "file_name": f"{i + 1}.jpg", "height": h, "width": w,
-                       "neg_category_ids": [int(c) for c in rng.choice(others, 3, replace=False)],
-                       "not_exhaustive_category_ids": [int(c) for c in rng.choice(pool, 2, replace=False)]})
-        for lab in labels:
-            bw, bh = rng.uniform(20, w * 0.6), rng.uniform(20, h * 0.6)
-            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
-            anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": int(lab),
-                         "bbox": [x0, y0, bw, bh], "area": bw * bh, "iscrowd": 0})
-    ann_file = os.path.join(root, "lvis_synthetic.json")
-    with open(ann_file, "w") as f:
-        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
-
-    class SeededImages(CocoDetectionDataset):
-        def load_image(self, img_id):
-            im = self.images[img_id]
-            g = torch.Generator().manual_seed(seed * 1000 + img_id)
-            low = torch.rand(1, 3, im["height"] // 32, im["width"] // 32, generator=g) * 255.0
-            img = torch.nn.functional.interpolate(low, size=(im["height"], im["width"]), mode="bilinear")
-            return img[0].permute(1, 2, 0).round().to(torch.uint8).numpy()
-
-    ds = SeededImages(ann_file, img_dir=root)
-    return ds, {ds.cat_id_to_contiguous[c["id"]]: c["frequency"] for c in ds.categories}
-
-
 def synced_seconds(torch, fn, reps=1):
     """Host-clock seconds of `reps` calls of fn, synchronised before and after."""
     torch.cuda.synchronize()
@@ -1169,6 +1144,19 @@ def synced_seconds(torch, fn, reps=1):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps
+
+
+def vq_settings(cfg):
+    """A copy of `cfg` with phase 7's settings: lvis_minival.yaml's (300
+    detections an image, chunks of 40 classes, CP 4, 5 queries a class,
+    MAX_QUERY_NUMBER 5, no text dropout), the thresholds at 0."""
+    c = cfg.clone()
+    c.MODEL.ATSS.DETECTIONS_PER_IMG = 300
+    c.TEST.CHUNKED_EVALUATION, c.TEST.CHUNK_PARALLELISM = 40, 4
+    c.VISION_QUERY.NUM_QUERY_PER_CLASS = c.VISION_QUERY.MAX_QUERY_NUMBER = 5
+    c.VISION_QUERY.TEXT_DROPOUT = 0.0
+    c.MODEL.ATSS.INFERENCE_TH = c.GROUNDINGDINO.box_threshold = c.VISION_QUERY.SCORE_THRESHOLD = 0.0
+    return c
 
 
 def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, keep=None, phase="phase 7"):
@@ -1194,15 +1182,11 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, k
     )
     from mqdet_torch.mq.selector import QuerySelector
     from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import synthetic_lvis
 
     dev = next(model.parameters()).device
-    c = cfg.clone()
-    c.MODEL.ATSS.DETECTIONS_PER_IMG = 300
-    c.TEST.CHUNKED_EVALUATION, c.TEST.CHUNK_PARALLELISM = 40, 4
-    c.VISION_QUERY.NUM_QUERY_PER_CLASS = c.VISION_QUERY.MAX_QUERY_NUMBER = 5
-    c.VISION_QUERY.TEXT_DROPOUT = 0.0
-    c.MODEL.ATSS.INFERENCE_TH = c.GROUNDINGDINO.box_threshold = c.VISION_QUERY.SCORE_THRESHOLD = 0.0
-    ds, freq = synthetic_lvis(torch, root, seed)
+    c = vq_settings(cfg)
+    ds, freq = synthetic_lvis(root, seed)
     tok = WordPieceTokenizer()  # the hash vocab: no vocab file or download on this machine
     n_img = len(ds.ids)
     with_gt = {int(l) for i in ds.ids for l in ds.annotations(i)[1]}
@@ -1321,30 +1305,6 @@ def phase_vision_query(torch, label, cfg, model, seed, per_image, root, slots, k
     return {f"{label} vision-query eval": eval_launches, f"{label} online update": update_launches}
 
 
-def train_config():
-    """MQ-GLIP-T with the training settings of configs/pretrain/mq-glip-t.yaml:
-    recipe vision_query (the GCP pieces train), AdamW at BASE 1e-4 / GATE 5e-3
-    / QUERY 1e-5 / LANG 1e-5, weight decay 1e-4, MODEL_EMA 0.999, text dropout
-    0.4, 5 queries a class, RANDOM_SAMPLE_NEG 85, the multi-scale resize
-    (480-800, max 1333) into the 800x1344 bucket; batch 2 (the yaml's 16 over
-    8 GPUs). The warmup (2000 iterations from 1e-3) is cut to 0: from its
-    first steps the LR would move no 1.0-valued norm weight in fp32, and a
-    step's time does not depend on the LR."""
-    from mqdet_torch.utils.builders import mq_glip_t_config
-
-    cfg = mq_glip_t_config()
-    s, vq = cfg.SOLVER, cfg.VISION_QUERY
-    s.TUNING_HIGHLEVEL_OVERRIDE = "vision_query"
-    s.BASE_LR, s.GATE_LR, s.QUERY_LR, s.LANG_LR, s.WEIGHT_DECAY = 1e-4, 5e-3, 1e-5, 1e-5, 1e-4
-    s.STEPS, s.MODEL_EMA, s.IMS_PER_BATCH, s.WARMUP_ITERS, s.MAX_TO_KEEP = (0.95,), 0.999, 2, 0, 4
-    s.MAX_ITER = 1000
-    vq.TEXT_DROPOUT, vq.NUM_QUERY_PER_CLASS, vq.PURE_TEXT_RATE = 0.4, 5, 0.0
-    cfg.DATASETS.RANDOM_SAMPLE_NEG = 85
-    cfg.INPUT.MIN_SIZE_TRAIN, cfg.INPUT.MAX_SIZE_TRAIN = 800, 1333
-    cfg.AUGMENT.MULT_MIN_SIZE_TRAIN = (480, 560, 640, 720, 800)
-    return cfg
-
-
 def dropout_off(model):
     """The model with its training dropout rates at 0 (the fusion's attention
     dropout, Swin's stochastic depth): the training forward, deterministic."""
@@ -1382,7 +1342,7 @@ def reference_batch(cfg, seed, hw=(256, 256)):
     return batch
 
 
-def phase_train_reference(torch, cfg, model_cpu, seed):
+def phase_train_reference(torch, cfg, model_cpu, seed, bounds=None):
     """One training step at 256x256, full width, batch 2, dropout off: the
     card (bf16, kernels) against the same step on the CPU in fp32 (plain
     versions), same weights and batch, by relative L2 on the loss and on
@@ -1430,11 +1390,11 @@ def phase_train_reference(torch, cfg, model_cpu, seed):
     if used != want:
         fail(f"phase 8 reference step: launches {used} != predicted {want}")
     reference_verdict(torch, "phase 8", f"MQ-GLIP-T full width at {hw}", card, ref32, run16, scales,
-                      f"CPU steps {cpu_s!r} s; launches {({k: v for k, v in used.items() if v})}")
+                      f"CPU steps {cpu_s!r} s; launches {({k: v for k, v in used.items() if v})}", bounds)
     return used
 
 
-def reference_verdict(torch, phase, what, card, ref32, run16, scales, tail) -> None:
+def reference_verdict(torch, phase, what, card, ref32, run16, scales, tail, bounds=None) -> None:
     """Phase 3's rule on a training step: the card's loss and every
     trainable gradient (`card`: (loss, {name: grad})) against the fp32 CPU
     step (`ref32[1.0]`), each within twice the largest drift of the CPU bf16
@@ -1442,7 +1402,9 @@ def reference_verdict(torch, phase, what, card, ref32, run16, scales, tail) -> N
     concatenated gradient within twice the unscaled run's drift; and the
     scaled fp32 runs within 1e-2 of the unscaled one (the scaling is no
     larger change than the drift it samples). Prints the line; fails
-    outside the rule."""
+    outside the rule. `bounds`, a dict, receives the rule's bound of the
+    loss ("loss"), of each gradient (by name) and of the concatenated
+    gradient ("concatenated")."""
     def rel(a, ref):
         return float(torch.linalg.vector_norm(a - ref) / torch.linalg.vector_norm(ref).clamp(min=1e-30))
 
@@ -1460,6 +1422,8 @@ def reference_verdict(torch, phase, what, card, ref32, run16, scales, tail) -> N
     flat = lambda grads: torch.cat([g.reshape(-1) for g in grads.values()])  # noqa: E731
     g_card, g_plain = rel(flat(card[1]), flat(ref32[1.0][1])), rel(flat(run16[1.0][1]), flat(ref32[1.0][1]))
     ok = not bad and g_card <= max(2 * g_plain, E2E_FLOOR) and moved < 1e-2
+    if bounds is not None:
+        bounds.update({n: max(2 * b, E2E_FLOOR) for n, _, b, _ in rows}, concatenated=max(2 * g_plain, E2E_FLOOR))
     say(f"{phase}: reference step, {what}, batch 2, dropout off, card bf16 kernels vs CPU fp32 plain: loss "
         f"{card[0]!r} vs {ref32[1.0][0]!r}; {len(rows) - 1} trainable gradients; worst err / bound {ratio(worst)!r} "
         f"at {worst[0]} (card relative L2 {worst[1]!r}; plain bf16 {worst[3]!r}, the largest of the three CPU bf16 "
@@ -1525,33 +1489,26 @@ def phase_dcn_backward(torch, seed, smi):
     return times
 
 
-def landscape(dataset, portrait=False):
-    """A shallow copy of phase 7's dataset holding its landscape images (or
-    its portrait ones): the timed steps train on the landscape images, as
-    before the loader grouped batches by bucket (ROADMAP Queue C 1)."""
-    ds = copy.copy(dataset)
-    ds.ids = [i for i in dataset.ids if (dataset.image_size(i)[0] < dataset.image_size(i)[1]) != portrait]
-    return ds
-
-
-def phase_train(torch, seed, dataset, bank, smi):
+def phase_train(torch, seed, dataset, bank, smi, bounds=None):
     """Phase 8: MQ-GLIP-T modulated pre-training at full width on the card
-    (`train_config`) on phase 7's synthetic LVIS-shaped dataset and phase 7's
-    extracted MQ-GLIP-T bank: the reference step, each DCN Function's
-    backward, then `train_steps`. Returns the launch counts of the timed
-    steps."""
-    from mqdet_torch.utils.builders import build_model, init_params
+    (`mq_glip_t_pretrain_config`) on phase 7's synthetic LVIS-shaped dataset and
+    phase 7's extracted MQ-GLIP-T bank: the reference step, each DCN
+    Function's backward, then `train_steps` on the landscape images.
+    Returns the launch counts of the timed steps; `bounds`, a dict,
+    receives the reference step's bounds."""
+    from mqdet_torch.utils.builders import build_model, init_params, landscape, mq_glip_t_pretrain_config
 
-    cfg = train_config()
+    cfg = mq_glip_t_pretrain_config()
     model_cpu = init_params(build_model(cfg), seed=seed)
-    phase_train_reference(torch, cfg, model_cpu, seed)
+    phase_train_reference(torch, cfg, model_cpu, seed, bounds)
     bwd_ms = phase_dcn_backward(torch, seed, smi)
     torch.cuda.empty_cache()
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
     return train_steps(torch, "phase 8", "MQ-GLIP-T", cfg, model_cpu, landscape(dataset), bank, smi,
                        predicted(dcn_band=stages * (3 * levels - 2)),  # 78 a forward; no bi-attention kernel
                        "dcn_backward", "`DeformConvFunction`", ("dcn_band_kernel",),
-                       f"level-0 backward alone (CUDA events) {bwd_ms}", portrait=landscape(dataset, portrait=True))
+                       f"level-0 backward alone (CUDA events) {bwd_ms}",
+                       portrait=landscape(dataset, portrait=True))
 
 
 def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, span, function, fwd_kernels, note,
@@ -1719,7 +1676,7 @@ def train_config_gdino():
     configs/pretrain/mq-groundingdino-t.yaml: recipe vision_query (the GCP
     pieces train), BASE_LR 1e-4 (the other LRs the defaults: GATE 5e-3,
     QUERY 1e-5, LANG 1e-5), text dropout 0.4, 5 queries a class, the
-    800x1344 bucket; `train_config`'s cuts for the same reasons: batch 2
+    800x1344 bucket; phase 8's cuts for the same reasons: batch 2
     (one card), the warmup at 0 and MAX_ITER 1000 (a step's time does not
     depend on the LR). MODEL_EMA 0.999, as mq-glip-t.yaml sets it: the yaml
     leaves the default 0 (no EMA), so the EMA path and its gate would not
@@ -1734,7 +1691,7 @@ def train_config_gdino():
     return cfg
 
 
-def phase_train_reference_gdino(torch, cfg, model_cpu, seed):
+def phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds=None):
     """Phase 9's reference step: one MQ-GroundingDINO-T training step at
     256x256, full width, batch 2 (40 labels, 8 gt boxes an image), dropout
     off, the card (bf16, kernels) against the CPU in fp32 (plain versions,
@@ -1806,7 +1763,8 @@ def phase_train_reference_gdino(torch, cfg, model_cpu, seed):
                       ref32, run16, scales,
                       f"every run on the fp32 run's assignment ({int((fixed >= 0).sum())} pairs over "
                       f"{fixed.shape[0]} decoder layers); the card's own matcher would choose {flips} of them "
-                      f"differently; CPU steps {cpu_s!r} s; launches {({k: v for k, v in used.items() if v})}")
+                      f"differently; CPU steps {cpu_s!r} s; launches {({k: v for k, v in used.items() if v})}",
+                      bounds)
     return used
 
 
@@ -1880,21 +1838,23 @@ def phase_msda_backward(torch, seed, smi):
     return times
 
 
-def phase_train_gdino(torch, seed, dataset, bank, smi):
+def phase_train_gdino(torch, seed, dataset, bank, smi, bounds=None):
     """Phase 9: MQ-GroundingDINO-T modulated pre-training at full width on
     the card (`train_config_gdino`) on phase 7's dataset and phase 7's
     extracted MQ-GroundingDINO-T bank: the reference step, the MSDA
     Function's backward, then `train_steps` (6 clipped + 6 exact MSDA
     launches a forward, no bi-attention kernel: the fusion's training
-    composite). Returns the launch counts of the timed steps."""
-    from mqdet_torch.utils.builders import build_model, init_params
+    composite). Returns the launch counts of the timed steps; `bounds`, a
+    dict, receives the reference step's bounds."""
+    from mqdet_torch.utils.builders import build_model, init_params, landscape
 
     cfg = train_config_gdino()
     model_cpu = init_params(build_model(cfg), seed=seed)
-    phase_train_reference_gdino(torch, cfg, model_cpu, seed)
+    phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds)
     bwd_ms = phase_msda_backward(torch, seed, smi)
     g = cfg.GROUNDINGDINO
-    return train_steps(torch, "phase 9", "MQ-GroundingDINO-T", cfg, model_cpu, landscape(dataset), bank, smi,
+    return train_steps(torch, "phase 9", "MQ-GroundingDINO-T", cfg, model_cpu, landscape(dataset), bank,
+                       smi,
                        predicted(ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers),
                        "msda_backward", "`MSDeformAttnFunction`", ("msda_band_kernel", "msda_forward_kernel"),
                        f"one MSDA backward alone (CUDA events) {bwd_ms}")
@@ -2235,7 +2195,7 @@ def phase_glip_l(torch, seed, runs, smi, root, configs, keep):
     `train_steps` for each; the REMAT peak must be below the plain one).
     Returns the launch counts by path; `keep` receives the model on the CPU,
     the .pth and phase 7's dataset."""
-    from mqdet_torch.utils.builders import build_model, init_params, mq_glip_l_config, synthetic_batch
+    from mqdet_torch.utils.builders import build_model, init_params, landscape, mq_glip_l_config, synthetic_batch
 
     dev = torch.device("cuda")
     cfg = mq_glip_l_config()
@@ -2423,10 +2383,606 @@ def phase_finetune(torch, seed, keep, root, smi):
     return used
 
 
+# ---- phase 13: data parallel on the one card -------------------------------
+
+DP_RANKS = 2            # phase 13's ranks, sharing the one card over gloo
+DP_RANK_TIMEOUT_S = 600  # each rank process
+DP_GLOO_TIMEOUT_S = 300  # a collective that waits longer raises
+
+
+def digest(tensors) -> str:
+    """sha1 of the tensors' bytes in name order (fp32)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for n in sorted(tensors):
+        h.update(n.encode())
+        h.update(tensors[n].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_step(torch, cfg, model_cpu, dev):
+    """(model, state, step) as the train entry builds them
+    (`tools.train.build_training`) for a copy of `model_cpu`, dropout off:
+    N ranks then draw what one process draws."""
+    from mqdet_torch.core.config import frozen_patterns, trainable_patterns
+    from mqdet_torch.engine.train import init_train_state, make_gdino_train_step, make_train_step
+
+    dtype = getattr(torch, cfg.TPU.COMPUTE_DTYPE)
+    model = dropout_off(copy.deepcopy(model_cpu)).to(dev, dtype).to(memory_format=torch.channels_last)
+    state, tx = init_train_state(model, cfg, trainable_patterns(cfg), frozen_patterns(cfg))
+    step = (make_gdino_train_step if cfg.GROUNDINGDINO.enabled else make_train_step)(model, tx, cfg)
+    return model, state, step
+
+
+def dp_train(torch, cfg, model_cpu, batches, dev, rank=0, world=1, assignment=None, save=None, timing=False):
+    """The steps of `dp_step` on this rank's rows of the global `batches`
+    (numpy), each on `step_generator(seed, iteration)`; `assignment` (L, B,
+    G) fixes the GDINO matching (the rank's rows). Returns per step the
+    summed metrics and the masters' digest; the peak memory, the launches,
+    whether the frozen parameters are bitwise unchanged, the matching of a
+    GDINO step. With `save`, a path prefix, the initial masters go to
+    `{save}init.pt` and each step's gradients and masters to `{save}{it}.pt`,
+    on the CPU. With `timing`, two more steps
+    on the last batch: one warm (`warm_ms`, host clock, synchronised), one
+    split at its boundaries (`times`). No profile: a trace of one process
+    cannot give the card's idle share under two contexts (its kernels'
+    spans include the other context's time slices: two ranks' busy
+    summed came to more than their window)."""
+    from mqdet_torch.engine.train import batch_to_device, step_generator
+    from mqdet_torch.ops import launch_counts
+
+    model, state, step = dp_step(torch, cfg, model_cpu, dev)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if n in state.frozen}
+    b = len(batches[0]["images"]) // world
+    kw = {} if assignment is None else {"assignment": assignment[:, rank * b:(rank + 1) * b]}
+    out = {"metrics": [], "digest": []}
+
+    def run(it, gb, times=None, grads=None):
+        rows = {k: v[rank * b:(rank + 1) * b] for k, v in gb.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch_to_device(rows, dev), step_generator(cfg.SOLVER.SEED, it, dev), times,
+                          grads_out=grads, **kw)
+        values = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        return values, (time.perf_counter() - t0) * 1000.0
+
+    if save:
+        torch.save({n: t.cpu() for n, t in state.trainable.items()}, f"{save}init.pt")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    for it, gb in enumerate(batches):
+        grads = {}
+        values, _ = run(it, gb, grads=grads)
+        out["metrics"].append(values)
+        out["digest"].append(digest(state.trainable))
+        if save:
+            torch.save({"grads": {n: g.cpu() for n, g in grads.items()},
+                        "masters": {n: t.cpu() for n, t in state.trainable.items()}}, f"{save}{it}.pt")
+    out["launches"] = launch_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    params = dict(model.named_parameters())
+    out["frozen_same"] = all(torch.equal(params[n], t) for n, t in frozen.items())
+    out["assignment"] = getattr(step, "assignment", None)
+    if timing:
+        out["warm_ms"] = run(len(batches), batches[-1])[1]
+        out["times"] = {}
+        run(len(batches) + 1, batches[-1], out["times"])
+    return out
+
+
+def dp_eval_model(torch, seed, dev):
+    """Phase 7's MQ-GLIP-T on the card (bf16, channels last) and its config."""
+    from mqdet_torch.utils.builders import build_model, init_params, mq_glip_t_config
+
+    cfg = mq_glip_t_config()
+    cfg.MODEL.ATSS.DETECTIONS_PER_IMG = 300
+    model = init_params(build_model(cfg), seed=seed).eval()
+    return cfg, model.to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+
+
+def rank_part_train(torch, spec, dev, rank, world, name):
+    """A rank's training part: `name` glip (phase 8's recipe) or gdino
+    (phase 9's), on the global batches the parent saved."""
+    import numpy as np
+
+    from mqdet_torch.utils.builders import build_model, init_params, mq_glip_t_pretrain_config
+
+    cfg = mq_glip_t_pretrain_config() if name == "glip" else train_config_gdino()
+    model_cpu = init_params(build_model(cfg), seed=spec["seed"])
+    batches = torch.load(spec[f"{name}_batches"], weights_only=False)[:spec.get("steps", 99)]
+    assignment = np.load(spec["gdino_assignment"]) if name == "gdino" else None
+    save = os.path.join(spec["dir"], f"{spec['tag']}_{name}_rank0_step") if rank == 0 else None
+    return dp_train(torch, cfg, model_cpu, batches, dev, rank, world, assignment, save, timing=spec["timing"])
+
+
+def rank_part_eval(torch, spec, dev, rank, world):
+    """A rank's evaluation and extraction part: `run_inference` over its
+    shard of phase 7's dataset with phase 7's bank (the evaluators merged),
+    then `extract_bank` over its shard (the banks merged, rank 0 saving)."""
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.engine.evaluator import DetectionEvaluator
+    from mqdet_torch.engine.inference import run_inference
+    from mqdet_torch.mq.bank import QueryBank
+    from mqdet_torch.mq.selector import QuerySelector
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.tools.train import extract_bank
+    from mqdet_torch.utils.builders import synthetic_lvis
+
+    cfg, model = dp_eval_model(torch, spec["seed"], dev)
+    c = vq_settings(cfg)
+    root = os.path.join(spec["dir"], f"{spec['tag']}_rank{rank}_data")  # the parent removes spec["dir"]
+    os.makedirs(root)
+    ds, freq = synthetic_lvis(root, spec["seed"])
+
+    class Recording(DetectionEvaluator):
+        def add_image(self, image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw):
+            self.dets[image_id] = (det_boxes.copy(), det_scores.copy(), det_labels.copy())
+            super().add_image(image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw)
+
+    ev = Recording(style="lvis_fixed", max_dets=300, category_frequency=freq)
+    ev.dets = {}
+    selector = QuerySelector(QueryBank.load(spec["glip_bank"]), num_query_per_class=c.VISION_QUERY.NUM_QUERY_PER_CLASS,
+                             max_labels=c.VISION_QUERY.MAX_CLASSES_PER_PROMPT)
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    res = run_inference(c, model, ds, WordPieceTokenizer(), selector, evaluator=ev, verbose=False)
+    torch.cuda.synchronize()
+    out = {"eval_s": time.perf_counter() - t0, "eval_launches": launch_counts(), "dets": ev.dets,
+           "results": {k: v for k, v in res.items() if k != "seconds"}, "stages": res["seconds"]}
+
+    c.VISION_QUERY.QUERY_BANK_SAVE_PATH = spec["bank_path"]
+    own, saves = {}, []
+    real_save, real_merge = QueryBank.save, QueryBank.allgather_merge
+
+    def save(bank, path):
+        saves.append(path)
+        real_save(bank, path)
+
+    def merge(bank, capacity=None):
+        own.update({k: v.copy() for k, v in bank._store.items()})
+        real_merge(bank, capacity)
+
+    QueryBank.save, QueryBank.allgather_merge = save, merge
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    try:
+        extract_bank(c, model, ds, dev, log=lambda m: None)
+    finally:
+        QueryBank.save, QueryBank.allgather_merge = real_save, real_merge
+    torch.cuda.synchronize()
+    out.update(extract_s=time.perf_counter() - t0, extract_launches=launch_counts(), store=own, saves=saves,
+               capacity=c.VISION_QUERY.MAX_QUERY_NUMBER)
+    return out
+
+
+def rank_worker(spec_path: str) -> int:
+    """One rank of phase 13 (run as `chip_smoke.py --rank-worker SPEC`, with
+    torchrun's variables in the environment): joins the group over the
+    spec's backend, runs its parts, saves what they return."""
+    import torch
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mqdet_torch.parallel import comm
+
+    dev = comm.init_distributed("cuda", spec["backend"], timeout_s=DP_GLOO_TIMEOUT_S)
+    rank, world = comm.get_rank(), comm.get_world_size()
+    say(f"rank {rank} of {world}: backend {torch.distributed.get_backend()} on {dev}")
+    out = {"rank": rank, "world": world, "backend": torch.distributed.get_backend(), "seconds": {}}
+    for part in spec["parts"]:
+        t0 = time.perf_counter()
+        if part == "eval":
+            out[part] = rank_part_eval(torch, spec, dev, rank, world)
+        else:
+            out[part] = rank_part_train(torch, spec, dev, rank, world, part)
+        out["seconds"][part] = time.perf_counter() - t0
+        comm.synchronize()
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(spec["dir"], f"{spec['tag']}_rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(torch, spec, world, root):
+    """Run `world` rank processes of this script over `spec` (RANK, WORLD_SIZE,
+    MASTER_* on localhost; LOCAL_RANK 0, every rank on the one card, over
+    gloo, and LOCAL_RANK r, a card a rank, over NCCL, which refuses two
+    ranks on one device), each within DP_RANK_TIMEOUT_S; one failing ends
+    the others and the run. Returns their results in rank order."""
+    import socket
+    import subprocess
+
+    spec = dict(spec, dir=root)
+    path = os.path.join(root, f"{spec['tag']}_spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world))
+    logs = [open(os.path.join(root, f"{spec['tag']}_rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker", path],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r if spec["backend"] == "nccl" else 0)),
+                              cwd=REPO, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.perf_counter() - t0 > DP_RANK_TIMEOUT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(logs[r].name) as f:
+                tail = f.read()[-4000:]
+            fail(f"phase 13 ({spec['tag']}): rank {r} of {world} exited {p.returncode} after "
+                 f"{time.perf_counter() - t0!r} s:\n{tail}")
+    return [torch.load(os.path.join(root, f"{spec['tag']}_rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def loader_batches(cfg, dataset, bank, n):
+    """The first `n` global batches (numpy) of the train entry's loader over
+    `dataset` with `bank`, one process (batch SOLVER.IMS_PER_BATCH), across
+    epochs."""
+    from mqdet_torch.data.loader import GroundingTrainLoader
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.mq.selector import QuerySelector
+
+    vq = cfg.VISION_QUERY
+    selector = QuerySelector(bank, num_query_per_class=vq.NUM_QUERY_PER_CLASS, pure_text_rate=vq.PURE_TEXT_RATE,
+                             random_kshot=vq.RANDOM_KSHOT, max_labels=vq.MAX_CLASSES_PER_PROMPT)
+    loader = GroundingTrainLoader(dataset, cfg, WordPieceTokenizer(), selector)
+
+    def epochs():
+        while True:
+            yield from loader
+
+    it = epochs()
+    batches = [next(it) for _ in range(n)]
+    for b in batches:
+        b.pop("num_positive")
+    return batches
+
+
+def dp_verdict(torch, label, ref, got, root, tag, name, bounds, smi):
+    """Phase 13's training gates for `name` on the ranks' results `got`
+    against the one-process steps `ref` on the same global batches, per
+    step: the summed loss, the summed gradients (each, and concatenated)
+    and the masters' update from the initial masters (concatenated), each
+    within the larger of its reference bound (`bounds`: phase 8's (9's),
+    twice the largest of three CPU bf16 drifts at 256x256; E2E_FLOOR where
+    `bounds` has none, as for the update) and twice the card's own bf16
+    noise at these shapes (`ref["noise"]`: the one process on the images
+    scaled by 1 +- 1e-3; GDINO's two-stage top-900 selection may flip
+    under bf16 rounding at 800x1344, a noise the 256x256 bound does not
+    see); the ranks' masters bitwise equal; the frozen parameters unchanged
+    on every rank. A step that moved no master is 1 from the one process's
+    update. Each tensor's update is printed against the one process's,
+    ungated: the first Adam steps move an element by about lr *
+    sign(gradient), so a zero-initialised bias whose small gradients flip
+    sign under bf16 noise differs by up to 2 lr there (the one process's
+    own step is not bitwise repeatable on the card: its backward's atomic
+    adds sum in varying order)."""
+    lines, bad = [], []
+    for it, want in enumerate(ref["steps"][:len(got[0][name]["metrics"])]):
+        mine = torch.load(os.path.join(root, f"{tag}_{name}_rank0_step{it}.pt"), weights_only=False)
+        loss = got[0][name]["metrics"][it]["loss_total"]
+        dist = step_distances(torch, mine, want, loss, want["loss"])
+        noise = ref["noise"][it]
+        rows = [(k, d, max(bounds.get(k, E2E_FLOOR), 2 * noise[k])) for k, d in dist.items()]
+        out = [r for r in rows if not (math.isfinite(r[1]) and r[1] <= r[2])]
+        bad += [(it + 1, *r) for r in out]
+        w = max(rows, key=lambda r: r[1] / r[2])
+        by_noise = sum(2 * noise[k] > bounds.get(k, E2E_FLOOR) for k in dist)
+        init = want["init"]
+        per_master = max(((n, rel_l2(torch, t - init[n], want["masters"][n] - init[n]))
+                          for n, t in mine["masters"].items()), key=lambda r: r[1])
+        same = len({r[name]["digest"][it] for r in got}) == 1
+        bitwise = got[0][name]["digest"][it] == ref["digest"][it]
+        up = [r for r in rows if r[0] == "update"][0]
+        lines.append(f"step {it + 1}: loss {loss!r} vs {want['loss']!r}; gradients concatenated "
+                     f"{dist['concatenated']!r} (the card's noise {noise['concatenated']!r}); the masters' update "
+                     f"concatenated {up[1]!r} (the card's noise {noise['update']!r}, bound {up[2]!r}); worst err / "
+                     f"bound {w[1] / w[2]!r} at {w[0]} ({w[1]!r} / {w[2]!r}); {len(out)} of {len(rows)} outside; "
+                     f"{by_noise} bounds set by the card's noise; the most distant tensor's update (ungated) "
+                     f"{per_master[0]} {per_master[1]!r}; masters bitwise equal across the ranks: {same}, bitwise "
+                     f"the one process's: {bitwise}")
+        bad += [] if same else [(it + 1, "the ranks' masters differ")]
+    b = len(ref["batch_rows"]) // len(got)
+    say(f"phase 13: {label}, {len(got)} rank(s) of {b} image(s) over {got[0]['backend']} ({smi}) against one process "
+        f"at batch {len(ref['batch_rows'])} on the same global batches, weights and generator: {'; '.join(lines)}")
+    if bad:
+        fail(f"phase 13 {label}: {len(bad)} outside, e.g. {bad[:4]}")
+    if not all(r[name]["frozen_same"] for r in got):
+        fail(f"phase 13 {label}: frozen parameters changed on a rank")
+    if "warm_ms" not in got[0][name]:
+        return
+    per_rank = "; ".join(f"rank {r['rank']}: warm step {r[name]['warm_ms']!r} ms, peak {r[name]['peak_gib']!r} GiB, "
+                         f"split {({k: v * 1000.0 for k, v in r[name]['times'].items()})} ms" for r in got)
+    say(f"phase 13: {label} ({smi}; host clock, synchronised; the split synchronised at each boundary): frozen "
+        f"parameters unchanged on every rank; {per_rank}; one process at batch {len(ref['batch_rows'])}: warm step "
+        f"{ref['warm_ms']!r} ms, peak {ref['peak_gib']!r} GiB, split "
+        f"{({k: v * 1000.0 for k, v in ref['times'].items()})} ms")
+
+
+def rel_l2(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp(min=1e-30))
+
+
+def step_distances(torch, mine, want, loss, want_loss) -> dict:
+    """{"loss", "concatenated", each trainable name: the relative
+    distance of one step's loss and gradients (saved dicts) from another's;
+    "update": that of the masters' change from `want["init"]`, all tensors
+    concatenated}."""
+    def flat(d, sub=None):
+        return torch.cat([(t - sub[n] if sub else t).reshape(-1) for n, t in d.items()])
+
+    out = {n: rel_l2(torch, g, want["grads"][n]) for n, g in mine["grads"].items()}
+    out.update(loss=abs(loss - want_loss) / abs(want_loss), concatenated=rel_l2(torch, flat(mine["grads"]),
+                                                                                flat(want["grads"])),
+               update=rel_l2(torch, flat(mine["masters"], want["init"]), flat(want["masters"], want["init"])))
+    return out
+
+
+def dp_reference(torch, cfg, model_cpu, batches, dev, root, tag):
+    """The one-process steps on the global batches (`dp_train`, timed),
+    their gradients and masters kept on the host, and the initial masters
+    (`init`); then the card's own bf16 noise at these shapes, phase 8's rule
+    measured here: the same steps on the images scaled by 1 +- 1e-3, each
+    step's distances (`step_distances`, the masters' update from `init`
+    among them) from the unscaled run's, the larger of the two kept per
+    step (`noise`)."""
+    import numpy as np
+
+    rec = dp_train(torch, cfg, model_cpu, batches, dev, save=os.path.join(root, f"{tag}_one_step"), timing=True)
+    init = torch.load(os.path.join(root, f"{tag}_one_stepinit.pt"), weights_only=False)
+    steps = [dict(torch.load(os.path.join(root, f"{tag}_one_step{it}.pt"), weights_only=False),
+                  loss=rec["metrics"][it]["loss_total"], init=init) for it in range(len(batches))]
+    noise = [{} for _ in batches]
+    for scale in (1.0 + 1e-3, 1.0 - 1e-3):
+        scaled = [dict(b, images=(b["images"] * np.float32(scale)).astype(np.float32)) for b in batches]
+        run = dp_train(torch, cfg, model_cpu, scaled, dev, assignment=rec["assignment"],
+                       save=os.path.join(root, f"{tag}_noise_step"))
+        for it, want in enumerate(steps):
+            mine = torch.load(os.path.join(root, f"{tag}_noise_step{it}.pt"), weights_only=False)
+            d = step_distances(torch, mine, want, run["metrics"][it]["loss_total"], want["loss"])
+            noise[it] = {k: max(v, noise[it].get(k, 0.0)) for k, v in d.items()}
+    return dict(rec, steps=steps, noise=noise, batch_rows=list(range(len(batches[0]["images"]))))
+
+
+def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_bounds):
+    """Phase 13: data parallelism on the one card. Two rank processes over
+    gloo (NCCL refuses two ranks on one device), each on the card with its
+    shard: MQ-GLIP-T training, 2 steps of phase 8's recipe at full width (1
+    image a rank, against one process at batch 2 on the same global
+    batches, weights and generator; dropout off, so both draw alike),
+    MQ-GroundingDINO-T 1 step of phase 9's (the assignment the one
+    process's), each gated by `dp_verdict` and on launches (78 `dcn_band` a
+    step a rank; 6 + 6 MSDA); `run_inference` over phase 7's 8 images, 4 a
+    rank, every detection bitwise phase 7's and the merged AP dict equal
+    (launches 624 `dcn_band` + 48 `bi_attention` an image a rank); the
+    extraction over the same images, rank 0's saved bank equal to phase 7's
+    `QueryBank.merge` of the ranks' stores in JAX's order, no other rank
+    saving. Then one rank over NCCL (a world of one, through
+    `init_distributed`): one GLIP step against the one process's first by
+    the same rule. Returns the launch counts, each path's summed over its
+    ranks."""
+    import numpy as np
+
+    from mqdet_torch.mq.bank import QueryBank
+    from mqdet_torch.utils.builders import build_model, init_params, landscape, mq_glip_t_pretrain_config
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    root = tempfile.mkdtemp(prefix="mqdet_dp_")
+    ds = landscape(glip_vq["dataset"])
+
+    glip_cfg = mq_glip_t_pretrain_config()
+    glip_batches = loader_batches(glip_cfg, ds, glip_vq["bank"], 2)
+    torch.save(glip_batches, os.path.join(root, "glip_batches.pt"))
+    glip_ref = dp_reference(torch, glip_cfg, init_params(build_model(glip_cfg), seed=seed), glip_batches, dev, root,
+                            "one_glip")
+    torch.cuda.empty_cache()
+    gdino_cfg = train_config_gdino()
+    gdino_batches = loader_batches(gdino_cfg, ds, gdino_vq["bank"], 1)
+    torch.save(gdino_batches, os.path.join(root, "gdino_batches.pt"))
+    gdino_ref = dp_reference(torch, gdino_cfg, init_params(build_model(gdino_cfg), seed=seed), gdino_batches, dev,
+                             root, "one_gdino")
+    np.save(os.path.join(root, "gdino_assignment.npy"), gdino_ref["assignment"])
+    glip_vq["bank"].save(os.path.join(root, "glip_bank.npz"))
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+
+    spec = {"seed": seed, "backend": "gloo", "tag": "gloo", "parts": ["glip", "gdino", "eval"], "timing": True,
+            "glip_batches": os.path.join(root, "glip_batches.pt"), "gdino_batches": os.path.join(root,
+                                                                                              "gdino_batches.pt"),
+            "gdino_assignment": os.path.join(root, "gdino_assignment.npy"),
+            "glip_bank": os.path.join(root, "glip_bank.npz"), "bank_path": os.path.join(root, "extracted.npz")}
+    t0 = time.perf_counter()
+    got = spawn_ranks(torch, spec, DP_RANKS, root)
+    ranks_s = time.perf_counter() - t0
+    if any(r["backend"] != "gloo" or r["world"] != DP_RANKS for r in got):
+        fail(f"phase 13: ranks report {[(r['backend'], r['world']) for r in got]}")
+    say(f"phase 13: {DP_RANKS} rank processes over gloo on the one card ({smi}), LOCAL_RANK 0 for both; "
+        f"{ranks_s!r} s; seconds by part {[r['seconds'] for r in got]}")
+    dp_verdict(torch, "MQ-GLIP-T training", glip_ref, got, root, "gloo", "glip", glip_bounds, smi)
+    dp_verdict(torch, "MQ-GroundingDINO-T training", gdino_ref, got, root, "gloo", "gdino", gdino_bounds, smi)
+
+    stages, levels = glip_cfg.MODEL.DYHEAD.NUM_CONVS, len(glip_cfg.MODEL.RPN.ANCHOR_STRIDE)
+    per_step = predicted(dcn_band=stages * (3 * levels - 2))
+    g = gdino_cfg.GROUNDINGDINO
+    per_gdino = predicted(ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers)
+    groups = -(-31 // 4)
+    per_image = predicted(dcn_band=groups * stages * (3 * levels - 2), bi_attention=groups * stages)
+    n_img = len(glip_vq["detections"])
+    for r in got:
+        want = {"glip": {k: 2 * v for k, v in per_step.items()}, "gdino": per_gdino}
+        for part, w in want.items():
+            if r[part]["launches"] != w:
+                fail(f"phase 13: rank {r['rank']} {part} launches {r[part]['launches']} != predicted {w}")
+        w = {k: v * n_img // DP_RANKS for k, v in per_image.items()}
+        if r["eval"]["eval_launches"] != w:
+            fail(f"phase 13: rank {r['rank']} run_inference launches {r['eval']['eval_launches']} != predicted {w}")
+        if any(r["eval"]["extract_launches"].values()):
+            fail(f"phase 13: rank {r['rank']} extraction launched {r['eval']['extract_launches']}")
+
+    # evaluation: each rank's detections bitwise phase 7's, the merged AP dicts phase 7's
+    want_dets, seen = glip_vq["detections"], {}
+    for r in got:
+        for img, d in r["eval"]["dets"].items():
+            if img in seen:
+                fail(f"phase 13: image {img} scored on two ranks")
+            seen[img] = d
+            if not all(np.array_equal(a, b) for a, b in zip(d, want_dets[img])):
+                fail(f"phase 13: rank {r['rank']} image {img}: detections differ from phase 7's")
+    if sorted(seen) != sorted(want_dets):
+        fail(f"phase 13: images scored {sorted(seen)} != phase 7's {sorted(want_dets)}")
+    want_res = {k: v for k, v in glip_vq["results"].items() if k not in ("seconds", "images_per_second")}
+    for r in got:
+        res = {k: v for k, v in r["eval"]["results"].items() if k != "images_per_second"}
+        if res != want_res:
+            fail(f"phase 13: rank {r['rank']}'s merged AP dict differs from phase 7's: "
+                 f"{({k: (res.get(k), want_res.get(k)) for k in want_res if k != 'per_category_AP'})}")
+    n_dets = sum(len(d[1]) for d in seen.values())
+    say(f"phase 13: run_inference over phase 7's {n_img} images on {DP_RANKS} ranks "
+        f"({[len(r['eval']['dets']) for r in got]} a rank): all {n_dets} detections bitwise phase 7's; the merged "
+        f"AP dict on every rank equal to phase 7's (AP {want_res['AP']!r}); img/s per rank "
+        f"{[r['eval']['results']['images_per_second'] for r in got]} (phase 7, one process: "
+        f"{glip_vq['results']['images_per_second']!r}); seconds per rank {[r['eval']['eval_s'] for r in got]}; "
+        f"launches per rank {[{k: v for k, v in r['eval']['eval_launches'].items() if v} for r in got]}")
+
+    # extraction: rank 0's saved bank is JAX's merge of the ranks' stores
+    stores = [r["eval"]["store"] for r in got]
+    cap = got[0]["eval"]["capacity"]
+    saved = QueryBank.load(spec["bank_path"])
+    want_bank = QueryBank(channels=saved.channels, num_scales=saved.num_scales)
+    want_bank._store = {k: v.copy() for k, v in stores[0].items()}
+    for store in stores[1:]:
+        other = QueryBank(channels=saved.channels, num_scales=saved.num_scales)
+        other._store = store
+        want_bank.merge(other, capacity=cap)
+    same = saved.labels == want_bank.labels and all(np.array_equal(saved.get(k), want_bank.get(k))
+                                                     for k in saved.labels)
+    saves = [r["eval"]["saves"] for r in got]
+    say(f"phase 13: extraction over the {n_img} images on {DP_RANKS} ranks: stores of "
+        f"{[sum(len(v) for v in s.values()) for s in stores]} queries; rank 0's saved bank {len(saved)} classes, "
+        f"{sum(saved.count(k) for k in saved.labels)} queries, equal to `QueryBank.merge` of the ranks' stores in "
+        f"rank order under MAX_QUERY_NUMBER {cap}: {same}; saves per rank {[len(s) for s in saves]}; seconds per "
+        f"rank {[r['eval']['extract_s'] for r in got]}")
+    if not same or len(saves[0]) != 1 or any(saves[1:]):
+        fail("phase 13: the extracted bank is not the merge of the ranks' stores, or not rank 0 alone saved it")
+
+    # NCCL at world 1: one GLIP step through init_distributed, the one process's first under the same rule
+    t0 = time.perf_counter()
+    (one,) = spawn_ranks(torch, dict(spec, backend="nccl", tag="nccl", parts=["glip"], steps=1, timing=False), 1, root)
+    if one["backend"] != "nccl" or one["world"] != 1:
+        fail(f"phase 13: the NCCL rank reports backend {one['backend']}, world {one['world']}")
+    dp_verdict(torch, "MQ-GLIP-T training through init_distributed('cuda', 'nccl')", glip_ref, [one], root, "nccl",
+               "glip", glip_bounds, smi)
+    say(f"phase 13: the NCCL rank: launches {({k: v for k, v in one['glip']['launches'].items() if v})} "
+        f"(predicted {({k: v for k, v in per_step.items() if v})}); {time.perf_counter() - t0!r} s")
+    if one["glip"]["launches"] != per_step:
+        fail("phase 13: the NCCL rank's launches differ from a step's")
+
+    summed = {}
+    for part, key in (("glip", None), ("gdino", None), ("eval", "eval_launches")):
+        counts = {}
+        for r in got:
+            for k, v in (r[part][key] if key else r[part]["launches"]).items():
+                counts[k] = counts.get(k, 0) + v
+        summed[f"phase 13 {part}"] = counts
+    summed["phase 13 NCCL step"] = one["glip"]["launches"]
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    say(f"phase 13: {time.perf_counter() - t_phase!r} s in all (one-process references {ref_s!r} s)")
+    return summed
+
+
+def multi_card(torch, cards, seed) -> int:
+    """`--cards N`: phase 13's MQ-GLIP-T training check over NCCL across N
+    cards of one host. The bank is pooled over phase 7's dataset by
+    `tools.train.extract_bank` with phase 7's model and settings; the
+    global batches are the train loader's at batch N over the landscape
+    images; the one process on card 0 gives the reference and the card's
+    noise (`dp_reference`); N ranks, one a card, take 1 image each
+    (`spawn_ranks` over NCCL) and `dp_verdict` gates them with E2E_FLOOR in
+    place of phase 8's bounds (those come from CPU bf16 runs this mode does
+    not make). Launches: 78 `dcn_band` a step a rank."""
+    import shutil
+
+    from mqdet_torch.ops import kernels
+    from mqdet_torch.tools import card
+    from mqdet_torch.tools.train import extract_bank
+    from mqdet_torch.utils.builders import (
+        build_model, init_params, landscape, mq_glip_t_pretrain_config, synthetic_lvis,
+    )
+
+    if torch.cuda.device_count() < cards:
+        fail(f"--cards {cards}: {torch.cuda.device_count()} CUDA device(s) visible")
+    t0 = time.perf_counter()
+    smi = card()
+    kernels.lib()  # built once here: the ranks load it
+    say(smi)
+    dev = torch.device("cuda", 0)
+    root = tempfile.mkdtemp(prefix="mqdet_cards_")
+    ds, _ = synthetic_lvis(root, seed)
+    cfg, model = dp_eval_model(torch, seed, dev)
+    c = vq_settings(cfg)
+    c.VISION_QUERY.QUERY_BANK_SAVE_PATH = os.path.join(root, "bank.npz")
+    bank, _ = extract_bank(c, model, ds, dev, log=lambda m: None)
+    del model
+    torch.cuda.empty_cache()
+    glip_cfg = mq_glip_t_pretrain_config()
+    glip_cfg.SOLVER.IMS_PER_BATCH = cards
+    batches = loader_batches(glip_cfg, landscape(ds), bank, 2)
+    torch.save(batches, os.path.join(root, "glip_batches.pt"))
+    ref = dp_reference(torch, glip_cfg, init_params(build_model(glip_cfg), seed=seed), batches, dev, root,
+                       "one_glip")
+    torch.cuda.empty_cache()
+    spec = {"seed": seed, "backend": "nccl", "tag": "cards", "parts": ["glip"], "timing": True,
+            "glip_batches": os.path.join(root, "glip_batches.pt")}
+    t1 = time.perf_counter()
+    got = spawn_ranks(torch, spec, cards, root)
+    if any(r["backend"] != "nccl" or r["world"] != cards for r in got):
+        fail(f"--cards: ranks report {[(r['backend'], r['world']) for r in got]}")
+    say(f"--cards {cards}: {cards} rank processes over NCCL, one a card; {time.perf_counter() - t1!r} s")
+    dp_verdict(torch, f"MQ-GLIP-T training over NCCL on {cards} cards", ref, got, root, "cards", "glip", {}, smi)
+    stages, levels = glip_cfg.MODEL.DYHEAD.NUM_CONVS, len(glip_cfg.MODEL.RPN.ANCHOR_STRIDE)
+    want = {k: 2 * v for k, v in predicted(dcn_band=stages * (3 * levels - 2)).items()}
+    for r in got:
+        if r["glip"]["launches"] != want:
+            fail(f"--cards: rank {r['rank']} launches {r['glip']['launches']} != predicted {want}")
+    shutil.rmtree(root, ignore_errors=True)
+    say(f"--cards {cards}: launches {want['dcn_band']} `dcn_band` on every rank, as predicted; "
+        f"{time.perf_counter() - t0!r} s in all")
+    print(json.dumps({"ok": True, "cards": cards, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-worker"]:  # one of phase 13's rank processes
+        return rank_worker(sys.argv[2])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runs", type=int, default=5, help="timed protocol runs per model")
+    ap.add_argument("--cards", type=int, default=0, help="run only the check across N >= 2 cards (`multi_card`)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -2439,6 +2995,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 references stay fp32
     torch.backends.cudnn.allow_tf32 = False
+    if args.cards:
+        return multi_card(torch, args.cards, args.seed)
 
     from mqdet_torch.ops import kernels
     from mqdet_torch.tools import card
@@ -2529,9 +3087,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phases 8 and 9: modulated pre-training -------------------------
-    launches["MQ-GLIP-T training"] = phase_train(torch, args.seed, glip_vq["dataset"], glip_vq["bank"], smi)
+    glip_bounds, gdino_bounds = {}, {}  # the reference steps' bounds, for phase 13
+    launches["MQ-GLIP-T training"] = phase_train(torch, args.seed, glip_vq["dataset"], glip_vq["bank"], smi,
+                                                 glip_bounds)
     launches["MQ-GroundingDINO-T training"] = phase_train_gdino(torch, args.seed, gdino_vq["dataset"],
-                                                                gdino_vq["bank"], smi)
+                                                                gdino_vq["bank"], smi, gdino_bounds)
 
     # ---- phase 10: the evaluation CLI ------------------------------------
     configs = merge_shipped_configs()
@@ -2557,6 +3117,9 @@ def main() -> int:
     launches["MQ-GLIP-L finetune"] = phase_finetune(torch, args.seed, glip_l, l_root, smi)
     del glip_l
     torch.cuda.empty_cache()
+
+    # ---- phase 13: data parallel on the one card ------------------------
+    launches.update(phase_data_parallel(torch, args.seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_bounds))
 
     say(f"wall time {time.perf_counter() - t_start!r} s (build included)")
     entries = []

@@ -7,9 +7,11 @@ label cap cuts it (`_one_example`), and each batch holds one bucket's
 images (`__iter__`; ROADMAP Queue C 1), so a portrait image trains in the
 rotated bucket with that bucket's anchors instead of failing to stack (a
 mixed batch) or training against the landscape anchors (a portrait batch).
-One process: the
-host sharding of the JAX module (`num_hosts`, `host_id`) defaults to 1 and 0
-here; DDP over NCCL is ROADMAP Queue A 4.1.
+The host sharding (`num_hosts`, `host_id`) defaults to the process group's
+world and rank (`parallel/comm.py`), as the JAX module's defaults to
+`jax.process_count()`; each rank's batch is SOLVER.IMS_PER_BATCH // world (the
+reference divides it by the number of GPUs, JAX's mesh over its devices),
+and a value that does not divide raises.
 
 Reference make_data_loader + CocoGrounding_New + BatchCollator
 (maskrcnn_benchmark/data/build.py:244-506,
@@ -31,6 +33,7 @@ from mqdet_torch.data import grounding as G
 from mqdet_torch.data.samplers import distributed_shard
 from mqdet_torch.data.transforms import TrainTransform
 from mqdet_torch.mq.selector import QuerySelector
+from mqdet_torch.parallel import comm
 
 
 class GroundingTrainLoader:
@@ -42,8 +45,8 @@ class GroundingTrainLoader:
         selector: Optional[QuerySelector] = None,
         max_gt: int = 64,
         seed: int = 0,
-        num_hosts: int = 1,
-        host_id: int = 0,
+        num_hosts: Optional[int] = None,
+        host_id: Optional[int] = None,
     ):
         self.dataset = dataset
         self.cfg = cfg
@@ -55,13 +58,19 @@ class GroundingTrainLoader:
         self.transform = TrainTransform(cfg)
         self.t_len = cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN
         self.max_labels = cfg.VISION_QUERY.MAX_CLASSES_PER_PROMPT
-        self.batch_size = max(1, cfg.SOLVER.IMS_PER_BATCH)
+        if num_hosts is None:
+            num_hosts, host_id = comm.get_world_size(), comm.get_rank()
+        num_hosts = max(1, num_hosts)
+        if cfg.SOLVER.IMS_PER_BATCH % num_hosts:
+            raise ValueError(f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} does not divide over {num_hosts} "
+                             "processes: the global batch is split evenly")
+        self.batch_size = max(1, cfg.SOLVER.IMS_PER_BATCH // num_hosts)
         copies = max(1, cfg.DATASETS.GENERAL_COPY)
         self.epoch_ids = list(dataset.ids) * copies
         # data sharding (reference DistributedSampler semantics,
         # data/samplers/distributed.py:12-72): every process shuffles the SAME
         # permutation (seed+epoch), then takes a strided shard.
-        self.num_hosts = max(1, num_hosts)
+        self.num_hosts = num_hosts
         self.host_id = host_id or 0
         self.epoch = 0
 

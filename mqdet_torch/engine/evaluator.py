@@ -13,8 +13,8 @@ category only scores on images where it is exhaustively annotated or
 explicitly negative) with a global per-category cap of 10k detections
 instead of a per-image cap.
 
-The cross-process merge (`state_dict`, `merge_state`) waits for the port's
-distributed runs (ROADMAP Queue A 4).
+`state_dict` and `merge_state` are the JAX module's cross-process merge
+(`engine/inference.py::run_inference` gathers every rank's state).
 """
 from __future__ import annotations
 
@@ -172,6 +172,42 @@ class DetectionEvaluator:
     def register_categories(self, cat_ids: Sequence[int]):
         for c in cat_ids:
             self._categories.add(int(c))
+
+    def state_dict(self) -> dict:
+        """Picklable snapshot of the accumulated records, for the cross-host
+        eval merge (twin of the reference's pickle all_gather of per-rank
+        prediction dicts, engine/inference.py:293-312 + the LVIS evaluator's
+        synchronize_between_processes, lvis/lvis_eval.py)."""
+        return {
+            "dets": dict(self._dets),
+            "gts": dict(self._gts),
+            "gt_ignore": dict(self._gt_ignore),
+            "images": self._images,
+            "cat_pos_images": dict(self._cat_pos_images),
+            "cat_neg_images": dict(self._cat_neg_images),
+            "cat_nel_images": dict(self._cat_nel_images),
+            "categories": self._categories,
+        }
+
+    def merge_state(self, state: dict) -> None:
+        """Merge another rank's snapshot. Images already accumulated locally
+        are skipped whole (per-image records must not double-count when the
+        host shards overlap, e.g. padded last batches)."""
+        new_images = state["images"] - self._images
+        self._images |= new_images
+        self._categories |= state["categories"]
+        for key, boxes in state["gts"].items():
+            if key[0] in new_images:
+                self._gts[key].extend(boxes)
+                self._gt_ignore[key].extend(state["gt_ignore"][key])
+        for cat, recs in state["dets"].items():
+            self._dets[cat].extend(
+                r for r in recs if r[1] in new_images
+            )
+        for name in ("cat_pos_images", "cat_neg_images", "cat_nel_images"):
+            mine = getattr(self, f"_{name}")
+            for cat, imgs in state[name].items():
+                mine[cat] |= imgs & new_images
 
     def summarize(self) -> Dict[str, float]:
         per_cat_ap: Dict[int, np.ndarray] = {}

@@ -12,7 +12,9 @@ groundingdino_new/models/GroundingDINO/loss.py:18-180, matcher.py:8-181).
     the real text tokens, summed, against per-query target rows (a matched
     query takes its gt's binarised positive-map row, every other query the
     `[no-obj]` one-hot of the last token), the L1 and 1 - GIoU of the matched
-    boxes, each divided by num_boxes (the batch's valid gt, at least 1);
+    boxes, each divided by num_boxes (the valid gt of the global batch, at
+    least 1: across processes the sum over the ranks, so each rank's loss is
+    its share of the global loss; the matching stays per image);
     then the weight-dict multipliers loss_ce / bbox / giou_coef (2 / 5 / 2)
     on the final layer and on every auxiliary layer (keys `{name}_{i}`),
     each of which is matched anew.
@@ -39,6 +41,7 @@ import torch.nn.functional as F
 
 from mqdet_torch.core import boxes as box_ops
 from mqdet_torch.ops.focal_loss import token_sigmoid_binary_focal_loss
+from mqdet_torch.parallel import comm
 
 BIG = 1e6
 NEG_INF_SUB = -1e4  # finite stand-in for ContrastiveEmbed's -inf padding
@@ -172,7 +175,10 @@ def gdino_set_loss(
     b_np, g_np = np.nonzero(assignment[0] >= 0)
     idx = torch.from_numpy(np.concatenate([b_np[None], g_np[None], assignment[:, b_np, g_np]])).to(dev)
     b_idx, g_idx, q_idx = idx[0], idx[1], idx[2:]
-    num_boxes = float(max(len(b_np), 1))
+    num_boxes = float(len(b_np))
+    if comm.get_world_size() > 1:
+        num_boxes = comm.all_reduce_sum(torch.tensor([num_boxes], dtype=torch.float64, device=dev)).item()
+    num_boxes = max(num_boxes, 1.0)
     tok = (gt_token_map > 0).float()
     tmask = text_masks
     t_len = outputs["pred_logits"].shape[-1]

@@ -16,10 +16,16 @@ the model's device once. Every group of an image is queued before the
 detections are fetched, in one wait: the same detections as the JAX
 module's fetch per group, and the same order of bank additions.
 
+Across processes (`parallel/comm.py`), `run_inference` scores the strided
+shard `ids[rank::world]` on each rank, gathers every rank's evaluator state
+and merges it before `summarize`, as the JAX module does: every rank returns
+the single-process summary, and `images_per_second` is the rank's own.
+`online_update` runs whole on each process, as in JAX.
+
 Refused with NotImplementedError, each naming its ROADMAP item:
 TEST.USE_MULTISCALE (test-time augmentation, `engine/box_aug.py`),
 VISION_QUERY.RETURN_ATTN_GATE_VALUE (gate telemetry), GLIPKNOW.KNOWLEDGE_FILE
-(`data/knowledge.py`), and more than one process.
+(`data/knowledge.py`).
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from mqdet_torch.data.transforms import EvalTransform
 from mqdet_torch.engine.evaluator import DetectionEvaluator
 from mqdet_torch.engine.predict import make_split_predict_fns
 from mqdet_torch.mq.selector import QuerySelector
+from mqdet_torch.parallel import comm
 
 
 class ChunkedEvaluationPlan:
@@ -128,9 +135,6 @@ def refuse_unported(cfg) -> None:
         raise NotImplementedError(
             "VISION_QUERY.RETURN_ATTN_GATE_VALUE needs the head's intermediates: not ported (ROADMAP Queue A 5)"
         )
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("evaluation across processes is not ported (ROADMAP Queue A 4)")
 
 
 def chunk_groups(plan: ChunkedEvaluationPlan, cp: int) -> List[List[int]]:
@@ -271,6 +275,8 @@ def run_inference(
     ids = dataset.ids[:max_images] if max_images else dataset.ids
     if vq.DEBUG:  # engine/inference.py:578-580: a couple of images for smoke runs
         ids = ids[:2]
+    world, rank = comm.get_world_size(), comm.get_rank()
+    ids = ids[rank::world]  # each rank its strided shard (the reference's DistributedSampler)
     t_eval = 0.0
     t0 = time.time()
     for count, img_id in enumerate(ids):
@@ -299,6 +305,10 @@ def run_inference(
             print(f"[inference] {count + 1}/{len(ids)} images, {(count + 1) / (time.time() - t0):.3f} img/s")
 
     t1 = time.perf_counter()
+    if world > 1:  # every rank's records, merged before scoring (engine/inference.py:293-312)
+        for r, st in enumerate(comm.all_gather(evaluator.state_dict())):
+            if r != rank:
+                evaluator.merge_state(st)
     results = evaluator.summarize()
     t_eval += time.perf_counter() - t1
     results["images_per_second"] = len(ids) / max(time.time() - t0, 1e-6)

@@ -6,7 +6,9 @@ Fixed shapes as in JAX: ground truth arrives padded to G boxes with a
 validity mask, and every argmax and threshold is masked, batched over the
 images. The per-level top-k of ATSS takes JAX's order among ties (the lower
 anchor index first, as `jax.lax.top_k` does): a stable ascending sort of the
-distances. Normalizers are sums over the whole batch.
+distances. Normalizers are sums over the whole batch: across processes,
+over the global batch (summed over the ranks, `parallel/comm.py`), as JAX
+sums them over its mesh, so each rank's loss is its share of the global loss.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 from mqdet_torch.core import boxes as box_ops
 from mqdet_torch.engine.optim import flax_path, flax_is_scalar
 from mqdet_torch.ops.focal_loss import token_sigmoid_binary_focal_loss
+from mqdet_torch.parallel import comm
 
 INF = 1e8
 
@@ -113,9 +116,9 @@ def glip_losses(head_out: Dict, anchors: torch.Tensor, level_sizes: Sequence[int
     with torch.no_grad():
         targets = atss_match(anchors, level_sizes, gt_boxes, gt_labels, gt_valid, gt_token_map, topk=topk)
         pos = targets.cls_labels > 0
-        total_pos = pos.sum().float().clamp(min=1.0)
+        total_pos = comm.all_reduce_sum(pos.sum().float()).clamp(min=1.0)
         ctr_t = torch.where(pos, centerness_targets(targets.reg_targets, anchors), 0.0)
-        sum_ctr = ctr_t.sum().clamp(min=1e-6)
+        sum_ctr = comm.all_reduce_sum(ctr_t.sum()).clamp(min=1e-6)
         tgt_boxes = box_ops.decode(targets.reg_targets, anchors)
 
     dp_loss = token_sigmoid_binary_focal_loss(
@@ -154,4 +157,4 @@ def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     valid = labels >= 0
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
-    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+    return torch.where(valid, nll, 0.0).sum() / comm.all_reduce_sum(valid.sum()).clamp(min=1)

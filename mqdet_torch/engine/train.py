@@ -23,6 +23,21 @@ same either way. MQ-GroundingDINO has no remat, as in JAX.
 Every draw comes from the generator the caller passes, which `do_train`
 makes from `(SOLVER.SEED, iteration)` alone (`step_generator`), as JAX's
 `fold_in(rng, iteration)`: a resumed run replays the same stream.
+
+Data parallel (`parallel/comm.py`; one process per card, launched by
+torchrun): N ranks of B/N images each compute the step one process computes
+on the global batch of B, as the JAX step does under its mesh. The losses'
+normalisers are summed over the ranks (`engine/losses.py`,
+`engine/gdino_losses.py`), so each rank's loss is its share of the global
+loss; the gate loss, the same on every rank, counts 1/N on each; the fp32
+gradients of the masters are summed over the ranks in one flat all-reduce
+(not DDP's, which would reduce the model's bf16 gradients) before the NaN/Inf
+zeroing; the NaN guard takes the global verdict; the logged losses are the
+sums over the ranks. Text dropout draws the global batch's (B, L) uniforms
+and takes the rank's rows, so N ranks mask the images one process would; the
+model's own draws (drop path, dropout) come from the step's generator folded
+with the rank (`rank_generator`; rank 0 keeps the step's stream), where JAX
+draws one global mask. In one process nothing of this runs.
 """
 from __future__ import annotations
 
@@ -37,6 +52,7 @@ from mqdet_torch.engine import gdino_losses as G
 from mqdet_torch.engine import losses as L
 from mqdet_torch.engine import optim as O
 from mqdet_torch.ops.anchors import anchors_for_fpn
+from mqdet_torch.parallel import comm
 
 MASK_TOKEN_ID = 103  # bert-base-uncased [MASK]
 PAD_TOKEN_ID = 0     # bert-base-uncased [PAD]
@@ -76,6 +92,16 @@ def step_generator(seed: int, iteration: int, device) -> torch.Generator:
     """The generator of one step: a pure function of (seed, iteration)."""
     g = torch.Generator(device=device)
     g.manual_seed(int(np.random.SeedSequence([int(seed), int(iteration)]).generate_state(1, np.uint64)[0] >> 1))
+    return g
+
+
+def rank_generator(generator: Optional[torch.Generator], rank: int) -> Optional[torch.Generator]:
+    """The generator of the model's own draws on `rank`: the step's own on
+    rank 0, else a new one seeded from (the step's seed, rank)."""
+    if rank == 0 or generator is None:
+        return generator
+    g = torch.Generator(device=generator.device)
+    g.manual_seed(int(np.random.SeedSequence([generator.initial_seed(), rank]).generate_state(1, np.uint64)[0] >> 1))
     return g
 
 
@@ -157,27 +183,38 @@ def _clock(times, device, key=None, t0=0.0):
 
 
 def _text_and_queries(batch, cfg, generator):
-    """(input ids after the vision-conditioned text dropout, queries, query mask)."""
+    """(input ids after the vision-conditioned text dropout, queries, query
+    mask, the generator of the model's draws). Across ranks the dropout's
+    uniforms are the global batch's, of which the rank takes its rows."""
     input_ids = batch["input_ids"]
     vq = cfg.VISION_QUERY
+    world, rank = comm.get_world_size(), comm.get_rank()
     if vq.ENABLED and vq.TEXT_DROPOUT > 0:
+        draws = None
+        if world > 1:
+            b, l = batch["pos_category_map"].shape[:2]
+            draws = torch.rand((b * world, l), generator=generator, device=input_ids.device)[rank * b:(rank + 1) * b]
         input_ids = apply_text_dropout(input_ids, batch["pos_category_map"], batch["has_query"], vq.TEXT_DROPOUT,
-                                       generator)
+                                       generator, draws=draws)
+    generator = rank_generator(generator, rank)
     if not vq.ENABLED:
-        return input_ids, None, None
-    return input_ids, batch.get("queries"), batch.get("query_mask")
+        return input_ids, None, None, generator
+    return input_ids, batch.get("queries"), batch.get("query_mask"), generator
 
 
 def _gate_loss(model, tx, cfg, device):
     """The gate loss over the trainable set's gates (the JAX package takes
-    it over the trainable leaves), on `device`."""
+    it over the trainable leaves), on `device`; 1/N of it on each of N
+    ranks, which hold the same gates."""
     params = dict(model.named_parameters())
     gates = [n for n in L.gate_parameters(model.named_parameters(), model) if n in tx.lr]
     vq = cfg.VISION_QUERY
 
     def loss():
-        return L.gate_loss_from_params(((n, params[n]) for n in gates), scale=vq.GATE_REGULARIZATION_SCALE,
-                                       regularize=vq.GATE_REGULARIZATION, model=model).to(device)
+        out = L.gate_loss_from_params(((n, params[n]) for n in gates), scale=vq.GATE_REGULARIZATION_SCALE,
+                                      regularize=vq.GATE_REGULARIZATION, model=model).to(device)
+        world = comm.get_world_size()
+        return out / world if world > 1 else out
 
     return loss
 
@@ -202,7 +239,7 @@ def make_train_step(model: torch.nn.Module, tx: O.AdamW, cfg):
         if bucket not in anchors_of:
             anchors_of[bucket] = glip_anchors(cfg, bucket, device)
         anchors, level_sizes = anchors_of[bucket]
-        input_ids, queries, query_mask = _text_and_queries(batch, cfg, generator)
+        input_ids, queries, query_mask, generator = _text_and_queries(batch, cfg, generator)
         with torch.set_grad_enabled(tower_trains):
             feats = model.encode_image(batch["images"], deterministic=False, generator=generator)
         head_out = model.forward_head(feats, input_ids, batch["attention_mask"], queries, query_mask,
@@ -251,7 +288,7 @@ def make_gdino_train_step(model: torch.nn.Module, tx: O.AdamW, cfg):
                  cost_giou=g.matcher.set_cost_giou, alpha=g.matcher.focal_alpha)
 
     def loss_fn(batch, generator, times, t0, assignment=None):
-        input_ids, queries, query_mask = _text_and_queries(batch, cfg, generator)
+        input_ids, queries, query_mask, generator = _text_and_queries(batch, cfg, generator)
         with torch.set_grad_enabled(tower_trains):
             srcs = model.encode_image(batch["images"], deterministic=False, generator=generator)
         out = model.forward_head(srcs, input_ids, batch["attention_mask"], queries, query_mask,
@@ -273,31 +310,55 @@ def make_gdino_train_step(model: torch.nn.Module, tx: O.AdamW, cfg):
     return train_step
 
 
+def _sum_over_ranks(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The gradients summed over the ranks by one all-reduce of a flat fp32
+    buffer; views of it, by name."""
+    flat = torch.cat([g.reshape(-1) for g in grads.values()])
+    comm.all_reduce_sum(flat)
+    out, at = {}, 0
+    for n, g in grads.items():
+        out[n] = flat[at:at + g.numel()].view_as(g)
+        at += g.numel()
+    return out
+
+
 def _finish_train_step(model: torch.nn.Module, tx: O.AdamW, loss_fn, ema_decay: float, device):
     """The shared tail of both steps (JAX's `_finish_train_step`): the
     masters into the model, `loss_fn(batch, generator, times, t0, **kw) ->
-    (losses, t0)`, the NaN/Inf guard on the total, the backward, the
-    gradients' NaN/Inf zeroing, the optimizer times `lr_scale`, the EMA."""
+    (losses, t0)`, the NaN/Inf guard on the total, the backward, across
+    ranks the gradients' sum (`allreduce` in `times`), the gradients' NaN/Inf
+    zeroing, the optimizer times `lr_scale`, the EMA. `grads_out`, a dict,
+    receives the gradients the optimizer takes."""
     params = dict(model.named_parameters())
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator, times=None,
-                   **kw):
+                   grads_out: Optional[Dict[str, torch.Tensor]] = None, **kw):
+        world = comm.get_world_size()
         t0 = _clock(times, device)
         load_trainable(model, state.trainable)
         for n in state.trainable:
             params[n].grad = None
         losses, t0 = loss_fn(batch, generator, times, t0, **kw)
         total = sum(losses.values())
-        # NaN/Inf zeroing (trainer.py:150-152): the step's loss, and so its gradients, become 0
-        total = torch.where(torch.isfinite(total), total, torch.zeros_like(total))
+        # NaN/Inf zeroing (trainer.py:150-152): the step's loss, and so its gradients, become 0; across
+        # ranks on the global verdict, as JAX's guard on the global total
+        finite = torch.isfinite(total)
+        if world > 1:
+            finite = comm.all_reduce_sum((~finite).float()) == 0
+        total = torch.where(finite, total, torch.zeros_like(total))
         t0 = _clock(times, device, "forward", t0)
         total.backward()
         t0 = _clock(times, device, "backward", t0)
         grads = {}
         for n, master in state.trainable.items():
             gr = params[n].grad
-            gr = torch.zeros_like(master) if gr is None else gr.float()
-            grads[n] = torch.where(torch.isfinite(gr), gr, torch.zeros_like(gr))
+            grads[n] = torch.zeros_like(master) if gr is None else gr.float()
+        if world > 1:
+            grads = _sum_over_ranks(grads)  # SUM: the losses carry the global normalisers
+            t0 = _clock(times, device, "allreduce", t0)
+        grads = {n: torch.where(torch.isfinite(g), g, torch.zeros_like(g)) for n, g in grads.items()}
+        if grads_out is not None:
+            grads_out.update(grads)
         updates, state.opt_state = tx.update(grads, state.opt_state, state.trainable)
         with torch.no_grad():
             for n, u in updates.items():
@@ -308,6 +369,6 @@ def _finish_train_step(model: torch.nn.Module, tx: O.AdamW, loss_fn, ema_decay: 
         _clock(times, device, "update", t0)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss_total"] = total.detach()
-        return state, metrics
+        return state, comm.reduce_dict(metrics)
 
     return train_step

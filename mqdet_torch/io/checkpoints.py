@@ -9,6 +9,10 @@ weight file) under `output_dir/ckpts/`, a `last_checkpoint` tag file and the
 arguments as JSON, and keeps the newest `max_to_keep` checkpoints;
 `restore(template, step=None)` returns (state, step) on the template's
 devices; `has_checkpoint`, `last_step`, `load_arguments`.
+
+Across processes (`parallel/comm.py`) the ranks hold the same state: rank 0
+writes it, and every rank waits at a barrier before `save` returns, so a
+restore after it reads the finished file on every rank.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+from mqdet_torch.parallel import comm
 
 
 def _to(obj, device_of):
@@ -44,6 +50,12 @@ class Checkpointer:
 
     def save(self, step: int, state, arguments: Optional[Dict[str, Any]] = None) -> str:
         path = self._path(step)
+        if comm.is_main_process():
+            self._write(step, path, state, arguments)
+        comm.synchronize()
+        return path
+
+    def _write(self, step: int, path: str, state, arguments) -> None:
         torch.save({f.name: getattr(state, f.name) for f in dataclasses.fields(state)}, path + ".tmp")
         os.replace(path + ".tmp", path)
         with open(os.path.join(self.output_dir, "last_checkpoint"), "w") as f:
@@ -53,7 +65,6 @@ class Checkpointer:
                 json.dump(arguments, f, default=str)
         for old in self.steps()[:-self.max_to_keep] if self.max_to_keep > 0 else []:
             os.remove(self._path(old))
-        return path
 
     def has_checkpoint(self) -> bool:
         return os.path.exists(os.path.join(self.output_dir, "last_checkpoint"))

@@ -1,8 +1,7 @@
 """Vision-query bank: storage, import, accumulation. The port's copy of
 `mqdet_tpu/mq/bank.py` (framework-free; pinned to the original by
-`tests/test_torch_port_querybank.py`), single-process: the JAX module's
-cross-process `allgather_merge` waits for the port's distributed runs
-(ROADMAP Queue A 4).
+`tests/test_torch_port_querybank.py`; `allgather_merge` by
+`tests/test_torch_port_distributed.py`).
 
 The reference's bank is a dict label -> (num_queries, num_scales, C) tensor
 saved with torch.save (tools/train_net.py:324-336, loaded by QuerySelector,
@@ -153,3 +152,17 @@ class QueryBank:
         unmerged, tools/train_net.py:305-336)."""
         for lab in other.labels:
             self.add(lab, other.get(lab), capacity=capacity)
+
+    def allgather_merge(self, capacity: Optional[int] = None) -> None:
+        """Merge every other process's entries into this bank, in rank order
+        after its own, under `capacity` (the JAX module's; the reference
+        leaves one unmerged file per rank). No-op in one process."""
+        from mqdet_torch.parallel import comm
+
+        if comm.get_world_size() == 1:
+            return
+        for r, store in enumerate(comm.all_gather(dict(self._store))):
+            if r == comm.get_rank():
+                continue
+            for lab in sorted(store):
+                self.add(int(lab), store[lab], capacity=capacity)

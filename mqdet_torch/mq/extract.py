@@ -80,11 +80,11 @@ def extract_queries_into_bank(
     return bank
 
 
-def dataset_extraction_iter(dataset, transform, device="cuda"):
+def dataset_extraction_iter(dataset, transform, device="cuda", ids=None):
     """The JAX training CLI's extraction iterator (tools/train.py:214-225):
-    per image of `dataset`, the transformed image on `device` and its GT
-    boxes mapped into the resized image."""
-    for img_id in dataset.ids:
+    per image of `dataset` (or of `ids`, a rank's shard), the transformed
+    image on `device` and its GT boxes mapped into the resized image."""
+    for img_id in dataset.ids if ids is None else ids:
         image, (oh, ow), (sy, sx) = transform(dataset.load_image(img_id), device)
         boxes, labels = dataset.annotations(img_id)
         yield {

@@ -4,6 +4,7 @@
     python -m mqdet_torch.tools.eval --config-file configs/vision_query_5shot/lvis_minival.yaml \\
         --weight MODEL/mq-glip-t.pth [--task-config X.yaml] [--additional-model-config Y.yaml] \\
         [--max-images N] [--lvis] [--calibrate-deform] [--profile-dir DIR] [--device cpu] [KEY VALUE ...]
+    torchrun --nproc_per_node=8 -m mqdet_torch.tools.eval --config-file ... --weight W.pth [KEY VALUE ...]
 
 The config is layered as in training (`tools/train.py::load_config`; the
 yaml is read by `core/yaml_lite.py`, since the card's machine has no
@@ -17,7 +18,11 @@ test-time online update (VISION_QUERY.ONLINE_UPDATE), evaluates
 TEST[0] in the style its dataset's type picks (`engine/eval_dispatch.py`:
 COCO, LVIS fixed AP, VOC, phrase grounding), writes OUTPUT_DIR/bbox.csv
 (the JAX CLI's columns and format) and checks TEST.EXPECTED_RESULTS.
-Everything runs on the card unless the caller asks for the CPU.
+Everything runs on the card unless the caller asks for the CPU. Under
+torchrun (WORLD_SIZE > 1) every process joins the group on `cuda:LOCAL_RANK`
+(`parallel/comm.py::init_distributed`), `run_inference` scores each rank's
+strided shard of the images and merges the evaluators' records, the online
+update runs whole on every rank (as in JAX), and rank 0 writes bbox.csv.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from mqdet_torch.parallel import comm
 from mqdet_torch.tools.train import build_cli_model, build_dataset, load_bank, load_config, load_weights
 
 BBOX_CSV_COLUMNS = ("AP", "AP50", "AP75", "APr", "APc", "APf", "mAP", "recall@1", "recall@5", "recall@10")
@@ -146,8 +152,9 @@ def evaluate(cfg, dataset=None, device="cuda", tokenizer=None, max_images: Optio
         results = run_evaluation(cfg, model, dataset, tokenizer, selector, max_images=max_images,
                                  dataset_name=cfg.DATASETS.TEST[0], force_lvis=force_lvis)
     lap("evaluation")
-    log({k: v for k, v in results.items() if not isinstance(v, dict)})
-    write_bbox_csv(results, cfg.OUTPUT_DIR)
+    if comm.is_main_process():
+        log({k: v for k, v in results.items() if not isinstance(v, dict)})
+        write_bbox_csv(results, cfg.OUTPUT_DIR)
     if cfg.TEST.EXPECTED_RESULTS:
         check_expected_results(results, cfg.TEST.EXPECTED_RESULTS, cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL)
         log("expected-results check passed")
@@ -156,10 +163,13 @@ def evaluate(cfg, dataset=None, device="cuda", tokenizer=None, max_images: Optio
 
 def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, float]:
     args = parse_args(argv)
+    device = args.device or device
+    if comm.launched_by_torchrun():
+        device = comm.init_distributed(device)
     cfg = load_config(args)
     if args.weight:
         cfg.MODEL.WEIGHT = args.weight
-    return evaluate(cfg, device=args.device or device, max_images=args.max_images, force_lvis=args.lvis,
+    return evaluate(cfg, device=device, max_images=args.max_images, force_lvis=args.lvis,
                     calibrate_deform=args.calibrate_deform, profile_dir=args.profile_dir)
 
 

@@ -6,6 +6,11 @@ path.
 
     python -m mqdet_torch.tools.extract_queries --config-file configs/pretrain/mq-glip-t.yaml \\
         --dataset lvis --num_vision_queries 5 [--add_name tiny] [--save_path P] [KEY VALUE ...]
+    torchrun --nproc_per_node=8 -m mqdet_torch.tools.extract_queries --config-file ... --dataset lvis
+
+Under torchrun each rank's extraction process inherits the group's
+environment and joins it: the images are sharded by rank, the banks merged,
+and rank 0 saves the one bank (`tools/train.py::extract_bank`).
 """
 from __future__ import annotations
 

@@ -1,11 +1,17 @@
 """Few-shot finetuning over ODinW-style task configs: the port's counterpart
-of the JAX package's `tools/finetune.py` (reference tools/finetune.py), on
-one device.
+of the JAX package's `tools/finetune.py` (reference tools/finetune.py).
 
     python -m mqdet_torch.tools.finetune --config-file configs/pretrain/mq-glip-t.yaml \\
         --ft-tasks configs/odinw_13/pothole.yaml[,TASK2.yaml ...] \\
         [--custom_shot_and_epoch_and_general_copy 3_200_4] [--weight W.pth] [--seeds 0,1,2] \\
         [--device cpu] [KEY VALUE ...]
+    torchrun --nproc_per_node=8 -m mqdet_torch.tools.finetune --config-file ... --ft-tasks ... [KEY VALUE ...]
+
+Under torchrun (WORLD_SIZE > 1) every process joins the group on
+`cuda:LOCAL_RANK` (`parallel/comm.py::init_distributed`), extracts the whole
+temporary bank itself (the few-shot split is small; every rank holds the
+single-process bank), trains data-parallel and evaluates its shard of the
+test split (`run_inference` merges them); rank 0 prints.
 
 Per task yaml and shuffle seed, as the JAX tool:
 - the config: the base yaml, the task yaml, then the opts; DATASETS.FEW_SHOT,
@@ -51,6 +57,7 @@ from mqdet_torch.engine.trainer import do_train
 from mqdet_torch.mq.bank import QueryBank
 from mqdet_torch.mq.extract import dataset_extraction_iter, extract_queries_into_bank, make_extract_fn
 from mqdet_torch.mq.selector import QuerySelector
+from mqdet_torch.parallel import comm
 from mqdet_torch.tools.train import build_cli_model, build_dataset, load_bank, load_weights
 
 
@@ -128,15 +135,19 @@ def finetune_one(cfg, device, tokenizer, model_fn: Callable = build_cli_model, d
 def main(argv: Optional[List[str]] = None, device="cuda", model_fn: Callable = build_cli_model,
          dataset_fn: Callable = build_dataset, log: Callable = print) -> Dict[Tuple[str, int], float]:
     args = parse_args(argv)
+    device = args.device or device
+    if comm.launched_by_torchrun():
+        device = comm.init_distributed(device)
     shot, epoch, copies = (int(x) for x in args.custom_shot_and_epoch_and_general_copy.split("_"))
     results: Dict[Tuple[str, int], float] = {}
     for task in args.ft_tasks.split(","):
         for seed in (int(s) for s in args.seeds.split(",")):
             cfg = task_config(args.config_file, task, args.opts, shot, epoch, copies, seed, args.weight)
             tokenizer = get_tokenizer(cfg.MODEL.LANGUAGE_BACKBONE.TOKENIZER_TYPE)
-            results[(task, seed)] = finetune_one(cfg, args.device or device, tokenizer, model_fn, dataset_fn, log)
-            print(f"[finetune] {task} seed={seed}: AP={results[(task, seed)]:.4f}")
-    if results:
+            results[(task, seed)] = finetune_one(cfg, device, tokenizer, model_fn, dataset_fn, log)
+            if comm.is_main_process():
+                print(f"[finetune] {task} seed={seed}: AP={results[(task, seed)]:.4f}")
+    if results and comm.is_main_process():
         avg = sum(results.values()) / len(results)
         print(f"[finetune] average AP over {len(results)} runs: {avg:.4f}")
     return results

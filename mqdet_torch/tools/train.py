@@ -1,10 +1,18 @@
 """Modulated pre-training of MQ-GLIP and MQ-GroundingDINO, and query-bank
-extraction: the port's counterpart of the JAX package's `tools/train.py`,
-on one device.
+extraction: the port's counterpart of the JAX package's `tools/train.py`.
 
     python -m mqdet_torch.tools.train --config-file configs/pretrain/mq-glip-t.yaml \\
         [--task-config X.yaml] [--additional-model-config Y.yaml] [--extract-query] \\
         [--resume] [--profile-dir DIR] [--device cpu] [KEY VALUE ...]
+    torchrun --nproc_per_node=8 -m mqdet_torch.tools.train --config-file ... [KEY VALUE ...]
+
+Under torchrun (WORLD_SIZE > 1) every process joins the group
+(`parallel/comm.py::init_distributed`: NCCL on `cuda:LOCAL_RANK`, gloo with
+--device cpu) and trains data-parallel on SOLVER.IMS_PER_BATCH / world
+images (`engine/train.py`); rank 0 writes the config, the logs and the
+checkpoints. Extraction shards the images by rank, merges the ranks' banks
+(`QueryBank.allgather_merge`) and rank 0 saves the one bank. Without torchrun
+it runs on one device.
 
 `main` layers the config (`load_config`: the base yaml, then --task-config,
 then --additional-model-config, then the dotted KEY VALUE opts; the yaml is
@@ -46,11 +54,12 @@ from mqdet_torch.engine.train import init_train_state, make_gdino_train_step, ma
 from mqdet_torch.engine.trainer import do_train
 from mqdet_torch.io.checkpoints import Checkpointer
 from mqdet_torch.mq.selector import QuerySelector
+from mqdet_torch.parallel import comm
 from mqdet_torch.utils.builders import build_model, init_params
 
 
 def parse_args(argv: Optional[List[str]] = None):
-    p = argparse.ArgumentParser(description="MQ-Det training on one device (PyTorch)")
+    p = argparse.ArgumentParser(description="MQ-Det training (PyTorch), data-parallel under torchrun")
     p.add_argument("--config-file", required=True)
     p.add_argument("--task-config", default=None)
     p.add_argument("--additional-model-config", default=None)
@@ -212,10 +221,13 @@ def train(cfg, dataset, bank, output_dir: str, resume: bool = False, device="cud
 
 
 def extract_bank(cfg, model, dataset, device="cuda", log: Callable = print):
-    """The --extract-query branch (reference tools/train_net.py:287-336, one
-    process): every GT box of `dataset` pooled into a new bank, saved to
-    QUERY_BANK_SAVE_PATH (else OUTPUT_DIR/query_bank.npz). Returns (bank,
-    path)."""
+    """The --extract-query branch (reference tools/train_net.py:287-336):
+    every GT box of `dataset` pooled into a new bank, saved to
+    QUERY_BANK_SAVE_PATH (else OUTPUT_DIR/query_bank.npz). Across processes
+    each rank pools its strided shard of the images, the banks are merged
+    in rank order (`allgather_merge`, under MAX_QUERY_NUMBER) and rank 0
+    saves the merged bank while the others wait (JAX tools/train.py:216,
+    238-246). Returns (bank, path)."""
     from mqdet_torch.data.transforms import EvalTransform
     from mqdet_torch.mq.bank import QueryBank
     from mqdet_torch.mq.extract import dataset_extraction_iter, extract_queries_into_bank, make_extract_fn
@@ -224,12 +236,18 @@ def extract_bank(cfg, model, dataset, device="cuda", log: Callable = print):
     dtype = getattr(torch, cfg.TPU.COMPUTE_DTYPE) if device.type == "cuda" else torch.float32
     model = model.to(device, dtype).to(memory_format=torch.channels_last).eval()
     bank = QueryBank(channels=cfg.MODEL.BACKBONE.OUT_CHANNELS, num_scales=cfg.VISION_QUERY.NUM_SCALES)
-    extract_queries_into_bank(make_extract_fn(model, cfg), dataset_extraction_iter(dataset, EvalTransform(cfg), device),
-                              bank, max_query_number=cfg.VISION_QUERY.MAX_QUERY_NUMBER)
+    cap = cfg.VISION_QUERY.MAX_QUERY_NUMBER
+    ids = list(dataset.ids)[comm.get_rank()::comm.get_world_size()]
+    extract_queries_into_bank(make_extract_fn(model, cfg),
+                              dataset_extraction_iter(dataset, EvalTransform(cfg), device, ids), bank,
+                              max_query_number=cap)
+    bank.allgather_merge(capacity=cap)
     path = cfg.VISION_QUERY.QUERY_BANK_SAVE_PATH or os.path.join(cfg.OUTPUT_DIR, "query_bank.npz")
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    bank.save(path)
-    log(f"saved query bank ({len(bank)} classes) to {path}")
+    if comm.is_main_process():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        bank.save(path)
+        log(f"saved query bank ({len(bank)} classes) to {path}")
+    comm.synchronize()
     return bank, path
 
 
@@ -240,10 +258,13 @@ def main(argv: Optional[List[str]] = None, device="cuda"):
 
     args = parse_args(argv)
     device = args.device or device
+    if comm.launched_by_torchrun():
+        device = comm.init_distributed(device)
     cfg = load_config(args)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yml"), "w") as f:
-        f.write(cfg.dump_yaml())
+    if comm.is_main_process():
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yml"), "w") as f:
+            f.write(cfg.dump_yaml())
 
     tokenizer = get_tokenizer(cfg.MODEL.LANGUAGE_BACKBONE.TOKENIZER_TYPE)
     dataset = build_dataset(cfg, cfg.DATASETS.TRAIN[0], train=True)
@@ -262,7 +283,8 @@ def main(argv: Optional[List[str]] = None, device="cuda"):
     with prof:
         state, best = train(cfg, dataset, load_bank(cfg), cfg.OUTPUT_DIR, resume=args.resume, device=device,
                             model=model, tokenizer=tokenizer)
-    print(f"training done; best eval result: {best}")
+    if comm.is_main_process():
+        print(f"training done; best eval result: {best}")
     return state, best
 
 

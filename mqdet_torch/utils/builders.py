@@ -38,6 +38,33 @@ def mq_glip_l_config() -> CfgNode:
     return cfg
 
 
+def pretrain_settings(cfg: CfgNode) -> CfgNode:
+    """`cfg` with the training settings of configs/pretrain/mq-glip-t.yaml:
+    recipe vision_query (the GCP pieces train), AdamW at BASE 1e-4 / GATE
+    5e-3 / QUERY 1e-5 / LANG 1e-5, weight decay 1e-4, MODEL_EMA 0.999, text
+    dropout 0.4, 5 queries a class, RANDOM_SAMPLE_NEG 85; batch 2 (the
+    yaml's 16 over 8 GPUs). The warmup (2000 iterations from 1e-3) is cut to
+    0: from its first steps the LR would move no 1.0-valued norm weight in
+    fp32, and a step's time does not depend on the LR."""
+    s, vq = cfg.SOLVER, cfg.VISION_QUERY
+    s.TUNING_HIGHLEVEL_OVERRIDE = "vision_query"
+    s.BASE_LR, s.GATE_LR, s.QUERY_LR, s.LANG_LR, s.WEIGHT_DECAY = 1e-4, 5e-3, 1e-5, 1e-5, 1e-4
+    s.STEPS, s.MODEL_EMA, s.IMS_PER_BATCH, s.WARMUP_ITERS, s.MAX_TO_KEEP = (0.95,), 0.999, 2, 0, 4
+    s.MAX_ITER = 1000
+    vq.TEXT_DROPOUT, vq.NUM_QUERY_PER_CLASS, vq.PURE_TEXT_RATE = 0.4, 5, 0.0
+    cfg.DATASETS.RANDOM_SAMPLE_NEG = 85
+    return cfg
+
+
+def mq_glip_t_pretrain_config() -> CfgNode:
+    """MQ-GLIP-T under `pretrain_settings`, with the yaml's multi-scale
+    resize (480-800, max 1333) into the 800x1344 bucket."""
+    cfg = pretrain_settings(mq_glip_t_config())
+    cfg.INPUT.MIN_SIZE_TRAIN, cfg.INPUT.MAX_SIZE_TRAIN = 800, 1333
+    cfg.AUGMENT.MULT_MIN_SIZE_TRAIN = (480, 560, 640, 720, 800)
+    return cfg
+
+
 def tiny_l_config() -> CfgNode:
     """`tiny_test_config` in MQ-GLIP-L's shape, for CPU tests: window 12 (a
     small image pads at every Swin stage), a third stage of 3 blocks (the
@@ -228,3 +255,77 @@ def init_params(model: torch.nn.Module, seed: int = 0, scale: float = 0.02) -> t
         else:
             t.copy_(torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32) * scale))
     return model
+
+
+LVIS_FREQUENCIES = {"r": 337, "c": 461, "f": 405}  # LVIS v1's 1203 categories by frequency
+
+
+def synthetic_lvis(root: str, seed: int):
+    """An LVIS-shaped dataset written from `seed` into `root`: 1203
+    categories with seeded pseudo-word names (some with LVIS's '_' and
+    '(...)') and r/c/f frequencies in LVIS v1's proportions; 8 images, 6
+    landscape 480x640 and 2 portrait 640x480; 2-6 boxes each over a pool of
+    40 categories; neg and not-exhaustive category ids per image. The json is
+    read by the port's `CocoDetectionDataset`; `load_image` is overridden
+    with seeded pixels (smooth noise, uint8), so nothing needs PIL to read
+    an image file. Returns (dataset, {contiguous label: frequency})."""
+    import json
+    import os
+
+    from mqdet_torch.data.coco import CocoDetectionDataset
+
+    rng = np.random.default_rng(seed + 7)
+    syllables = ["ka", "lo", "mi", "ne", "ru", "ta", "vo", "zi", "pe", "sa", "do", "gu", "bri", "sto", "fen"]
+    freq = rng.permutation(np.repeat(list(LVIS_FREQUENCIES), list(LVIS_FREQUENCIES.values())))
+    names, cats = set(), []
+    for i in range(len(freq)):
+        name = "".join(rng.choice(syllables, rng.integers(2, 4)))
+        if i % 5 == 1:
+            name += "_" + "".join(rng.choice(syllables, 2))
+        elif i % 7 == 2:
+            name += "_(" + "".join(rng.choice(syllables, 2)) + ")"
+        while name in names:
+            name += "s"
+        names.add(name)
+        cats.append({"id": i + 1, "name": name, "frequency": str(freq[i])})
+    pool = np.concatenate([rng.choice(np.flatnonzero(freq == f), 14 if f == "r" else 13, replace=False)
+                           for f in LVIS_FREQUENCIES]) + 1
+    images, anns = [], []
+    for i in range(8):
+        h, w = (480, 640) if i < 6 else (640, 480)
+        n = int(rng.integers(2, 7))
+        labels = rng.choice(pool, n)
+        others = [int(c) for c in pool if c not in labels]
+        images.append({"id": i + 1, "file_name": f"{i + 1}.jpg", "height": h, "width": w,
+                       "neg_category_ids": [int(c) for c in rng.choice(others, 3, replace=False)],
+                       "not_exhaustive_category_ids": [int(c) for c in rng.choice(pool, 2, replace=False)]})
+        for lab in labels:
+            bw, bh = rng.uniform(20, w * 0.6), rng.uniform(20, h * 0.6)
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": int(lab),
+                         "bbox": [x0, y0, bw, bh], "area": bw * bh, "iscrowd": 0})
+    ann_file = os.path.join(root, "lvis_synthetic.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+
+    class SeededImages(CocoDetectionDataset):
+        def load_image(self, img_id):
+            im = self.images[img_id]
+            g = torch.Generator().manual_seed(seed * 1000 + img_id)
+            low = torch.rand(1, 3, im["height"] // 32, im["width"] // 32, generator=g) * 255.0
+            img = torch.nn.functional.interpolate(low, size=(im["height"], im["width"]), mode="bilinear")
+            return img[0].permute(1, 2, 0).round().to(torch.uint8).numpy()
+
+    ds = SeededImages(ann_file, img_dir=root)
+    return ds, {ds.cat_id_to_contiguous[c["id"]]: c["frequency"] for c in ds.categories}
+
+
+def landscape(dataset, portrait: bool = False):
+    """A shallow copy of `dataset` holding its landscape images (or its
+    portrait ones): the loader fills one batch per bucket, so a dataset of
+    one orientation yields a batch for every IMS_PER_BATCH images."""
+    import copy
+
+    ds = copy.copy(dataset)
+    ds.ids = [i for i in dataset.ids if (dataset.image_size(i)[0] < dataset.image_size(i)[1]) != portrait]
+    return ds
