@@ -7,8 +7,9 @@ Run from the root of a checkout. It needs a CUDA device and the CUDA toolkit
 (`nvcc`); it imports nothing of JAX, and neither PyYAML nor PIL. It drives
 both evaluation paths of the port, MQ-GLIP-T and MQ-GroundingDINO-T, the
 modulated pre-training of both, the evaluation CLI, MQ-GLIP-L through the
-same entry points (with TPU.REMAT in training) and the few-shot finetuning
-CLI. Phases, each printing lines:
+same entry points (with TPU.REMAT in training), the few-shot finetuning
+CLI, data parallelism and MQ-Det's model switches. Phases, each printing
+lines:
 
   1. the card (`nvidia-smi` name and power limit) and the kernels' build from
      `mqdet_torch/csrc/` with nvcc for sm_90a (one nvcc per source, in
@@ -126,10 +127,12 @@ CLI. Phases, each printing lines:
      in fp32: the loss and every trainable gradient within phase 3's rule,
      the bf16 drift taken as the largest of three CPU bf16 runs (images
      scaled by 1 and 1 +- 1e-3), and the concatenated gradient within twice
-     the unscaled run's drift; each DCN Function's backward (band, K2,
-     exact) at GLIP's level-0 and level-1 shapes, B 2, offsets x3, against
+     the unscaled run's drift, the card step taken twice and both gated
+     (atomic adds: the two readings show the card's own spread); each DCN
+     Function's backward (band, K2, exact) at GLIP's level-0 and level-1
+     shapes, B 2, offsets x3, against
      the fp32 plain VJP within 2e-2 * max|ref|, with the level-0 backward's
-     time. Then 2 warm-up and 8 timed steps: ms per step, train img/s, peak
+     time. Then 2 warm-up and 4 timed steps: ms per step, train img/s, peak
      memory, launches (gated: 78 `dcn_band` a forward, no bi-attention
      kernel: the fusion's training composite); one step split at forward /
      backward / update; one profiled step (device busy, idle share, the DCN
@@ -233,22 +236,47 @@ CLI. Phases, each printing lines:
      one GLIP step against the one process's first by the same rule (the
      step is not bitwise repeatable on the card: its backward's atomic
      adds sum in varying order). Each
-     rank's step ms, split and peak memory are printed.
+     rank's step ms, split and peak memory are printed;
+ 14. last, MQ-Det's model switches (`phase_switches`), MQ-GLIP-T at full
+     width, S1 and MHA-S from init_params(seed), the others sharing MHA-S's
+     weights (`init_like`): S1 (`switch_config`: NO_CAT off,
+     ADD_ADAPT_LAYER, SHARE_KV, AUGMENT_IMAGE_WITH_QUERY, NEW_MASK_TOKEN,
+     ADD_VISION_LAYER, QUERY_FUSION, LEARNABLE_BANK filled from phase 7's
+     bank, ADD_LINEAR_LAYER, MLM_LOSS), MHA-S, SCAN, FILM and S8
+     (EARLY_FUSE_ON, USE_FUSED_FEATURES_DOT_PRODUCT, USE_DFCONV,
+     USE_DYFUSE, USE_DYRELU off), each a whole model checked at 256x256 by
+     phase 3's rule (logits, boxes, S1's `mlm_logits`; launches 78
+     `dcn_band`, 0 under S8, and 6 `bi_attention` under S1 alone; two
+     card forwards each, both gated);
+     CONDITION_GATE off, NONLINEAR_GATE off and FIX_ATTN_GATE 0.25 on the
+     full-width language tower alone; phase 4's protocol (without phase
+     5) under S1 (the learnable bank's indices), MHA-S and FILM, launches
+     624 `dcn_band` in all three and 48 `bi_attention` under S1 alone;
+     `run_inference` under RETURN_ATTN_GATE_VALUE on 2 of phase 7's images
+     (`attn_gate_value` within 1e-2 of the CPU's, the detections bitwise
+     the run's without the flag); S1 training under `vision_query_v5`
+     (phase 8's reference step, 3 steps at batch 2 and 800x1344 with 78
+     `dcn_band` each, `loss_mlm` finite, the bank entries with a query
+     moved and every entry no batch names bitwise, the frozen parameters
+     bitwise; ms a step, peak memory, the MLM head's share).
 
     python3 chip_smoke.py --cards N
 
 runs instead the one check that needs N >= 2 cards of one host
 (`multi_card`): phase 13's MQ-GLIP-T training over NCCL, one rank a card
 (LOCAL_RANK r on `cuda:r`), 2 steps of 1 image a rank against one process
-at batch N on card 0, gated by phase 13's rule with E2E_FLOOR in place of
-phase 8's bounds (twice the card's own noise, floor 1e-2); its last line is
+at batch N on card 0, gated by phase 13's rule: each tensor's bound the
+larger of phase 8's CPU bound (`phase_train_reference` on this host) and
+twice the card's own noise, taken over 4 perturbed runs of the one process
+(images x(1 +- 1e-3) and x(1 +- 2e-3)); the line counts the bounds at 1 or
+more, which pass a zero gradient; its last line is
 {"ok": true, "cards": N, ...}.
 
 The line before the last is a JSON object with one entry per kernel (its
 launches summed over the counted paths: the protocols, phase 3's card runs,
 the sweep path, phase 7's evaluation and update, phases 8 and 9's timed
-training steps, phase 10's CLI runs, phases 11 and 12's paths and phase
-13's, summed over its ranks); the last
+training steps, phase 10's CLI runs, phases 11 and 12's paths, phase
+13's, summed over its ranks, and phase 14's); the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero without
 those lines.
 """
@@ -260,6 +288,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -1077,11 +1106,12 @@ def predicted(**counts) -> dict:
 
 
 def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed, parts=None,
-                   switch="default", deform=None):
-    """Phase 4 and 5 for one model under the fusion switches SWITCHES[switch]
-    and MQDET_DEFORM_IMPL `deform` (None: unset), and phase 6 where `parts`
-    is given; returns the launch counts of the counted protocol run (a name
-    of `mqdet_torch.ops.COUNTERS` each)."""
+                   switch="default", deform=None, profile=True, phase="phase 4"):
+    """Phase 4 and (with `profile`) 5 for one model under the fusion
+    switches SWITCHES[switch] and MQDET_DEFORM_IMPL `deform` (None: unset),
+    and phase 6 where `parts` is given; returns the launch counts of the
+    counted protocol run (a name of `mqdet_torch.ops.COUNTERS` each).
+    `phase` names the lines."""
     from mqdet_torch.engine.predict import make_protocol_fn
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.utils.builders import protocol_inputs
@@ -1111,7 +1141,7 @@ def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed
         finite = all(bool(torch.isfinite(t).all()) for t in (dets.boxes, dets.scores))
         n_valid = int(dets.valid.sum())
         labels_ok = bool(((dets.labels >= 0) & (dets.labels <= 40)).all())
-        say(f"phase 4: {label} protocol launches {launches} (predicted {want}); shapes ok {shapes_ok}; "
+        say(f"{phase}: {label} protocol launches {launches} (predicted {want}); shapes ok {shapes_ok}; "
             f"finite {finite}; labels in range {labels_ok}; valid detections {n_valid} of "
             f"{groups * cp * slots}")
         if launches != want:
@@ -1127,10 +1157,11 @@ def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         p50 = statistics.median(times)
-        say(f"phase 4: {label} protocol p50 {p50 * 1000.0!r} ms over {runs} runs "
+        say(f"{phase}: {label} protocol p50 {p50 * 1000.0!r} ms over {runs} runs "
             f"(min {min(times) * 1000.0!r}, max {max(times) * 1000.0!r}); {1.0 / p50!r} img/s; "
             f"peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
-        phase_profile(torch, label, protocol, image, text)
+        if profile:
+            phase_profile(torch, label, protocol, image, text)
         if parts is not None:
             phase_split(torch, label, protocol, image, text, parts)
     return launches
@@ -1342,7 +1373,8 @@ def reference_batch(cfg, seed, hw=(256, 256)):
     return batch
 
 
-def phase_train_reference(torch, cfg, model_cpu, seed, bounds=None):
+def phase_train_reference(torch, cfg, model_cpu, seed, bounds=None, phase="phase 8", label="MQ-GLIP-T", edit=None,
+                          card=True):
     """One training step at 256x256, full width, batch 2, dropout off: the
     card (bf16, kernels) against the same step on the CPU in fp32 (plain
     versions), same weights and batch, by relative L2 on the loss and on
@@ -1354,8 +1386,15 @@ def phase_train_reference(torch, cfg, model_cpu, seed, bounds=None):
     gradients by < 1e-3 (measured on one H100). The drift is therefore taken as the
     larger of three CPU bf16 runs, on the images scaled by 1 and 1 +- 1e-3,
     each against the fp32 step on the same images; the concatenated
-    gradient is also held to twice the unscaled run's drift. Returns the
-    card step's launch counts."""
+    gradient is also held to twice the unscaled run's drift. `edit(batch)`
+    changes the numpy batch first (phase 14: the learnable bank's indices);
+    under MLM_LOSS every run takes one random_word mask drawn from the seed
+    with numpy (the CPU's and the card's generators draw apart); `phase`
+    and `label` name the lines. The card takes the step twice, each gated
+    and printed: its backward sums by atomic adds, so the two readings show
+    how far the card alone moves a gate's reading. With `card` False only
+    the CPU runs are made, for `bounds` (`--cards`: phase 8 itself gates the
+    card step). Returns one card step's launch counts."""
     import numpy as np
 
     from mqdet_torch.core.config import trainable_patterns
@@ -1366,12 +1405,20 @@ def phase_train_reference(torch, cfg, model_cpu, seed, bounds=None):
     c = cfg.clone()
     c.VISION_QUERY.TEXT_DROPOUT = 0.0
     batch = reference_batch(c, seed, hw)
+    if edit is not None:
+        edit(batch)
+    mlm = None
+    if c.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS:  # one random_word mask for every run: the CPU's and the card's
+        rng, shape = np.random.default_rng(seed + 5), batch["input_ids"].shape  # generators draw apart
+        mlm = (rng.random(shape, np.float32), rng.random(shape, np.float32),
+               rng.integers(0, c.MODEL.LANGUAGE_BACKBONE.VOCAB_SIZE, shape))
 
     def step(model, dev, scale=1.0):
         state, tx = init_train_state(model, c, trainable_patterns(c))
         run = make_train_step(model, tx, c)
         inputs = dict(batch, images=(batch["images"] * np.float32(scale)).astype(np.float32))
-        _, metrics = run(state, batch_to_device(inputs, dev), torch.Generator(device=dev).manual_seed(seed))
+        kw = {} if mlm is None else {"mlm_draws": tuple(torch.from_numpy(d).to(dev) for d in mlm)}
+        _, metrics = run(state, batch_to_device(inputs, dev), torch.Generator(device=dev).manual_seed(seed), **kw)
         params = dict(model.named_parameters())
         return float(metrics["loss_total"]), {n: params[n].grad.float().cpu() for n in state.trainable}
 
@@ -1380,59 +1427,91 @@ def phase_train_reference(torch, cfg, model_cpu, seed, bounds=None):
     ref32 = {s: step(dropout_off(copy.deepcopy(model_cpu)), torch.device("cpu"), s) for s in scales}
     run16 = {s: step(dropout_off(copy.deepcopy(model_cpu).to(torch.bfloat16)), torch.device("cpu"), s) for s in scales}
     cpu_s = time.perf_counter() - t0
-    gpu = dropout_off(copy.deepcopy(model_cpu)).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
-    launch_counts(reset=True)
-    card = step(gpu, torch.device("cuda"))
-    used = launch_counts()
-    del gpu
+    if not card:
+        bounds.update(reference_bounds(torch, ref32, run16, scales))
+        say(f"{phase}: the reference step's CPU runs at {hw} for the bounds ({cpu_s!r} s): concatenated "
+            f"{bounds['concatenated']!r}, the loss {bounds['loss']!r}, per tensor {min(bounds.values())!r} to "
+            f"{max(bounds.values())!r}")
+        return {}
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
     want = predicted(dcn_band=stages * (3 * levels - 2))
-    if used != want:
-        fail(f"phase 8 reference step: launches {used} != predicted {want}")
-    reference_verdict(torch, "phase 8", f"MQ-GLIP-T full width at {hw}", card, ref32, run16, scales,
-                      f"CPU steps {cpu_s!r} s; launches {({k: v for k, v in used.items() if v})}", bounds)
+    cards = []
+    for _ in range(2):
+        gpu = dropout_off(copy.deepcopy(model_cpu)).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
+        launch_counts(reset=True)
+        cards.append(step(gpu, torch.device("cuda")))
+        used = launch_counts()
+        del gpu
+        if used != want:
+            fail(f"{phase} reference step: launches {used} != predicted {want}")
+    reference_verdict(torch, phase, f"{label} full width at {hw}", cards, ref32, run16, scales,
+                      f"CPU steps {cpu_s!r} s; launches {({k: v for k, v in used.items() if v})} a card step", bounds)
     return used
 
 
-def reference_verdict(torch, phase, what, card, ref32, run16, scales, tail, bounds=None) -> None:
-    """Phase 3's rule on a training step: the card's loss and every
-    trainable gradient (`card`: (loss, {name: grad})) against the fp32 CPU
-    step (`ref32[1.0]`), each within twice the largest drift of the CPU bf16
-    runs (`run16[s]` against `ref32[s]`, s in `scales`), floor E2E_FLOOR; the
-    concatenated gradient within twice the unscaled run's drift; and the
-    scaled fp32 runs within 1e-2 of the unscaled one (the scaling is no
-    larger change than the drift it samples). Prints the line; fails
-    outside the rule. `bounds`, a dict, receives the rule's bound of the
-    loss ("loss"), of each gradient (by name) and of the concatenated
+def _rel(torch, a, ref) -> float:
+    return float(torch.linalg.vector_norm(a - ref) / torch.linalg.vector_norm(ref).clamp(min=1e-30))
+
+
+def _step_errs(torch, got, ref):
+    """[(name, relative L2)]: a step's loss, then each trainable gradient
+    (`got`, `ref`: (loss, {name: grad}))."""
+    return [("loss", abs(got[0] - ref[0]) / abs(ref[0]))] + [(n, _rel(torch, got[1][n], ref[1][n])) for n in ref[1]]
+
+
+def _flat(torch, grads):
+    return torch.cat([g.reshape(-1) for g in grads.values()])
+
+
+def reference_bounds(torch, ref32, run16, scales) -> dict:
+    """Phase 3's rule's bounds on a training step: the loss and each
+    gradient (by name) twice the largest drift of the CPU bf16 runs
+    (`run16[s]` against `ref32[s]`), floor E2E_FLOOR; the concatenated
+    gradient twice the unscaled run's drift."""
+    plain = [_step_errs(torch, run16[s], ref32[s]) for s in scales]
+    out = {n: max(2 * max(p[i][1] for p in plain), E2E_FLOOR) for i, (n, _) in enumerate(plain[0])}
+    out["concatenated"] = max(2 * _rel(torch, _flat(torch, run16[1.0][1]), _flat(torch, ref32[1.0][1])), E2E_FLOOR)
+    return out
+
+
+def reference_verdict(torch, phase, what, cards, ref32, run16, scales, tail, bounds=None) -> None:
+    """Phase 3's rule on a training step: each card step's loss and every
+    trainable gradient (`cards`: [(loss, {name: grad})]) against the fp32
+    CPU step (`ref32[1.0]`), each within twice the largest drift of the CPU
+    bf16 runs (`run16[s]` against `ref32[s]`, s in `scales`), floor
+    E2E_FLOOR; the concatenated gradient within twice the unscaled run's
+    drift; and the scaled fp32 runs within 1e-2 of the unscaled one (the
+    scaling is no larger change than the drift it samples). Prints the
+    line, the first card step in full and the worst reading of each other;
+    fails outside the rule. `bounds`, a dict, receives the rule's bound of
+    the loss ("loss"), of each gradient (by name) and of the concatenated
     gradient ("concatenated")."""
-    def rel(a, ref):
-        return float(torch.linalg.vector_norm(a - ref) / torch.linalg.vector_norm(ref).clamp(min=1e-30))
-
-    def errs(got, ref):
-        """[(name, relative L2)]: the loss, then each trainable gradient."""
-        return [("loss", abs(got[0] - ref[0]) / abs(ref[0]))] + [(n, rel(got[1][n], ref[1][n])) for n in ref[1]]
-
-    plain = [errs(run16[s], ref32[s]) for s in scales]
-    moved = max(e for _, e in errs(ref32[scales[1]], ref32[1.0])[1:])
-    card_errs = errs(card, ref32[1.0])
-    rows = [(n, e, max(p[i][1] for p in plain), plain[0][i][1]) for i, (n, e) in enumerate(card_errs)]
+    plain = [_step_errs(torch, run16[s], ref32[s]) for s in scales]
+    moved = max(e for _, e in _step_errs(torch, ref32[scales[1]], ref32[1.0])[1:])
     ratio = lambda r: r[1] / max(2 * r[2], E2E_FLOOR)  # noqa: E731
-    worst = max(rows, key=ratio)
-    bad = [r for r in rows if not (math.isfinite(r[1]) and ratio(r) <= 1.0)]
-    flat = lambda grads: torch.cat([g.reshape(-1) for g in grads.values()])  # noqa: E731
-    g_card, g_plain = rel(flat(card[1]), flat(ref32[1.0][1])), rel(flat(run16[1.0][1]), flat(ref32[1.0][1]))
-    ok = not bad and g_card <= max(2 * g_plain, E2E_FLOOR) and moved < 1e-2
+    ref_flat = _flat(torch, ref32[1.0][1])
+    g_plain = _rel(torch, _flat(torch, run16[1.0][1]), ref_flat)
+    readings, bad = [], []
+    for card in cards:
+        card_errs = _step_errs(torch, card, ref32[1.0])
+        rows = [(n, e, max(p[i][1] for p in plain), plain[0][i][1]) for i, (n, e) in enumerate(card_errs)]
+        bad += [r for r in rows if not (math.isfinite(r[1]) and ratio(r) <= 1.0)]
+        readings.append((max(rows, key=ratio), _rel(torch, _flat(torch, card[1]), ref_flat), card[0]))
+    ok = not bad and all(g <= max(2 * g_plain, E2E_FLOOR) for _, g, _ in readings) and moved < 1e-2
     if bounds is not None:
-        bounds.update({n: max(2 * b, E2E_FLOOR) for n, _, b, _ in rows}, concatenated=max(2 * g_plain, E2E_FLOOR))
+        bounds.update(reference_bounds(torch, ref32, run16, scales))
+    (worst, g_card, loss), others = readings[0], readings[1:]
+    again = "".join(f"; card step {i + 2}: loss {lo!r}, worst err / bound {ratio(w)!r} at {w[0]} (card relative L2 "
+                    f"{w[1]!r}), the concatenated gradient {g!r}" for i, (w, g, lo) in enumerate(others))
     say(f"{phase}: reference step, {what}, batch 2, dropout off, card bf16 kernels vs CPU fp32 plain: loss "
-        f"{card[0]!r} vs {ref32[1.0][0]!r}; {len(rows) - 1} trainable gradients; worst err / bound {ratio(worst)!r} "
+        f"{loss!r} vs {ref32[1.0][0]!r}; {len(rows) - 1} trainable gradients; worst err / bound {ratio(worst)!r} "
         f"at {worst[0]} (card relative L2 {worst[1]!r}; plain bf16 {worst[3]!r}, the largest of the three CPU bf16 "
         f"runs {worst[2]!r}; bound max(2 * largest, {E2E_FLOOR})); the concatenated gradient: card {g_card!r}, "
-        f"plain bf16 {g_plain!r} (bound max(2 * plain, {E2E_FLOOR})); the 1e-3 image scaling moves the fp32 "
+        f"plain bf16 {g_plain!r} (bound max(2 * plain, {E2E_FLOOR})){again}; the 1e-3 image scaling moves the fp32 "
         f"gradients by at most {moved!r}; {tail}; {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"{phase} reference step: {len(bad)} of {len(rows)} outside the bound, e.g. {bad[:3]}; concatenated "
-             f"{g_card!r} vs plain {g_plain!r}; fp32 moved {moved!r}")
+        fail(f"{phase} reference step: {len(bad)} readings outside the bound over {len(cards)} card step(s), e.g. "
+             f"{bad[:3]}; concatenated {[g for _, g, _ in readings]!r} vs plain {g_plain!r}; fp32 moved {moved!r}")
 
 
 def phase_dcn_backward(torch, seed, smi):
@@ -1515,7 +1594,7 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, sp
                 portrait=None, out=None):
     """The timed part of a training phase, through the port's train entry
     (`tools.train.build_training`: model, selector, loader, state, step,
-    checkpointer): two warm-up steps, 8 timed steps (launches gated at
+    checkpointer): two warm-up steps, 4 timed steps (launches gated at
     `per_step` a step), one step split by a synchronise at forward /
     backward / update (and the matcher's host time, where the step has
     one), one profiled step (device busy, idle share, the kernels inside
@@ -1534,7 +1613,7 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, sp
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.tools.train import build_training
 
-    timed = 8
+    timed = 4  # 8 before phase 14 joined the script: its time limit
     dev = torch.device("cuda")
     out_dir = tempfile.mkdtemp(prefix="mqdet_train_")
     model, loader, state, step, ckpt = build_training(cfg, ds, bank, out_dir, dev, model=model_cpu,
@@ -1759,7 +1838,7 @@ def phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds=None):
     if used != want:
         fail(f"phase 9 reference step: launches {used} != predicted {want}")
     flips = int((own != fixed).sum())
-    reference_verdict(torch, "phase 9", f"MQ-GroundingDINO-T full width at {hw}, MSDA clipped on both sides", card,
+    reference_verdict(torch, "phase 9", f"MQ-GroundingDINO-T full width at {hw}, MSDA clipped on both sides", [card],
                       ref32, run16, scales,
                       f"every run on the fp32 run's assignment ({int((fixed >= 0).sum())} pairs over "
                       f"{fixed.shape[0]} decoder layers); the card's own matcher would choose {flips} of them "
@@ -2688,6 +2767,7 @@ def dp_verdict(torch, label, ref, got, root, tag, name, bounds, smi):
         bad += [(it + 1, *r) for r in out]
         w = max(rows, key=lambda r: r[1] / r[2])
         by_noise = sum(2 * noise[k] > bounds.get(k, E2E_FLOOR) for k in dist)
+        loose = sum(r[2] >= 1.0 for r in rows)  # a relative L2 bound of 1 or more passes a zero gradient
         init = want["init"]
         per_master = max(((n, rel_l2(torch, t - init[n], want["masters"][n] - init[n]))
                           for n, t in mine["masters"].items()), key=lambda r: r[1])
@@ -2698,7 +2778,8 @@ def dp_verdict(torch, label, ref, got, root, tag, name, bounds, smi):
                      f"{dist['concatenated']!r} (the card's noise {noise['concatenated']!r}); the masters' update "
                      f"concatenated {up[1]!r} (the card's noise {noise['update']!r}, bound {up[2]!r}); worst err / "
                      f"bound {w[1] / w[2]!r} at {w[0]} ({w[1]!r} / {w[2]!r}); {len(out)} of {len(rows)} outside; "
-                     f"{by_noise} bounds set by the card's noise; the most distant tensor's update (ungated) "
+                     f"{by_noise} bounds set by the card's noise; {loose} bounds at 1 or more (they pass a zero "
+                     f"gradient); the most distant tensor's update (ungated) "
                      f"{per_master[0]} {per_master[1]!r}; masters bitwise equal across the ranks: {same}, bitwise "
                      f"the one process's: {bitwise}")
         bad += [] if same else [(it + 1, "the ranks' masters differ")]
@@ -2738,13 +2819,17 @@ def step_distances(torch, mine, want, loss, want_loss) -> dict:
     return out
 
 
-def dp_reference(torch, cfg, model_cpu, batches, dev, root, tag):
+NOISE_SCALES = (1.0 + 1e-3, 1.0 - 1e-3)  # phase 13's perturbed runs of the one process
+CARDS_NOISE_SCALES = NOISE_SCALES + (1.0 + 2e-3, 1.0 - 2e-3)  # `--cards`: 4 runs, a 2-run estimate read low
+
+
+def dp_reference(torch, cfg, model_cpu, batches, dev, root, tag, scales=NOISE_SCALES):
     """The one-process steps on the global batches (`dp_train`, timed),
     their gradients and masters kept on the host, and the initial masters
     (`init`); then the card's own bf16 noise at these shapes, phase 8's rule
-    measured here: the same steps on the images scaled by 1 +- 1e-3, each
-    step's distances (`step_distances`, the masters' update from `init`
-    among them) from the unscaled run's, the larger of the two kept per
+    measured here: the same steps on the images scaled by each of `scales`,
+    each step's distances (`step_distances`, the masters' update from `init`
+    among them) from the unscaled run's, the elementwise largest kept per
     step (`noise`)."""
     import numpy as np
 
@@ -2753,7 +2838,7 @@ def dp_reference(torch, cfg, model_cpu, batches, dev, root, tag):
     steps = [dict(torch.load(os.path.join(root, f"{tag}_one_step{it}.pt"), weights_only=False),
                   loss=rec["metrics"][it]["loss_total"], init=init) for it in range(len(batches))]
     noise = [{} for _ in batches]
-    for scale in (1.0 + 1e-3, 1.0 - 1e-3):
+    for scale in scales:
         scaled = [dict(b, images=(b["images"] * np.float32(scale)).astype(np.float32)) for b in batches]
         run = dp_train(torch, cfg, model_cpu, scaled, dev, assignment=rec["assignment"],
                        save=os.path.join(root, f"{tag}_noise_step"))
@@ -2913,16 +2998,454 @@ def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_
     return summed
 
 
+# ---- phase 14: MQ-Det's model switches --------------------------------------
+
+S1_VISION_QUERY = dict(NO_CAT=False, ADD_ADAPT_LAYER=True, SHARE_KV=True, AUGMENT_IMAGE_WITH_QUERY=True,
+                       NEW_MASK_TOKEN=True, ADD_VISION_LAYER=True, QUERY_FUSION=True, LEARNABLE_BANK=True)
+GATE_SWITCHES = {"CONDITION_GATE off": ("CONDITION_GATE", False), "NONLINEAR_GATE off": ("NONLINEAR_GATE", False),
+                 "FIX_ATTN_GATE 0.25": ("FIX_ATTN_GATE", 0.25)}
+
+
+def switch_config(cfg, name):
+    """A copy of `cfg` under phase 14's switch set `name`: "S1" (every
+    switch of S1_VISION_QUERY, ADD_LINEAR_LAYER and MLM_LOSS), a fuse type
+    ("MHA-S", "SCAN", "FILM"), or "S8" (EARLY_FUSE_ON,
+    USE_FUSED_FEATURES_DOT_PRODUCT, USE_DFCONV, USE_DYFUSE and USE_DYRELU
+    off)."""
+    c = cfg.clone()
+    dy = c.MODEL.DYHEAD
+    fc = dy.FUSE_CONFIG
+    if name == "S1":
+        for k, v in S1_VISION_QUERY.items():
+            c.VISION_QUERY[k] = v
+        fc.ADD_LINEAR_LAYER = fc.MLM_LOSS = True
+    elif name == "S8":
+        fc.EARLY_FUSE_ON = fc.USE_FUSED_FEATURES_DOT_PRODUCT = False
+        dy.USE_DFCONV = dy.USE_DYFUSE = dy.USE_DYRELU = False
+    else:
+        fc.TYPE = name
+    return c
+
+
+def bank_indices(bank, shape, seed):
+    """`shape` (B, V) of seeded int32 (row, slot) indices into the learnable
+    bank of `bank` (`QuerySelector.bank_table`'s rows: the labels sorted),
+    each a slot its class holds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    held = np.asarray([bank.count(lab) * bank.num_scales for lab in sorted(bank.labels)])
+    rows = rng.integers(0, len(held), shape)
+    slots = (rng.random(shape) * held[rows]).astype(np.int64)
+    return np.stack([rows, slots], -1).astype(np.int32)
+
+
+def init_like(model, donor, seed):
+    """`model` with every tensor that `donor` holds under the same name and
+    shape copied from it, and the others filled by init_params' rule from
+    `seed` (a generator of their own): a switch's model takes the weights
+    it shares with one built before it (the towers, most of the head)
+    without drawing them again; `init_params` of a full-width MQ-GLIP-T
+    draws 277M normals on the host, ~7 s."""
+    from mqdet_torch.utils.builders import init_params
+
+    theirs, own = donor.state_dict(), model.state_dict()
+    shared = {k: theirs[k] for k, t in own.items() if k in theirs and theirs[k].shape == t.shape}
+    model.load_state_dict(shared, strict=False)
+    return init_params(model, seed=seed, keys=set(own) - set(shared))
+
+
+def switch_model(torch, cfg, seed, selector, donor=None):
+    """MQ-GLIP under `cfg`, on the CPU in fp32, eval: init_params(seed), or
+    with `donor` `init_like` it; under LEARNABLE_BANK the bank sized and
+    filled from `selector` (`install_learnable_bank`)."""
+    from mqdet_torch.utils.builders import build_model, init_params, install_learnable_bank
+
+    learnable = cfg.VISION_QUERY.LEARNABLE_BANK
+    model = build_model(cfg, bank_shape=selector.bank_table_shape() if learnable else None)
+    model = init_params(model, seed=seed) if donor is None else init_like(model, donor, seed)
+    if learnable:
+        install_learnable_bank(model, selector)
+    return model.eval()
+
+
+def on_card(torch, model):
+    return copy.deepcopy(model).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
+
+
+def phase_switch_reference(torch, label, cfg, model_cpu, model_gpu, seed, want, bank=None):
+    """Phase 14's reference check, phase 3's rule: one forward at 256x256,
+    one chunk of 40 labels x 5 queries (the learnable bank's indices where
+    `bank` is given), the card (bf16, kernels) against the CPU fp32 plain
+    path by relative L2 within twice the CPU bf16 drift (floor E2E_FLOOR),
+    on the 5 dot-product logit levels, the 5 box-regression levels and,
+    under MLM_LOSS, `mlm_logits`; the launches gated at `want`. The card
+    runs the forward twice, each gated, and the line gives both readings
+    and whether they are bitwise equal (a reading near its bound is safe
+    only if the card repeats it). Returns the first forward's launches."""
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import synthetic_batch
+
+    hw = (256, 256)
+    batch = synthetic_batch(cfg, batch=1, image_hw=hw, num_labels=40, k_shot=5, seed=seed + 1)
+    if bank is not None:
+        batch["queries"] = bank_indices(bank, batch["queries"].shape[:2], seed)
+    image = torch.from_numpy(batch["images"]).permute(0, 3, 1, 2).contiguous()
+    text = [torch.from_numpy(batch[k]) for k in ("input_ids", "attention_mask", "queries", "query_mask")]
+
+    def run(model, dev):
+        with torch.inference_mode():
+            out = model(image.to(dev), *(t.to(dev) for t in text))
+        outs = [d.float().cpu() for d in out["dot_product_logits"]] + [b.float().cpu() for b in out["bbox_reg"]]
+        return outs + ([out["mlm_logits"].float().cpu()] if "mlm_logits" in out else [])
+
+    t0 = time.perf_counter()
+    ref, plain16 = run(model_cpu, "cpu"), run(copy.deepcopy(model_cpu).to(torch.bfloat16), "cpu")
+    cpu_s = time.perf_counter() - t0
+    launch_counts(reset=True)
+    card = run(model_gpu, torch.device("cuda"))
+    used = launch_counts()
+    if used != want:
+        fail(f"phase 14 {label}: reference forward launches {used} != predicted {want}")
+    again = run(model_gpu, torch.device("cuda"))
+    names = [f"logits{i}" for i in range(5)] + [f"bbox{i}" for i in range(5)] + ["mlm_logits"][:len(ref) - 10]
+    worst = compare_to_reference(torch, f"phase 14 {label}", names, ref, plain16, card)
+    second = compare_to_reference(torch, f"phase 14 {label} (second card forward)", names, ref, plain16, again)
+    same = all(torch.equal(a, b) for a, b in zip(card, again))
+    say(f"phase 14: reference check, MQ-GLIP-T under {label}, full width at {hw}, card bf16 kernels vs CPU fp32 "
+        f"plain on 5 logit and 5 box levels{' and mlm_logits' if len(names) > 10 else ''}: worst err / bound "
+        f"{worst[0]!r} at {worst[1]} (card relative L2 {worst[2]!r}, "
+        f"plain bf16 {worst[3]!r}; bound max(2 * plain, {E2E_FLOOR})); a second card forward {second[0]!r} at "
+        f"{second[1]}, bitwise the first: {same}; CPU runs {cpu_s!r} s; launches "
+        f"{({k: v for k, v in used.items() if v})} (predicted {({k: v for k, v in want.items() if v})}); ok")
+    return used
+
+
+def phase_gate_switches(torch, seed, donor):
+    """Phase 14: CONDITION_GATE off, NONLINEAR_GATE off and FIX_ATTN_GATE
+    0.25, each on the full-width language tower alone (BERT-base, 6 GCP
+    blocks, PreSelect), the weights it shares with `donor` (the language
+    tower of a model under the default gates) taken from it, its gate drawn
+    from `seed` (`init_like`): 256 tokens, 200 queries, the 341 image tokens
+    of a 256x256 image, by phase 3's rule on the hidden states and the
+    aggregate. No hand-written kernel may launch."""
+    import numpy as np
+
+    from mqdet_torch.models.bert import LanguageBackbone, gate_telemetry
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import mq_glip_t_config, synthetic_batch
+
+    base = mq_glip_t_config()
+    b = synthetic_batch(base, batch=1, image_hw=(256, 256), num_labels=40, k_shot=5, seed=seed + 3)
+    width = base.MODEL.BACKBONE.OUT_CHANNELS
+    image_tokens = np.random.default_rng(seed + 3).standard_normal((1, 341, width)).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (b["input_ids"], b["attention_mask"], b["queries"], b["query_mask"],
+                                          image_tokens)]
+
+    def run(tower, dev):
+        dtype = next(tower.parameters()).dtype  # the queries and image tokens in the compute dtype, as MQGLIP's
+        with torch.inference_mode(), gate_telemetry() as gates:
+            out = tower(*(a.to(dev, dtype) if a.is_floating_point() else a.to(dev) for a in args))
+        return [out["hidden"].float().cpu(), out["aggregate"].float().cpu()], [float(g) for g in gates]
+
+    for name, (key, value) in GATE_SWITCHES.items():
+        c = base.clone()
+        c.VISION_QUERY[key] = value
+        t0 = time.perf_counter()
+        tower = init_like(LanguageBackbone(c), donor, seed).eval()
+        build_s = time.perf_counter() - t0
+        (ref, gates), (plain16, _) = run(tower, "cpu"), run(copy.deepcopy(tower).to(torch.bfloat16), "cpu")
+        launch_counts(reset=True)
+        card, card_gates = run(tower.to("cuda", torch.bfloat16), torch.device("cuda"))
+        used = {k: v for k, v in launch_counts().items() if v}
+        worst = compare_to_reference(torch, f"phase 14 {name}", ["hidden", "aggregate"], ref, plain16, card)
+        say(f"phase 14: reference check, the language tower under {name}, full width: worst err / bound "
+            f"{worst[0]!r} at {worst[1]} (card relative L2 {worst[2]!r}, plain bf16 {worst[3]!r}); gate "
+            f"telemetry, mean |gate| per block, CPU fp32 {gates!r}, card {card_gates!r}; hand-written kernel "
+            f"launches {used}; built in {build_s!r} s; ok")
+        if used:
+            fail(f"phase 14 {name}: the language tower launched {used}")
+        del tower
+
+
+def indexed(make_batch, bank):
+    """`make_batch` with its queries replaced by the learnable bank's indices."""
+    def make(cfg, batch, image_hw, num_labels=40, k_shot=5, seed=0):
+        out = make_batch(cfg, batch, image_hw, num_labels, k_shot, seed)
+        out["queries"] = bank_indices(bank, out["queries"].shape[:2], seed)
+        return out
+
+    return make
+
+
+def recording_evaluator(**kw):
+    """A DetectionEvaluator(**kw) that keeps every image's detections (`dets`)."""
+    from mqdet_torch.engine.evaluator import DetectionEvaluator
+
+    class Recording(DetectionEvaluator):
+        def add_image(self, image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **k):
+            self.dets[image_id] = (det_boxes.copy(), det_scores.copy(), det_labels.copy())
+            super().add_image(image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **k)
+
+    ev = Recording(**kw)
+    ev.dets = {}
+    return ev
+
+
+def phase_switch_telemetry(torch, cfg, model_cpu, model_gpu, selector, dataset, freq, per_image):
+    """Phase 14: `run_inference` under RETURN_ATTN_GATE_VALUE on 2 of phase
+    7's images, the S1 model with the learnable bank (its plan carries the
+    int32 indices), phase 7's settings: `attn_gate_value` within 1e-2
+    relative of the same model's on the CPU in fp32 (group 0 on image 0,
+    the representative forward, with the head's stages cut: every GCP block
+    runs before them), the detections bitwise those of the same run without
+    the flag, launches 2 images' plus the one representative forward's."""
+    import numpy as np
+
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.data.transforms import EvalTransform
+    from mqdet_torch.engine.inference import ChunkedEvaluationPlan, chunk_groups, group_inputs, run_inference
+    from mqdet_torch.models.bert import gate_telemetry
+    from mqdet_torch.ops import launch_counts
+
+    c = vq_settings(cfg)
+    tok = WordPieceTokenizer()
+    runs = {}
+    for flag in (True, False):
+        c.VISION_QUERY.RETURN_ATTN_GATE_VALUE = flag
+        ev = recording_evaluator(style="lvis_fixed", max_dets=300, category_frequency=freq)
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        res = run_inference(c, model_gpu, dataset, tok, selector, evaluator=ev, max_images=2, verbose=False)
+        torch.cuda.synchronize()
+        runs[flag] = (res, ev.dets, launch_counts(), time.perf_counter() - t0)
+    plan = ChunkedEvaluationPlan(c, dataset, tok, selector)
+    g0 = group_inputs(c, plan, chunk_groups(plan, c.TEST.CHUNK_PARALLELISM)[:1], "cpu")[0]
+    image, _, _ = EvalTransform(c)(dataset.load_image(dataset.ids[0]), torch.device("cpu"))
+    head = model_cpu.rpn.head
+    stages, head.num_convs = head.num_convs, 0
+    try:
+        with torch.inference_mode(), gate_telemetry() as gates:
+            model_cpu.forward_head(model_cpu.encode_image(image), g0["input_ids"], g0["attention_mask"],
+                                   g0["queries"], g0["query_mask"])
+    finally:
+        head.num_convs = stages
+    cpu_gate = float(np.mean([float(g) for g in gates]))
+    (res, dets, used, secs), (res_off, dets_off, used_off, secs_off) = runs[True], runs[False]
+    gate = res.get("attn_gate_value")
+    same = dets.keys() == dets_off.keys() and all(
+        all(np.array_equal(a, b) for a, b in zip(d, dets_off[k])) for k, d in dets.items())
+    want = {k: 2 * v for k, v in per_image.items()}
+    want_flag = {k: v + per_image[k] // 8 for k, v in want.items()}  # + group 0's forward (8 groups an image)
+    say(f"phase 14: run_inference under RETURN_ATTN_GATE_VALUE, S1 with the learnable bank (plan queries "
+        f"{plan.queries.dtype} {plan.queries.shape}), 2 of phase 7's images: attn_gate_value card {gate!r}, CPU fp32 "
+        f"{cpu_gate!r} ({len(gates)} GCP blocks; relative {abs(gate - cpu_gate) / abs(cpu_gate)!r}, bound 1e-2); "
+        f"{sum(len(d[1]) for d in dets.values())} detections bitwise those of the run without the flag: {same}; "
+        f"AP {res.get('AP')!r} / {res_off.get('AP')!r}; {secs!r} s / {secs_off!r} s; launches "
+        f"{({k: v for k, v in used.items() if v})} (predicted {({k: v for k, v in want_flag.items() if v})}) and "
+        f"{({k: v for k, v in used_off.items() if v})}")
+    if gate is None or not abs(gate - cpu_gate) <= 1e-2 * abs(cpu_gate):
+        fail(f"phase 14: attn_gate_value {gate!r} vs the CPU's {cpu_gate!r}")
+    if not same or "attn_gate_value" in res_off:
+        fail("phase 14: the flag changed the detections, or the run without it reports a gate value")
+    if used != want_flag or used_off != want:
+        fail(f"phase 14 run_inference: launches {used} / {used_off} != predicted {want_flag} / {want}")
+    return {"phase 14 run_inference": used}
+
+
+def phase_switch_train(torch, seed, smi, dataset, bank, model_cpu):
+    """Phase 14: S1 training with recipe vision_query_v5 (phase 8's recipe
+    otherwise) on phase 7's dataset (its landscape images) and bank, the
+    learnable bank filled from it and the loader's selector emitting its
+    indices. The reference step at 256x256 under phase 8's rule (the batch's
+    queries the bank's indices); then 3 steps at batch 2, 800x1344, each
+    timed (host clock, synchronised), launches gated at 78 `dcn_band` a
+    step; gates: every loss term (`loss_mlm` among them) finite, the bank
+    entries with a query moved, every entry no batch names bitwise
+    unchanged (under AUGMENT_IMAGE_WITH_QUERY the padded slots, index
+    (0, 0), condition the image tokens, so that entry may move too), the
+    frozen parameters bitwise unchanged. The MLM head's share: its forward,
+    `mlm_loss` and their backward at the step's shapes (B 2, T 256), CUDA
+    events, over the step's time. `model_cpu`: the S1 model of the
+    reference checks (the training settings change no parameter), on the
+    CPU in fp32. Returns the launches of the 3 steps."""
+    import numpy as np
+
+    from mqdet_torch.core.config import frozen_patterns, trainable_patterns
+    from mqdet_torch.data.loader import GroundingTrainLoader
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.engine.losses import mlm_loss
+    from mqdet_torch.engine.train import batch_to_device, init_train_state, make_train_step, step_generator
+    from mqdet_torch.mq.selector import QuerySelector
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import landscape, mq_glip_t_pretrain_config
+
+    cfg = switch_config(mq_glip_t_pretrain_config(), "S1")
+    cfg.SOLVER.TUNING_HIGHLEVEL_OVERRIDE = "vision_query_v5"
+    vq = cfg.VISION_QUERY
+    selector = QuerySelector(bank, num_query_per_class=vq.NUM_QUERY_PER_CLASS, pure_text_rate=vq.PURE_TEXT_RATE,
+                             random_kshot=vq.RANDOM_KSHOT, max_labels=vq.MAX_CLASSES_PER_PROMPT, emit_indices=True)
+    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
+    per_step = predicted(dcn_band=stages * (3 * levels - 2))
+
+    def edit(batch):
+        batch["queries"] = bank_indices(bank, batch["queries"].shape[:2], seed)
+
+    phase_train_reference(torch, cfg, model_cpu, seed, phase="phase 14", label="MQ-GLIP-T under S1, vision_query_v5",
+                          edit=edit)
+    dev = torch.device("cuda")
+    model = on_card(torch, model_cpu)
+    loader = GroundingTrainLoader(landscape(dataset), cfg, WordPieceTokenizer(), selector)
+    state, tx = init_train_state(model, cfg, trainable_patterns(cfg), frozen_patterns(cfg))
+    step = make_train_step(model, tx, cfg)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if n in state.frozen}
+    bank0 = state.trainable["qv_layer_learnable_bank"].clone()
+    named, with_query, losses, ms, used = set(), set(), [], [], {k: 0 for k in per_step}
+    torch.cuda.reset_peak_memory_stats()
+    batches = iter(loader)
+    for _ in range(3):
+        b = next(batches)
+        b.pop("num_positive")
+        q = b["queries"].reshape(-1, 2)
+        qm = b["query_mask"].reshape(len(q), -1)
+        named |= {tuple(int(i) for i in r) for r in q}
+        with_query |= {tuple(int(i) for i in r) for r, m in zip(q, qm) if m.any()}
+        launch_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch_to_device(b, dev), step_generator(cfg.SOLVER.SEED, state.step, dev))
+        losses.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1000.0)
+        counts = launch_counts()
+        if counts != per_step:
+            fail(f"phase 14 S1 training: step launches {counts} != predicted {per_step}")
+        used = {k: used[k] + v for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    head, lb = model.rpn.head.mlm_head, cfg.MODEL.LANGUAGE_BACKBONE
+    x = torch.randn(2, lb.MAX_QUERY_LEN, lb.LANG_DIM, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    shape = tuple(x.shape[:2])
+    labels = torch.where(torch.rand(shape, device=dev) < 0.15, torch.randint(0, lb.VOCAB_SIZE, shape, device=dev),
+                         torch.full(shape, -100, device=dev))
+    mlm_times = []
+    for _ in range(6):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        mlm_loss(head(x), labels).backward()
+        e1.record()
+        torch.cuda.synchronize()
+        mlm_times.append(e0.elapsed_time(e1))
+    mlm_ms = statistics.median(mlm_times[1:])
+
+    bank1 = state.trainable["qv_layer_learnable_bank"]
+    rows, slots = bank1.shape[:2]
+    unnamed = [(r, s) for r in range(rows) for s in range(slots) if (r, s) not in named]
+    moved = [ix for ix in with_query if not torch.equal(bank1[ix], bank0[ix])]
+    still = [ix for ix in unnamed if torch.equal(bank1[ix], bank0[ix])]
+    params = dict(model.named_parameters())
+    changed = [n for n in frozen if not torch.equal(params[n], frozen[n])]
+    say(f"phase 14: S1 training, vision_query_v5 ({len(state.trainable)} trainable tensors: the GCP pieces, "
+        f"tunable_linear, the learnable bank {tuple(bank1.shape)}), batch 2, 800x1344 ({smi}): ms per step "
+        f"{ms!r} (host clock, synchronised; the first includes its warm-up), peak {peak!r} GiB; the MLM head's "
+        f"forward, loss and backward at (2, 256) {mlm_ms!r} ms (CUDA events, median of 5), a share "
+        f"{mlm_ms / statistics.median(ms[1:])!r} of the median later step; losses of the last step {losses[-1]}; "
+        f"bank entries named by the batches {len(named)} (with a query {len(with_query)}, moved {len(moved)}); "
+        f"entries named by no batch {len(unnamed)}, bitwise unchanged {len(still)}; frozen tensors "
+        f"{len(frozen)}, changed {len(changed)}; launches {({k: v for k, v in used.items() if v})}")
+    if not all(np.isfinite(v) for rec in losses for v in rec.values()) or "loss_mlm" not in losses[-1]:
+        fail(f"phase 14 S1 training: a loss term is not finite or loss_mlm is missing: {losses}")
+    if len(moved) != len(with_query) or not with_query:
+        fail(f"phase 14 S1 training: {len(with_query) - len(moved)} bank entries with a query did not move")
+    if len(still) != len(unnamed):
+        fail(f"phase 14 S1 training: {len(unnamed) - len(still)} bank entries no batch named moved")
+    if changed:
+        fail(f"phase 14 S1 training: frozen parameters changed: {changed[:5]}")
+    del model, state, step, loader, frozen
+    torch.cuda.empty_cache()
+    return used
+
+
+def phase_switches(torch, seed, runs, smi, glip_vq):
+    """Phase 14: MQ-Det's model switches on the card, MQ-GLIP-T at full
+    width, S1 and MHA-S from init_params(seed), SCAN, FILM, S8 and the gate
+    switches' language towers `init_like` the MHA-S model (their shared
+    weights copied, not drawn again). The reference checks (phase 3's rule) at
+    256x256 of S1 (`switch_config`; the learnable bank from phase 7's bank),
+    MHA-S, SCAN, FILM and S8, each a whole model, and of the three gate
+    switches on the language tower alone; the LVIS protocol (phase 4,
+    without phase 5's profile) under S1, MHA-S and FILM, launches gated
+    (624 `dcn_band` in all three; 48 `bi_attention` under S1, 0 under
+    MHA-S and FILM); `run_inference` under RETURN_ATTN_GATE_VALUE
+    (`phase_switch_telemetry`); S1 training (`phase_switch_train`).
+    Returns the launch counts of its counted paths."""
+    from mqdet_torch.mq.selector import QuerySelector
+    from mqdet_torch.utils.builders import mq_glip_t_config, synthetic_batch
+
+    t_phase = time.perf_counter()
+    bank = glip_vq["bank"]
+    base = mq_glip_t_config()
+    base.MODEL.ATSS.DETECTIONS_PER_IMG = 300
+    selector = QuerySelector(bank, num_query_per_class=5, max_labels=40, emit_indices=True)
+    stages, levels = base.MODEL.DYHEAD.NUM_CONVS, len(base.MODEL.RPN.ANCHOR_STRIDE)
+    dcn = stages * (3 * levels - 2)
+    launches, keep, donor = {}, {}, None
+    for name in ("S1", "MHA-S", "SCAN", "FILM", "S8"):  # SCAN, FILM, S8 init_like MHA-S (S1's towers differ)
+        cfg = switch_config(base, name)
+        t0 = time.perf_counter()
+        model_cpu = switch_model(torch, cfg, seed, selector, donor)
+        say(f"phase 14: MQ-GLIP-T under {name} built on the host in {time.perf_counter() - t0!r} s"
+            f"{' (init_like the MHA-S model)' if donor is not None else ''}")
+        model = on_card(torch, model_cpu)
+        want = predicted(dcn_band=0 if name == "S8" else dcn, bi_attention=stages if name == "S1" else 0)
+        launches[f"phase 14 {name} reference"] = phase_switch_reference(
+            torch, name, cfg, model_cpu, model, seed, want, bank if name == "S1" else None)
+        if name in ("S1", "MHA-S", "FILM"):
+            keep[name] = (cfg, model, model_cpu if name == "S1" else None)
+        else:
+            del model
+        if name == "MHA-S":
+            donor = model_cpu
+        del model_cpu
+    phase_gate_switches(torch, seed, donor.language_backbone)
+    del donor
+    torch.cuda.empty_cache()
+    groups = -(-31 // 4)
+    for name, (cfg, model, _) in keep.items():
+        want = predicted(dcn_band=groups * dcn, bi_attention=groups * stages if name == "S1" else 0)
+        make = indexed(synthetic_batch, bank) if name == "S1" else synthetic_batch
+        launches[f"phase 14 {name} protocol"] = phase_protocol(
+            torch, f"MQ-GLIP-T under {name}", model, cfg, make, 300, want, runs, seed, profile=False,
+            phase="phase 14")
+    cfg, model, model_cpu = keep.pop("S1")
+    keep.clear()
+    torch.cuda.empty_cache()
+    ds = glip_vq["dataset"]
+    freq = {ds.cat_id_to_contiguous[c["id"]]: c["frequency"] for c in ds.categories}
+    launches.update(phase_switch_telemetry(torch, cfg, model_cpu, model, selector, ds, freq,
+                                           predicted(dcn_band=groups * dcn, bi_attention=groups * stages)))
+    del model
+    torch.cuda.empty_cache()
+    launches["phase 14 S1 training"] = phase_switch_train(torch, seed, smi, ds, bank, model_cpu)
+    say(f"phase 14: {time.perf_counter() - t_phase!r} s in all")
+    return launches
+
+
 def multi_card(torch, cards, seed) -> int:
     """`--cards N`: phase 13's MQ-GLIP-T training check over NCCL across N
     cards of one host. The bank is pooled over phase 7's dataset by
     `tools.train.extract_bank` with phase 7's model and settings; the
     global batches are the train loader's at batch N over the landscape
-    images; the one process on card 0 gives the reference and the card's
-    noise (`dp_reference`); N ranks, one a card, take 1 image each
-    (`spawn_ranks` over NCCL) and `dp_verdict` gates them with E2E_FLOOR in
-    place of phase 8's bounds (those come from CPU bf16 runs this mode does
-    not make). Launches: 78 `dcn_band` a step a rank."""
+    images; phase 8's reference step's CPU runs (`phase_train_reference`
+    on this host, without its card step, which phase 8 gates) give each
+    tensor's bound, as phase 13 takes them; the one process on card 0 gives the reference and the card's
+    noise (`dp_reference` over 4 perturbed runs, images x(1 +- 1e-3) and
+    x(1 +- 2e-3), the elementwise largest); N ranks, one a card, take 1
+    image each (`spawn_ranks` over NCCL) and `dp_verdict` gates them by
+    phase 13's rule: each bound the larger of phase 8's CPU bound for the
+    tensor and twice the card's noise. Launches: 78 `dcn_band` a step a
+    rank."""
     import shutil
 
     from mqdet_torch.ops import kernels
@@ -2938,6 +3461,7 @@ def multi_card(torch, cards, seed) -> int:
     smi = card()
     kernels.lib()  # built once here: the ranks load it
     say(smi)
+    torch.set_num_threads(os.cpu_count() or 1)
     dev = torch.device("cuda", 0)
     root = tempfile.mkdtemp(prefix="mqdet_cards_")
     ds, _ = synthetic_lvis(root, seed)
@@ -2949,10 +3473,13 @@ def multi_card(torch, cards, seed) -> int:
     torch.cuda.empty_cache()
     glip_cfg = mq_glip_t_pretrain_config()
     glip_cfg.SOLVER.IMS_PER_BATCH = cards
+    model_cpu = init_params(build_model(glip_cfg), seed=seed)
+    bounds = {}
+    phase_train_reference(torch, glip_cfg, model_cpu, seed, bounds, card=False)
+    torch.cuda.empty_cache()
     batches = loader_batches(glip_cfg, landscape(ds), bank, 2)
     torch.save(batches, os.path.join(root, "glip_batches.pt"))
-    ref = dp_reference(torch, glip_cfg, init_params(build_model(glip_cfg), seed=seed), batches, dev, root,
-                       "one_glip")
+    ref = dp_reference(torch, glip_cfg, model_cpu, batches, dev, root, "one_glip", CARDS_NOISE_SCALES)
     torch.cuda.empty_cache()
     spec = {"seed": seed, "backend": "nccl", "tag": "cards", "parts": ["glip"], "timing": True,
             "glip_batches": os.path.join(root, "glip_batches.pt")}
@@ -2961,7 +3488,10 @@ def multi_card(torch, cards, seed) -> int:
     if any(r["backend"] != "nccl" or r["world"] != cards for r in got):
         fail(f"--cards: ranks report {[(r['backend'], r['world']) for r in got]}")
     say(f"--cards {cards}: {cards} rank processes over NCCL, one a card; {time.perf_counter() - t1!r} s")
-    dp_verdict(torch, f"MQ-GLIP-T training over NCCL on {cards} cards", ref, got, root, "cards", "glip", {}, smi)
+    gates = [n for n in bounds if re.fullmatch(r".*qv_layer\.\d+\.attn_gate\.norm\.bias", n)]
+    say(f"--cards {cards}: phase 8's CPU bounds of the GCP attention gates' norm biases (ROADMAP Queue C 3): "
+        + "; ".join(f"{n} {bounds[n]!r}, the card's noise x2 {[2 * nz[n] for nz in ref['noise']]!r}" for n in gates))
+    dp_verdict(torch, f"MQ-GLIP-T training over NCCL on {cards} cards", ref, got, root, "cards", "glip", bounds, smi)
     stages, levels = glip_cfg.MODEL.DYHEAD.NUM_CONVS, len(glip_cfg.MODEL.RPN.ANCHOR_STRIDE)
     want = {k: 2 * v for k, v in predicted(dcn_band=stages * (3 * levels - 2)).items()}
     for r in got:
@@ -2981,7 +3511,7 @@ def main() -> int:
         return rank_worker(sys.argv[2])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--runs", type=int, default=5, help="timed protocol runs per model")
+    ap.add_argument("--runs", type=int, default=3, help="timed protocol runs per model")
     ap.add_argument("--cards", type=int, default=0, help="run only the check across N >= 2 cards (`multi_card`)")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -3086,12 +3616,15 @@ def main() -> int:
     del model, tr, parts
     torch.cuda.empty_cache()
 
+    say(f"phases 1-7 done {time.perf_counter() - t_start!r} s after the start")
+
     # ---- phases 8 and 9: modulated pre-training -------------------------
     glip_bounds, gdino_bounds = {}, {}  # the reference steps' bounds, for phase 13
     launches["MQ-GLIP-T training"] = phase_train(torch, args.seed, glip_vq["dataset"], glip_vq["bank"], smi,
                                                  glip_bounds)
     launches["MQ-GroundingDINO-T training"] = phase_train_gdino(torch, args.seed, gdino_vq["dataset"],
                                                                 gdino_vq["bank"], smi, gdino_bounds)
+    say(f"phases 1-9 done {time.perf_counter() - t_start!r} s after the start")
 
     # ---- phase 10: the evaluation CLI ------------------------------------
     configs = merge_shipped_configs()
@@ -3109,6 +3642,8 @@ def main() -> int:
                               cli_root, smi, configs))
     torch.cuda.empty_cache()
 
+    say(f"phases 1-10 done {time.perf_counter() - t_start!r} s after the start")
+
     # ---- phases 11 and 12: MQ-GLIP-L --------------------------------------
     l_root = os.path.join(tmp.name, "glip_l")
     os.makedirs(l_root)
@@ -3120,6 +3655,10 @@ def main() -> int:
 
     # ---- phase 13: data parallel on the one card ------------------------
     launches.update(phase_data_parallel(torch, args.seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_bounds))
+    say(f"phases 1-13 done {time.perf_counter() - t_start!r} s after the start")
+
+    # ---- phase 14: MQ-Det's model switches ------------------------------
+    launches.update(phase_switches(torch, args.seed, args.runs, smi, glip_vq))
 
     say(f"wall time {time.perf_counter() - t_start!r} s (build included)")
     entries = []

@@ -22,10 +22,13 @@ and merges it before `summarize`, as the JAX module does: every rank returns
 the single-process summary, and `images_per_second` is the rank's own.
 `online_update` runs whole on each process, as in JAX.
 
+Under VISION_QUERY.RETURN_ATTN_GATE_VALUE `run_inference` adds
+`attn_gate_value` (gate telemetry, `attn_gate_value`). The plan carries the
+learnable bank's int32 (row, slot) queries as they come from the selector.
+
 Refused with NotImplementedError, each naming its ROADMAP item:
 TEST.USE_MULTISCALE (test-time augmentation, `engine/box_aug.py`),
-VISION_QUERY.RETURN_ATTN_GATE_VALUE (gate telemetry), GLIPKNOW.KNOWLEDGE_FILE
-(`data/knowledge.py`).
+GLIPKNOW.KNOWLEDGE_FILE (`data/knowledge.py`).
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from mqdet_torch.data import grounding as G
 from mqdet_torch.data.transforms import EvalTransform
 from mqdet_torch.engine.evaluator import DetectionEvaluator
 from mqdet_torch.engine.predict import make_split_predict_fns
+from mqdet_torch.models.bert import gate_telemetry
 from mqdet_torch.mq.selector import QuerySelector
 from mqdet_torch.parallel import comm
 
@@ -131,10 +135,6 @@ def refuse_unported(cfg) -> None:
         raise NotImplementedError(
             "TEST.USE_MULTISCALE (test-time augmentation, engine/box_aug.py) is not ported (ROADMAP Queue A 5)"
         )
-    if cfg.VISION_QUERY.RETURN_ATTN_GATE_VALUE:
-        raise NotImplementedError(
-            "VISION_QUERY.RETURN_ATTN_GATE_VALUE needs the head's intermediates: not ported (ROADMAP Queue A 5)"
-        )
 
 
 def chunk_groups(plan: ChunkedEvaluationPlan, cp: int) -> List[List[int]]:
@@ -149,9 +149,10 @@ def chunk_groups(plan: ChunkedEvaluationPlan, cp: int) -> List[List[int]]:
 
 def group_inputs(cfg, plan: ChunkedEvaluationPlan, groups: List[List[int]], device,
                  input_ids: Optional[List[np.ndarray]] = None) -> List[Dict[str, torch.Tensor]]:
-    """Each group's head inputs as tensors on `device` (queries fp32; zeros
-    (CP, 1, .) without a bank), moved once; `input_ids` replaces the plan's
-    per group (the masked ids of MASK_DURING_INFERENCE)."""
+    """Each group's head inputs as tensors on `device` (queries as the plan
+    holds them: fp32, or the learnable bank's int32 indices; zeros (CP, 1, .)
+    without a bank), moved once; `input_ids` replaces the plan's per group
+    (the masked ids of MASK_DURING_INFERENCE)."""
     cp = len(groups[0])
     c, t = cfg.MODEL.BACKBONE.OUT_CHANNELS, cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN
     use_q = plan.queries is not None
@@ -313,7 +314,26 @@ def run_inference(
     t_eval += time.perf_counter() - t1
     results["images_per_second"] = len(ids) / max(time.time() - t0, 1e-6)
     results["seconds"] = dict(runner.seconds, evaluator=t_eval)
+    if vq.RETURN_ATTN_GATE_VALUE and plan.queries is not None and len(ids):
+        gate = attn_gate_value(runner, dataset.load_image(ids[0]))
+        if gate is not None:
+            results["attn_gate_value"] = gate
     return results
+
+
+@torch.inference_mode()
+def attn_gate_value(runner: "_ImageRunner", img: np.ndarray) -> Optional[float]:
+    """Gate telemetry (RETURN_ATTN_GATE_VALUE, engine/inference.py:571-572,
+    626-628, 710-712; JAX's `run_inference`): one representative head
+    forward, group 0 on `img`, with `models.bert.gate_telemetry` open; the
+    mean over every GCP block of its mean |tanh(gate)| (None without a
+    block). The detections are not touched."""
+    model, g = runner.model, runner.groups[0]
+    image, _, _ = runner.transform(img, runner.device)
+    with gate_telemetry() as values:
+        model.forward_head(model.encode_image(image), g["input_ids"], g["attention_mask"], g["queries"],
+                           g["query_mask"])
+    return float(np.mean([float(v) for v in values])) if values else None
 
 
 def online_update(

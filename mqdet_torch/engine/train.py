@@ -12,9 +12,11 @@ centerness; GroundingDINO: the Hungarian set criterion over the final and
 auxiliary decoder layers, `engine/gdino_losses.py`) plus the gate loss, then
 one shared tail (`_finish_train_step`, JAX's): NaN/Inf zeroing of the loss
 and of the gradients, the optax chain of `engine/optim.py` times
-`lr_scale`, and the EMA. Gradients reach only the trainable set
-(`requires_grad`); where the image tower holds no trainable parameter it runs
-under `torch.no_grad()`, as JAX stops gradients at the frozen leaves.
+`lr_scale`, and the EMA. Under FUSE_CONFIG.MLM_LOSS the GLIP step adds
+GLIP's masked-language loss (`make_train_step`). Gradients reach only the
+trainable set (`requires_grad`); where the image tower holds no trainable
+parameter it runs under `torch.no_grad()`, as JAX stops gradients at the
+frozen leaves.
 
 `TPU.REMAT` is the model's (`models/mq_glip.py`: the text layers and head
 stages checkpointed, their draws replayed in the recompute); the step is the
@@ -28,16 +30,17 @@ Data parallel (`parallel/comm.py`; one process per card, launched by
 torchrun): N ranks of B/N images each compute the step one process computes
 on the global batch of B, as the JAX step does under its mesh. The losses'
 normalisers are summed over the ranks (`engine/losses.py`,
-`engine/gdino_losses.py`), so each rank's loss is its share of the global
-loss; the gate loss, the same on every rank, counts 1/N on each; the fp32
-gradients of the masters are summed over the ranks in one flat all-reduce
-(not DDP's, which would reduce the model's bf16 gradients) before the NaN/Inf
-zeroing; the NaN guard takes the global verdict; the logged losses are the
-sums over the ranks. Text dropout draws the global batch's (B, L) uniforms
-and takes the rank's rows, so N ranks mask the images one process would; the
-model's own draws (drop path, dropout) come from the step's generator folded
-with the rank (`rank_generator`; rank 0 keeps the step's stream), where JAX
-draws one global mask. In one process nothing of this runs.
+`engine/gdino_losses.py`; the MLM loss's count of labelled tokens), so
+each rank's loss is its share of the global loss; the gate loss, the same on
+every rank, counts 1/N on each; the fp32 gradients of the masters are summed
+over the ranks in one flat all-reduce (not DDP's, which would reduce the
+model's bf16 gradients) before the NaN/Inf zeroing; the NaN guard takes the
+global verdict; the logged losses are the sums over the ranks. Text dropout
+and MLM's random_word draw the global batch's uniforms and take the rank's
+rows, so N ranks mask the images one process would; the model's own draws
+(drop path, dropout) come from the step's generator folded with the rank
+(`rank_generator`; rank 0 keeps the step's stream), where JAX draws one
+global mask. In one process nothing of this runs.
 """
 from __future__ import annotations
 
@@ -164,9 +167,17 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
     return out
 
 
-def _refuse_unported(cfg) -> None:
-    if cfg.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS:
-        raise NotImplementedError("MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS: the MLM head is not ported (ROADMAP Queue A 4.2)")
+def _refuse_untrainable(cfg) -> None:
+    """SCAN and FILM hold BatchNorms whose training forward needs batch
+    statistics: the JAX package's step applies the model with no mutable
+    `batch_stats` collection, so it cannot train them, and neither does the
+    port."""
+    fc = cfg.MODEL.DYHEAD.FUSE_CONFIG
+    if fc.EARLY_FUSE_ON and fc.TYPE in ("SCAN", "FILM"):
+        raise NotImplementedError(
+            f"FUSE_CONFIG.TYPE {fc.TYPE} cannot train: its BatchNorms need batch statistics in training, and the "
+            "JAX package's train step carries no mutable batch_stats collection"
+        )
 
 
 def _clock(times, device, key=None, t0=0.0):
@@ -182,18 +193,56 @@ def _clock(times, device, key=None, t0=0.0):
     return now
 
 
-def _text_and_queries(batch, cfg, generator):
+def _global_draws(shape, world: int, rank: int, draw):
+    """`draw(shape)` of the global batch (B * world rows), the rank's rows:
+    N ranks take the draws one process takes. In one process, `draw(shape)`."""
+    if world == 1:
+        return draw(shape)
+    b = shape[0]
+    return draw((b * world, *shape[1:]))[rank * b:(rank + 1) * b]
+
+
+def _mlm_mask(batch, cfg, generator, draws=None):
+    """GLIP's random_word on the raw ids (generalized_vl_rcnn_new.py:384-395,
+    before the text dropout): the greenlight is the positive tokens
+    (`pos_category_map.sum(1) > 0`) under MLM_LOSS_FOR_ONLY_POSITIVES, else
+    every token. `draws` (pick uniforms, action uniforms, random ids) replace
+    the generator's; across ranks they are the global batch's rows.
+    Returns (masked ids, labels)."""
+    ids = batch["input_ids"]
+    fc = cfg.MODEL.DYHEAD.FUSE_CONFIG
+    pcm = batch.get("pos_category_map")
+    if fc.MLM_LOSS_FOR_ONLY_POSITIVES and pcm is not None:
+        greenlight = (pcm.sum(1) > 0).to(ids.dtype)
+    else:
+        greenlight = torch.ones_like(ids)
+    vocab = cfg.MODEL.LANGUAGE_BACKBONE.VOCAB_SIZE
+    if draws is None:
+        world, rank, dev = comm.get_world_size(), comm.get_rank(), ids.device
+
+        def uniform(shape):
+            return torch.rand(shape, generator=generator, device=dev)
+
+        def randint(shape):
+            return torch.randint(0, vocab, shape, generator=generator, device=dev)
+
+        draws = tuple(_global_draws(ids.shape, world, rank, d) for d in (uniform, uniform, randint))
+    return random_word_mask(ids, greenlight, vocab, draws=draws)
+
+
+def _text_and_queries(batch, cfg, generator, input_ids=None):
     """(input ids after the vision-conditioned text dropout, queries, query
-    mask, the generator of the model's draws). Across ranks the dropout's
-    uniforms are the global batch's, of which the rank takes its rows."""
-    input_ids = batch["input_ids"]
+    mask, the generator of the model's draws). `input_ids` replaces the
+    batch's (the MLM-masked ids). Across ranks the dropout's uniforms are the
+    global batch's, of which the rank takes its rows."""
+    input_ids = batch["input_ids"] if input_ids is None else input_ids
     vq = cfg.VISION_QUERY
     world, rank = comm.get_world_size(), comm.get_rank()
     if vq.ENABLED and vq.TEXT_DROPOUT > 0:
         draws = None
         if world > 1:
-            b, l = batch["pos_category_map"].shape[:2]
-            draws = torch.rand((b * world, l), generator=generator, device=input_ids.device)[rank * b:(rank + 1) * b]
+            draws = _global_draws(batch["pos_category_map"].shape[:2], world, rank,
+                                  lambda shape: torch.rand(shape, generator=generator, device=input_ids.device))
         input_ids = apply_text_dropout(input_ids, batch["pos_category_map"], batch["has_query"], vq.TEXT_DROPOUT,
                                        generator, draws=draws)
     generator = rank_generator(generator, rank)
@@ -221,25 +270,35 @@ def _gate_loss(model, tx, cfg, device):
 
 def make_train_step(model: torch.nn.Module, tx: O.AdamW, cfg):
     """MQ-GLIP's step. Returns train_step(state, batch, generator,
-    times=None) -> (state, metrics), `batch` from `batch_to_device`. The
-    anchors are those of the batch's bucket (its images' padded (H, W)),
-    built once per bucket by `glip_anchors`: a portrait batch trains against
-    the rotated bucket's anchors (ROADMAP Queue C 1; the JAX module takes
-    the first declared bucket's). The state's tensors are updated in place.
-    Given a dict `times`, the step synchronises the device at the boundaries
-    of its forward, backward and update and adds each one's seconds there."""
-    _refuse_unported(cfg)
+    times=None, mlm_draws=None) -> (state, metrics), `batch` from
+    `batch_to_device`. The anchors are those of the batch's bucket (its
+    images' padded (H, W)), built once per bucket by `glip_anchors`: a
+    portrait batch trains against the rotated bucket's anchors (ROADMAP
+    Queue C 1; the JAX module takes the first declared bucket's). The
+    state's tensors are updated in place. Given a dict `times`, the step
+    synchronises the device at the boundaries of its forward, backward and
+    update and adds each one's seconds there. Under FUSE_CONFIG.MLM_LOSS
+    (JAX's order): random_word on the raw ids (`_mlm_mask`; `mlm_draws`
+    replaces its draws), the text dropout on the masked ids, and
+    `loss_mlm` = MLM_LOSS_COEF * `mlm_loss` over the head's `mlm_logits`,
+    whose normaliser (the labelled tokens) is summed over the ranks. SCAN /
+    FILM are refused (`_refuse_untrainable`)."""
+    _refuse_untrainable(cfg)
     device = next(model.parameters()).device
+    fc = cfg.MODEL.DYHEAD.FUSE_CONFIG
     tower_trains = any(n.startswith("backbone.") for n in tx.lr)
     gate_loss = _gate_loss(model, tx, cfg, device)
     anchors_of: Dict[Tuple[int, int], Tuple[torch.Tensor, Tuple[int, ...]]] = {}
 
-    def loss_fn(batch, generator, times, t0):
+    def loss_fn(batch, generator, times, t0, mlm_draws=None):
         bucket = tuple(batch["images"].shape[-2:])
         if bucket not in anchors_of:
             anchors_of[bucket] = glip_anchors(cfg, bucket, device)
         anchors, level_sizes = anchors_of[bucket]
-        input_ids, queries, query_mask, generator = _text_and_queries(batch, cfg, generator)
+        mlm_ids = mlm_labels = None
+        if fc.MLM_LOSS:
+            mlm_ids, mlm_labels = _mlm_mask(batch, cfg, generator, mlm_draws)
+        input_ids, queries, query_mask, generator = _text_and_queries(batch, cfg, generator, mlm_ids)
         with torch.set_grad_enabled(tower_trains):
             feats = model.encode_image(batch["images"], deterministic=False, generator=generator)
         head_out = model.forward_head(feats, input_ids, batch["attention_mask"], queries, query_mask,
@@ -250,6 +309,8 @@ def make_train_step(model: torch.nn.Module, tx: O.AdamW, cfg):
             reg_loss_weight=cfg.MODEL.ATSS.REG_LOSS_WEIGHT,
         )
         losses["loss_gate"] = gate_loss()
+        if fc.MLM_LOSS:
+            losses["loss_mlm"] = fc.MLM_LOSS_COEF * L.mlm_loss(head_out["mlm_logits"], mlm_labels)
         return losses, t0
 
     return _finish_train_step(model, tx, loss_fn, cfg.SOLVER.MODEL_EMA, device)
@@ -278,8 +339,8 @@ def make_gdino_train_step(model: torch.nn.Module, tx: O.AdamW, cfg):
     (`matcher`: the cost's transfer, which waits for the forward's device
     work, and scipy). `assignment` fixes the matching (`gdino_set_loss`: for
     comparing runs, never in training); `train_step.assignment` holds the
-    one the last step used, (L, B, G)."""
-    _refuse_unported(cfg)
+    one the last step used, (L, B, G). Like JAX's, the step has no MLM term:
+    FUSE_CONFIG.MLM_LOSS does not change it."""
     g = cfg.GROUNDINGDINO
     device = next(model.parameters()).device
     tower_trains = any(n.startswith(("backbone.", "input_proj.")) for n in tx.lr)

@@ -11,7 +11,12 @@ the reference's 1-element tensors, and, for GroundingDINO's attentions, the
 torch `in_proj_weight` (3C, C) / `in_proj_bias` (3C,) assembled from the
 three flax q/k/v leaves that `_t_inproj_w(i)` / `_t_inproj_b(i)` slice out of
 it. Where a rule names several candidate reference keys, the first is the
-port's. A released GLIP / MQ-Det / GroundingDINO `.pth` therefore loads
+port's. MQ-GLIP's table is the JAX package's plus `port_rules()`: the
+parameters of MQ-Det's switches, which the JAX package's table (and so its
+`.pth` import) does not name, and the BatchNorm running statistics of the
+SCAN / FILM fusions, whose flax leaves are in the `batch_stats` collection
+(keys `batch_stats/...` in the flat dict; the `params` leaves carry no
+prefix). A released GLIP / MQ-Det / GroundingDINO `.pth` therefore loads
 directly:
 
     state = strip_prefixes(load_torch_state_dict(path))   # mqdet_torch.io.torch_import
@@ -28,6 +33,79 @@ import torch
 from mqdet_torch.io import torch_import as TI
 
 IN_PROJ = ("in_proj_weight", "in_proj_bias")
+PLAIN_DYCONV = "glip, USE_DFCONV off"  # the MQ-GLIP family whose DyConvs hold plain convs
+
+
+def _scalar(w):
+    return np.asarray(w).reshape(())
+
+
+def _gcp_attn_rules(ours: str, theirs: str):
+    """A GCP block's cross-attention and conditional gate (no FFN)."""
+    r = _norm_rules(f"{ours}/attn/norm", f"{theirs}.attn.norm")
+    r += _norm_rules(f"{ours}/attn/norm_kv_ln", f"{theirs}.attn.norm_kv")
+    r += [(f"{ours}/attn/{n}/kernel", f"{theirs}.attn.{n}.weight", TI._t_linear) for n in ("to_q", "to_kv", "to_out")]
+    return r + _ff_rules(f"{ours}/attn_gate", f"{theirs}.attn_gate")
+
+
+def _norm_rules(ours: str, theirs: str):
+    """A LayerNorm (or a BatchNorm's parameters): scale and bias."""
+    return [(f"{ours}/scale", f"{theirs}.weight", TI._ident), (f"{ours}/bias", f"{theirs}.bias", TI._ident)]
+
+
+def _ff_rules(ours: str, theirs: str):
+    """A GCPFeedForward: LayerNorm, two bias-free Linears."""
+    return _norm_rules(f"{ours}/norm", f"{theirs}.norm") + [
+        (f"{ours}/linear1/kernel", f"{theirs}.linear1.weight", TI._t_linear),
+        (f"{ours}/linear2/kernel", f"{theirs}.linear2.weight", TI._t_linear)]
+
+
+def _bn_rules(ours: str, theirs: str):
+    """An evaluation BatchNorm: scale / bias params and running statistics."""
+    return _norm_rules(ours, theirs) + [(f"batch_stats/{ours}/mean", f"{theirs}.running_mean", TI._ident),
+                                         (f"batch_stats/{ours}/var", f"{theirs}.running_var", TI._ident)]
+
+
+def _dense_rules(ours: str, theirs: str, conv: bool = False):
+    return [(f"{ours}/kernel", f"{theirs}.weight", TI._t_conv if conv else TI._t_linear),
+            (f"{ours}/bias", f"{theirs}.bias", TI._ident)]
+
+
+def port_rules(stages: int = 8, levels: int = 5, qv_layers: int = 12):
+    """(flax path, port key, transform) of MQ-GLIP's parameters beyond the
+    JAX package's rule table: LEARNABLE_BANK, ADD_VISION_LAYER,
+    NEW_MASK_TOKEN, ADD_LINEAR_LAYER, ADD_ADAPT_LAYER, the 0-d (CONDITION_GATE
+    off) and linear (NONLINEAR_GATE off) attention gates, QUERY_FUSION's
+    block, and the MHA-S / SCAN / FILM fusions of each head stage."""
+    ob, lb = "language_backbone/bert", "language_backbone.body.model"
+    r = [("qv_layer_learnable_bank", "qv_layer_learnable_bank", TI._ident),
+         ("tunable_vision_linear", "tunable_vision_linear", TI._ident),
+         (f"{ob}/mask_token", f"{lb}.mask_token", TI._ident),
+         ("rpn/tunable_linear", "rpn.head.tunable_linear.weight", TI._ident)]
+    for i in range(qv_layers):
+        p, q = f"{ob}/qv_layer_{i}", f"{lb}.encoder.qv_layer.{i}"
+        r += [(f"{p}/attn_gate", f"{q}.attn_gate", _scalar),
+              (f"{p}/attn_gate/kernel", f"{q}.attn_gate.weight", TI._t_linear)]
+        r += _ff_rules(f"{p}/adaptor", f"{q}.adaptor")
+    r += _gcp_attn_rules("rpn/query_fuse_qv_layer", "rpn.head.query_fuse_qv_layer")
+    for i in range(stages):
+        p, q = f"rpn/fuse_{i}", f"rpn.head.dyhead_tower.{3 * i}"
+        t2i = f"{q}.t2i_attn"
+        for n in ("layer_norm_q_1", "layer_norm_k_1"):
+            r += _norm_rules(f"{p}/{n}", f"{t2i}.{n}")
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            r += _dense_rules(f"{p}/attn/{n}", f"{t2i}.attn.{n}")
+        r.append((f"{p}/gamma", f"{t2i}.gamma", TI._ident))
+        r += _dense_rules(f"{p}/mapping_lang/fc1", f"{q}.mapping_lang.0")
+        r += _bn_rules(f"{p}/mapping_lang/bn1", f"{q}.mapping_lang.1")
+        r += _dense_rules(f"{p}/mapping_lang/fc2", f"{q}.mapping_lang.4")
+        r += _bn_rules(f"{p}/mapping_lang/bn2", f"{q}.mapping_lang.5")
+        for lvl in range(levels):
+            r += _dense_rules(f"{p}/joint_fusion_{lvl}", f"{q}.joint_fusion.{lvl}.0", conv=True)
+            r += _bn_rules(f"{p}/joint_bn_{lvl}", f"{q}.joint_fusion.{lvl}.1")
+            r += _dense_rules(f"{p}/gamma_{lvl}", f"{q}.gamma.{lvl}")
+            r += _dense_rules(f"{p}/beta_{lvl}", f"{q}.beta.{lvl}")
+    return r
 
 
 def reference_rules(model: Optional[torch.nn.Module] = None) -> Dict[str, Tuple[str, Callable]]:
@@ -41,33 +119,44 @@ def reference_rules(model: Optional[torch.nn.Module] = None) -> Dict[str, Tuple[
     return _reference_rules(_family(model))
 
 
-def _family(model: Optional[torch.nn.Module]) -> Optional[Tuple[int, int]]:
-    """None for MQ-GLIP (and no model); (encoder, decoder) depth for GroundingDINO."""
+def _family(model: Optional[torch.nn.Module]):
+    """None for MQ-GLIP (and no model), PLAIN_DYCONV for MQ-GLIP without
+    DCN; (encoder, decoder) depth for GroundingDINO."""
     from mqdet_torch.models.gdino import MQGroundingDINO
+    from mqdet_torch.models.mq_glip import MQGLIP
 
     if isinstance(model, MQGroundingDINO):
         tr = model.transformer
         return len(tr.encoder.layers), len(tr.decoder.layers)
+    if isinstance(model, MQGLIP) and not model.rpn.head.dyhead_tower[2].use_deform:
+        return PLAIN_DYCONV
     return None
 
 
 @functools.lru_cache(maxsize=8)
-def _reference_rules(family: Optional[Tuple[int, int]]) -> Dict[str, Tuple[str, Callable]]:
+def _reference_rules(family) -> Dict[str, Tuple[str, Callable]]:
+    items = list(_table(family).items())
+    if family == PLAIN_DYCONV:  # a DyConv conv's flax leaf is `dyconv_c/conv/*` there
+        items.sort(key=lambda kv: "/dyconv_" in kv[0] and "/conv/" not in kv[0])
     out = {}
-    for flax_name, (ref, tf) in _table(family).items():
+    for flax_name, (ref, tf) in items:
         ref = ref[0] if isinstance(ref, tuple) else ref
         if ref not in out:
             out[ref] = (flax_name, tf)
     return out
 
 
-def _table(family: Optional[Tuple[int, int]]) -> Dict:
-    return TI.build_rule_table() if family is None else TI.build_gdino_rule_table(*family)
+@functools.lru_cache(maxsize=8)
+def _table(family) -> Dict:
+    if isinstance(family, tuple):
+        return TI.build_gdino_rule_table(*family)
+    return {**TI.build_rule_table(), **{ours: (theirs, tf) for ours, theirs, tf in port_rules()}}
 
 
 def rule_table(model: Optional[torch.nn.Module] = None) -> Dict:
     """The rule table for `model`'s family: the GroundingDINO
-    table at the model's depth, else (and without a model) MQ-GLIP's."""
+    table at the model's depth, else (and without a model) MQ-GLIP's with
+    `port_rules()`."""
     return _table(_family(model))
 
 

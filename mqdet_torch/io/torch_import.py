@@ -532,8 +532,9 @@ def _import_with_rules(model, state: Dict[str, np.ndarray], table, strict: bool 
     """Fill `model` (in place) from a reference state dict by the rule table,
     leaf by leaf as the JAX package fills its flax tree: a rule's candidate
     keys are tried in order, the first present wins; a shape other than the
-    leaf's counts as missing. The values are loaded in fp32, then cast to the
-    model's dtype by `load_state_dict`. Returns {"matched", "missing",
+    leaf's counts as missing, and so does a leaf the table has no rule for,
+    as in JAX. The values are loaded in fp32, then cast to the model's dtype
+    by `load_state_dict`. Returns {"matched", "missing",
     "unused"}: flax paths, flax paths (with the shapes where they differ),
     reference keys."""
     import torch
@@ -544,6 +545,9 @@ def _import_with_rules(model, state: Dict[str, np.ndarray], table, strict: bool 
     current = {k: v.detach().to("cpu", torch.float32).clone() for k, v in model.state_dict().items()}
     matched, missing, used = [], [], set()
     for name, key, slot in _flax_leaves(model, table):
+        if name not in table:  # a leaf the JAX package's table does not name (`from_jax.port_rules`)
+            missing.append(name)
+            continue
         refs, tf = table[name]
         refs = (refs,) if isinstance(refs, str) else refs
         ref = next((r for r in refs if r in state), None)

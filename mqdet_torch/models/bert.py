@@ -10,10 +10,20 @@ with no query receives exactly zero and its gated residual is the identity.
 Eval only: dropout is the identity. With `remat` (`TPU.REMAT`, as the JAX
 package's `bert.py`) each of the encoder's BertLayers is one checkpointed
 segment (`layers.remat`) wherever autograd records the forward.
+
+The Gated Class-scalable Perceiver's switches are the JAX module's
+(`VISION_QUERY.*`, read by `gcp_options`): CONDITION_GATE, NONLINEAR_GATE,
+NO_CAT, FIX_ATTN_GATE, ADD_ADAPT_LAYER, SHARE_KV in every GCP block,
+AUGMENT_IMAGE_WITH_QUERY in the PreSelect module, NEW_MASK_TOKEN in the
+embeddings. Gate telemetry (VISION_QUERY.RETURN_ATTN_GATE_VALUE, the JAX
+blocks' `sow`): inside `with gate_telemetry() as values:` every GCP block
+appends its mean |attn_gate| in fp32 to `values`; outside it nothing is
+recorded and nothing is computed.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,20 +32,43 @@ from torch import nn
 from mqdet_torch.models.layers import GCPFeedForward, LayerNorm, remat
 
 MASK_FILL = -1e4
+MASK_TOKEN_ID = 103  # bert-base-uncased [MASK]
+
+_TELEMETRY: Optional[List[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def gate_telemetry():
+    """Collect every GCP block's mean |attn_gate| (a 0-d fp32 tensor each,
+    in call order) while the context is open."""
+    global _TELEMETRY
+    outer, _TELEMETRY = _TELEMETRY, []
+    try:
+        yield _TELEMETRY
+    finally:
+        _TELEMETRY = outer
+
+
+def gcp_options(vq) -> Dict[str, object]:
+    """The GCP block switches of a VISION_QUERY config node."""
+    return dict(condition_gate=bool(vq.CONDITION_GATE), nonlinear_gate=bool(vq.NONLINEAR_GATE),
+                no_cat=bool(vq.NO_CAT), fix_attn_gate=float(vq.FIX_ATTN_GATE),
+                add_adapt_layer=bool(vq.ADD_ADAPT_LAYER), share_kv=bool(vq.SHARE_KV))
 
 
 class MaskedCrossAttention(nn.Module):
     """Text tokens (B, T, D) attend to vision tokens (B, V, Dv); mask (B, V, T)
     is 1 where vision token v may be attended by text token t."""
 
-    def __init__(self, input_dim, vision_dim, output_dim=None, dim_head=64, heads=8):
+    def __init__(self, input_dim, vision_dim, output_dim=None, dim_head=64, heads=8, share_kv=False):
         super().__init__()
         inner = dim_head * heads
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.share_kv = heads, dim_head, share_kv
         self.norm = LayerNorm(input_dim, eps=1e-5)
         self.norm_kv = LayerNorm(vision_dim, eps=1e-5)
         self.to_q = nn.Linear(input_dim, inner, bias=False)
-        self.to_kv = nn.Linear(vision_dim, inner * 2, bias=False)
+        # SHARE_KV: one projection of width `inner` gives both keys and values
+        self.to_kv = nn.Linear(vision_dim, inner if share_kv else inner * 2, bias=False)
         self.to_out = nn.Linear(inner, output_dim or input_dim, bias=False)
 
     def forward(self, x, vision, attention_mask=None):
@@ -45,7 +78,8 @@ class MaskedCrossAttention(nn.Module):
         b, t, _ = x.shape
         vlen = vision.shape[1]
         q = self.to_q(x).reshape(b, t, h, d).transpose(1, 2) * d**-0.5
-        k, v = self.to_kv(vision).chunk(2, dim=-1)
+        kv = self.to_kv(vision)
+        k, v = (kv, kv) if self.share_kv else kv.chunk(2, dim=-1)
         k = k.reshape(b, vlen, h, d).transpose(1, 2)
         v = v.reshape(b, vlen, h, d).transpose(1, 2)
         sim = torch.matmul(q, k.transpose(-1, -2))  # (B, h, T, V), compute dtype
@@ -62,22 +96,60 @@ class MaskedCrossAttention(nn.Module):
 
 
 class GatedCrossAttentionBlock(nn.Module):
-    """GCP block with the MQ-Det defaults (conditional nonlinear gate on the
-    attention output alone, learned ff gate):
-        x <- attn(x, queries) * tanh(gate(attn_out)) + x
-        x <- ff(x) * tanh(ff_gate) + x"""
+    """GCP block (modeling_bert_new.py:251-374):
+        queries <- adaptor(queries) + queries          (ADD_ADAPT_LAYER)
+        x <- attn(x, queries) * tanh(gate) + x
+        x <- ff(x) * tanh(ff_gate) + x                 (enable_ffn)
+    The gate is, by the switches: FIX_ATTN_GATE != -1, that constant for both
+    gates and no gate parameter; CONDITION_GATE off, one 0-d learned
+    `attn_gate` (the reference's 1-element tensor here); else conditioned on
+    the attention output (with NO_CAT off, on [attn_out, x]) by a GCP
+    FeedForward to 1 (NONLINEAR_GATE) or a bias-free Linear to 1."""
 
-    def __init__(self, dim: int, vision_dim: int):
+    def __init__(self, dim: int, vision_dim: int, condition_gate: bool = True, nonlinear_gate: bool = True,
+                 no_cat: bool = True, fix_attn_gate: float = -1.0, add_adapt_layer: bool = False,
+                 share_kv: bool = False, enable_ffn: bool = True):
         super().__init__()
-        self.attn = MaskedCrossAttention(dim, vision_dim)
-        self.attn_gate = GCPFeedForward(dim, mult=0.5, out_dim=1)
-        self.ff = GCPFeedForward(dim, mult=4.0)
-        self.ff_gate = nn.Parameter(torch.zeros(1))
+        self.condition_gate, self.nonlinear_gate, self.no_cat = condition_gate, nonlinear_gate, no_cat
+        self.fix_attn_gate = fix_attn_gate
+        self.fixed = fix_attn_gate != -1.0
+        self.adaptor = GCPFeedForward(vision_dim, mult=2.0) if add_adapt_layer else None
+        self.attn = MaskedCrossAttention(dim, vision_dim, share_kv=share_kv)
+        if self.fixed:
+            self.attn_gate = None
+        elif not condition_gate:
+            self.attn_gate = nn.Parameter(torch.zeros(1))
+        elif nonlinear_gate:
+            self.attn_gate = GCPFeedForward(dim if no_cat else 2 * dim, mult=0.5, out_dim=1)
+        else:
+            self.attn_gate = nn.Linear(dim, 1, bias=False)
+        self.enable_ffn = enable_ffn
+        if enable_ffn:
+            self.ff = GCPFeedForward(dim, mult=4.0)
+            self.ff_gate = None if self.fixed else nn.Parameter(torch.zeros(1))
+
+    def _gate(self, supported, x):
+        if self.fixed:  # a fill on the device: a host tensor copied per call would synchronise the stream
+            return x.new_full((), self.fix_attn_gate)
+        if not self.condition_gate:
+            return torch.tanh(self.attn_gate.reshape(())).to(x.dtype)
+        gate_in = supported if (self.no_cat or not self.nonlinear_gate) else torch.cat([supported, x], -1)
+        return torch.tanh(self.attn_gate(gate_in))
 
     def forward(self, x, vision, attention_mask=None):
+        if self.adaptor is not None:
+            vision = self.adaptor(vision) + vision
         supported = self.attn(x, vision, attention_mask)
-        x = supported * torch.tanh(self.attn_gate(supported)) + x
-        return self.ff(x) * torch.tanh(self.ff_gate).to(x.dtype) + x
+        attn_gate = self._gate(supported, x)
+        if _TELEMETRY is not None:
+            _TELEMETRY.append(attn_gate.float().abs().mean())
+        x = supported * attn_gate + x
+        if not self.enable_ffn:
+            return x
+        y = self.ff(x)
+        if self.fixed:
+            return y * x.new_full((), self.fix_attn_gate) + x
+        return y * torch.tanh(self.ff_gate).to(x.dtype) + x
 
 
 class PreSelectBlock(nn.Module):
@@ -97,9 +169,18 @@ class PreSelectBlock(nn.Module):
 
 
 class PreSelectModule(nn.Module):
-    def __init__(self, dim: int, out_dim: int, num_layers: int = 2, vision_scale: float = 1.0):
+    """Condition the bank's queries on this image (modeling_bert_new.py:414-448).
+    With AUGMENT_IMAGE_WITH_QUERY the first block runs with the roles
+    swapped (image tokens attend to the queries) and the later blocks
+    condition the queries on the augmented image."""
+
+    def __init__(self, dim: int, out_dim: int, num_layers: int = 2, vision_scale: float = 1.0,
+                 augment_image_with_query: bool = False):
         super().__init__()
+        if augment_image_with_query and num_layers < 2:
+            raise ValueError("AUGMENT_IMAGE_WITH_QUERY needs NUM_PRE_SELECT_LAYERS > 1")
         self.vision_scale = vision_scale
+        self.augment_image_with_query = augment_image_with_query
         self.layers = nn.ModuleList(
             PreSelectBlock(dim, out_dim if i == num_layers - 1 else dim) for i in range(num_layers)
         )
@@ -107,7 +188,10 @@ class PreSelectModule(nn.Module):
     def forward(self, vision, image):
         vision = vision * self.vision_scale
         image = image * self.vision_scale
-        for layer in self.layers:
+        layers = list(self.layers)
+        if self.augment_image_with_query:
+            image = layers.pop(0)(image, vision)
+        for layer in layers:
             vision = layer(vision, image)
         return vision
 
@@ -181,7 +265,7 @@ class BertEmbeddings(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg_lb, num_qv: int, vision_hidden: int):
+    def __init__(self, cfg_lb, num_qv: int, vision_hidden: int, gcp: Dict[str, object]):
         super().__init__()
         hid = cfg_lb.HIDDEN_SIZE
         self.layer = nn.ModuleList(
@@ -189,7 +273,7 @@ class _Encoder(nn.Module):
             for _ in range(cfg_lb.HIDDEN_LAYERS)
         )
         self.qv_layer = nn.ModuleList(
-            GatedCrossAttentionBlock(hid, vision_hidden) for _ in range(num_qv)
+            GatedCrossAttentionBlock(hid, vision_hidden, **gcp) for _ in range(num_qv)
         )
 
 
@@ -197,7 +281,9 @@ class QVBertModel(nn.Module):
     """BERT with a GCP block before every layer >= start_qv_layer; the vision
     queries are first conditioned on the image by the PreSelect module.
     `vision_dim` is the width of the queries and image tokens
-    (MODEL.BACKBONE.OUT_CHANNELS unless given)."""
+    (MODEL.BACKBONE.OUT_CHANNELS unless given). With NEW_MASK_TOKEN a learned
+    `mask_token` (normal(0.02) at construction) replaces the embeddings of
+    the [MASK] id."""
 
     def __init__(self, cfg, vision_dim: Optional[int] = None, remat: bool = False):
         super().__init__()
@@ -206,11 +292,12 @@ class QVBertModel(nn.Module):
         vq = cfg.VISION_QUERY
         self.start_qv_layer = vq.START_QV_LAYER
         self.embeddings = BertEmbeddings(lb.VOCAB_SIZE, lb.HIDDEN_SIZE)
-        self.encoder = _Encoder(lb, lb.HIDDEN_LAYERS - vq.START_QV_LAYER, lb.HIDDEN_SIZE)
+        self.encoder = _Encoder(lb, lb.HIDDEN_LAYERS - vq.START_QV_LAYER, lb.HIDDEN_SIZE, gcp_options(vq))
         self.pre_select = PreSelectModule(
             vision_dim or cfg.MODEL.BACKBONE.OUT_CHANNELS, lb.HIDDEN_SIZE,
-            vq.NUM_PRE_SELECT_LAYERS, vq.VISION_SCALE,
+            vq.NUM_PRE_SELECT_LAYERS, vq.VISION_SCALE, bool(vq.AUGMENT_IMAGE_WITH_QUERY),
         )
+        self.mask_token = nn.Parameter(torch.randn(lb.HIDDEN_SIZE) * 0.02) if vq.NEW_MASK_TOKEN else None
 
     def forward(self, input_ids, attention_mask, queries=None, query_mask=None,
                 image_tokens=None, attention_matrix=None, position_ids=None) -> Dict[str, torch.Tensor]:
@@ -218,22 +305,41 @@ class QVBertModel(nn.Module):
         blocks, is then the attention mask ALONE (padding tokens are already
         self-only blocks); position_ids (B, T) restart in each block."""
         x = self.embeddings(input_ids, position_ids)
+        if self.mask_token is not None:
+            x = torch.where((input_ids == MASK_TOKEN_ID)[..., None], self.mask_token.to(x.dtype), x)
         if attention_matrix is not None:
             attn_bias = (1.0 - attention_matrix[:, None].float()) * -10000.0
         else:
             attn_bias = (1.0 - attention_mask[:, None, None, :].float()) * -10000.0
-        vision = None
-        if queries is not None:
-            vision = (
-                self.pre_select(queries, image_tokens) if image_tokens is not None else queries
-            )
+        vision = augmented = None
+        if queries is not None and image_tokens is not None:
+            vision = augmented = self.pre_select(queries, image_tokens)
+        elif queries is not None:
+            vision = queries
         hidden_states = []
         for i, layer in enumerate(self.encoder.layer):
             if vision is not None and i >= self.start_qv_layer:
                 x = self.encoder.qv_layer[i - self.start_qv_layer](x, vision, query_mask)
             x = remat(layer, x, attn_bias, enabled=self.remat)
             hidden_states.append(x)
-        return {"last_hidden": x, "hidden_states": hidden_states, "augmented_vision": vision}
+        return {"last_hidden": x, "hidden_states": hidden_states, "augmented_vision": augmented}
+
+
+class MLMHead(nn.Module):
+    """BertLMPredictionHead (utils/fuse_helper.py:27-44), used under
+    MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS: dense, exact GELU, LayerNorm (eps
+    1e-12), then the vocabulary decoder, whose bias is the reference's tied
+    `mlm_head.bias`."""
+
+    def __init__(self, hidden: int, vocab: int):
+        super().__init__()
+        self.transform = _Dense(hidden, hidden, ln=True)
+        self.decoder = nn.Linear(hidden, vocab, bias=False)
+        self.bias = nn.Parameter(torch.zeros(vocab))
+
+    def forward(self, x):
+        x = self.transform.LayerNorm(F.gelu(self.transform.dense(x), approximate="none"))
+        return self.decoder(x) + self.bias.to(x.dtype)
 
 
 class _Body(nn.Module):

@@ -5,8 +5,17 @@ Swin -> FPN -> [vision queries -> PreSelect -> GCP-BERT] -> VLDyHead, with the
 reference's module tree (`backbone.body`, `backbone.fpn`,
 `language_backbone.body.model`, `rpn.head`). `encode_image` (text
 independent) runs once per image; `forward_head` (text dependent) runs once
-per group of prompt chunks. Only the bert language backbone and the
-non-learnable query bank are built.
+per group of prompt chunks. Only the bert language backbone and Swin v1 are
+built (MODEL_TYPE clip / rnn and Swin v2 are refused).
+
+MQ-Det's model switches are the JAX module's: the GCP variants
+(`models/bert.py`), the head's (`models/vldyhead.py`), and two on the
+queries: LEARNABLE_BANK makes the bank a zero-init parameter
+`qv_layer_learnable_bank` (rows, slots, C), sized by `bank_shape`
+(`QuerySelector.bank_table_shape()`; `utils.builders.install_learnable_bank`
+writes the bank's values), and `queries` then carries int (row, slot)
+indices, gathered from it; ADD_VISION_LAYER adds the zero-init prompt
+`tunable_vision_linear` (1000, C) to the first V query rows.
 
 Images are NCHW. The compute dtype is the parameters' dtype: move the model
 with `.to(device, torch.bfloat16)` for the card, keep fp32 for parity tests.
@@ -24,7 +33,7 @@ backward. Under `no_grad` / `inference_mode` it runs nothing more.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -64,22 +73,24 @@ class _RPN(nn.Module):
 
 
 class MQGLIP(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, bank_shape: Optional[Tuple[int, int, int]] = None):
         super().__init__()
         vq = cfg.VISION_QUERY
-        mq_det = dict(CONDITION_GATE=True, NONLINEAR_GATE=True, NO_CAT=True, FIX_ATTN_GATE=-1.0,
-                      ADD_ADAPT_LAYER=False, SHARE_KV=False, AUGMENT_IMAGE_WITH_QUERY=False,
-                      NEW_MASK_TOKEN=False, LEARNABLE_BANK=False, ADD_VISION_LAYER=False,
-                      QUERY_FUSION=False)
-        other = [k for k, v in mq_det.items() if vq[k] != v]
-        if other:
-            raise NotImplementedError(f"VISION_QUERY options not ported: {other}")
         if cfg.MODEL.LANGUAGE_BACKBONE.MODEL_TYPE != "bert-base-uncased":
             raise NotImplementedError("only the bert language backbone is ported")
         if cfg.MODEL.SWINT.VERSION != "v1":
             raise NotImplementedError("only Swin v1 is ported")
         # activation checkpointing of the text layers and head stages (JAX's rule)
         remat = bool(cfg.TPU.REMAT or cfg.MODEL.DYHEAD.USE_CHECKPOINT or cfg.MODEL.LANGUAGE_BACKBONE.USE_CHECKPOINT)
+        c = cfg.MODEL.BACKBONE.OUT_CHANNELS
+        if vq.LEARNABLE_BANK and bank_shape is None:
+            raise ValueError("LEARNABLE_BANK needs the bank's (rows, slots, C): build_model(cfg, "
+                             "bank_shape=selector.bank_table_shape())")
+        self.qv_layer_learnable_bank = (
+            nn.Parameter(torch.zeros(bank_shape[0], bank_shape[1], c)) if vq.LEARNABLE_BANK else None
+        )
+        self.tunable_vision_linear = nn.Parameter(torch.zeros(1000, c)) if vq.ADD_VISION_LAYER else None
+        self.query_fusion = bool(vq.QUERY_FUSION)
         self.backbone = _Backbone(cfg)
         self.language_backbone = LanguageBackbone(cfg, remat)
         self.rpn = _RPN(cfg, remat)
@@ -105,10 +116,18 @@ class MQGLIP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         """GCP-BERT + VLDyHead. fpn_feats may have batch 1 while the text has
-        batch CP (chunk parallelism): features are broadcast to the text batch."""
+        batch CP (chunk parallelism): features are broadcast to the text batch.
+        Integer `queries` (..., 2) are (row, slot) indices into the learnable
+        bank."""
         b_text = input_ids.shape[0]
         if fpn_feats[0].shape[0] == 1 and b_text > 1:
             fpn_feats = [cl(f.expand(b_text, *f.shape[1:])) for f in fpn_feats]
+        if queries is not None and not queries.is_floating_point():
+            if self.qv_layer_learnable_bank is None:
+                raise ValueError("integer queries index the learnable bank: VISION_QUERY.LEARNABLE_BANK is off")
+            queries = self.qv_layer_learnable_bank[queries[..., 0].long(), queries[..., 1].long()]
+        if queries is not None and self.tunable_vision_linear is not None:
+            queries = queries + self.tunable_vision_linear[None, :queries.shape[1]].to(queries.dtype)
         image_tokens = flatten_fpn_features(fpn_feats) if queries is not None else None
         lang = self.language_backbone(
             input_ids,
@@ -117,7 +136,13 @@ class MQGLIP(nn.Module):
             query_mask=query_mask,
             image_tokens=image_tokens,
         )
-        out = self.rpn.head(fpn_feats, lang["hidden"], lang["masks"], training_draws(deterministic, generator))
+        out = self.rpn.head(
+            fpn_feats, lang["hidden"], lang["masks"], training_draws(deterministic, generator),
+            embedding=lang["embedded"],
+            augmented_vision=lang["augmented_vision"] if self.query_fusion else None,
+            query_mask=query_mask if self.query_fusion else None,
+            lang_aggregate=lang["aggregate"],
+        )
         out["lang"] = lang
         return out
 

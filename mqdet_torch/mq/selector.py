@@ -1,8 +1,9 @@
 """Query selection: bank rows -> padded query arrays. The port's copy of
 `mqdet_tpu/mq/selector.py` (framework-free; pinned to the original by
-`tests/test_torch_port_querybank.py`). The learnable bank's index form
-(`emit_indices`, VISION_QUERY.LEARNABLE_BANK) is refused, as the port's
-models refuse LEARNABLE_BANK (ROADMAP Queue A 5).
+`tests/test_torch_port_querybank.py`), with the learnable bank's index form
+(`emit_indices`, VISION_QUERY.LEARNABLE_BANK): int32 (row, slot) pairs in
+place of the features, which the model gathers from its bank parameter;
+`bank_table_shape` / `bank_table` size and fill that parameter.
 
 Reference QuerySelector.forward
 (maskrcnn_benchmark/modeling/query_selector/query_selector.py:40-116): per
@@ -33,16 +34,34 @@ class QuerySelector:
         max_labels: int = 40,
         emit_indices: bool = False,
     ):
-        if emit_indices:
-            raise NotImplementedError(
-                "the learnable bank's index selection (VISION_QUERY.LEARNABLE_BANK) is not ported "
-                "(ROADMAP Queue A 5)"
-            )
         self.bank = bank
         self.k = num_query_per_class
         self.pure_text_rate = pure_text_rate
         self.random_kshot = random_kshot
         self.max_labels = max_labels
+        # VISION_QUERY.LEARNABLE_BANK (query_selector.py:17-20,59): (bank_row,
+        # slot) int32 indices instead of features; padded slots are (0, 0)
+        # with an all-zero mask row
+        self.emit_indices = emit_indices
+        if emit_indices:
+            if bank is None:
+                raise ValueError("emit_indices needs a bank")
+            self._label_to_row = {int(lab): i for i, lab in enumerate(sorted(bank.labels))}
+
+    def bank_table_shape(self) -> Tuple[int, int, int]:
+        """(rows, slots, channels) of the learnable bank parameter."""
+        rows = len(self.bank.labels)
+        slots = max((len(self.bank.get(int(lab))) for lab in self.bank.labels), default=1) * self.bank.num_scales
+        return rows, slots, self.bank.channels
+
+    def bank_table(self) -> np.ndarray:
+        """Dense (rows, slots, C) values for the learnable bank."""
+        rows, slots, c = self.bank_table_shape()
+        table = np.zeros((rows, slots, c), np.float32)
+        for lab, i in self._label_to_row.items():
+            e = self.bank.get(lab).reshape(-1, c)
+            table[i, : len(e)] = e
+        return table
 
     @property
     def max_queries(self) -> int:
@@ -67,7 +86,7 @@ class QuerySelector:
         s = self.bank.num_scales if self.bank is not None else 1
         v = self.max_queries
 
-        queries = np.zeros((v, c), np.float32)
+        queries = np.zeros((v, 2), np.int32) if self.emit_indices else np.zeros((v, c), np.float32)
         query_mask = np.zeros((v, t_len), np.float32)
         has_query = np.zeros((self.max_labels,), np.int32)
         if self.bank is None:
@@ -89,8 +108,11 @@ class QuerySelector:
             idx = r.sample(range(len(candidates)), n)
             if not training:
                 idx = sorted(idx)
-            sel = candidates[idx]  # (n, S, C)
-            flat = sel.reshape(n * s, c)
+            if self.emit_indices:
+                row = self._label_to_row[int(label)]
+                flat = np.asarray([(row, q * s + sc) for q in idx for sc in range(s)], np.int32)
+            else:
+                flat = candidates[idx].reshape(n * s, c)  # (n, S, C) -> (n S, C)
             queries[cursor : cursor + len(flat)] = flat
             # binary query->token mask from the label's token span
             # (query_selector.py:105-112 re-binarizes the normalized map)

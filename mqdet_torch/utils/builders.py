@@ -132,17 +132,31 @@ def tiny_gdino_config() -> CfgNode:
     return cfg
 
 
-def build_model(cfg):
+def build_model(cfg, bank_shape=None):
     """MQ-GLIP, or MQ-GroundingDINO when `GROUNDINGDINO.enabled`, from a
     config, in fp32 on the CPU. Move it with `.to(device, dtype)`: the
-    compute dtype is the parameters' dtype."""
+    compute dtype is the parameters' dtype. `bank_shape`: (rows, slots, C)
+    from `QuerySelector.bank_table_shape()`, required under
+    VISION_QUERY.LEARNABLE_BANK."""
     if cfg.GROUNDINGDINO.enabled:
         from mqdet_torch.models.gdino import MQGroundingDINO
 
         return MQGroundingDINO(cfg)
     from mqdet_torch.models.mq_glip import MQGLIP
 
-    return MQGLIP(cfg)
+    return MQGLIP(cfg, bank_shape=bank_shape)
+
+
+@torch.no_grad()
+def install_learnable_bank(model: torch.nn.Module, selector) -> torch.nn.Module:
+    """Write the bank's values (`selector.bank_table()`, the selector built
+    with `emit_indices=True`) into the model's learnable bank, in place (the
+    reference loads them at construction, query_selector.py:17-20)."""
+    bank = getattr(model, "qv_layer_learnable_bank", None)
+    if bank is None:
+        raise ValueError("the model was built without VISION_QUERY.LEARNABLE_BANK")
+    bank.copy_(torch.from_numpy(selector.bank_table()))
+    return model
 
 
 def synthetic_batch(
@@ -235,22 +249,28 @@ def protocol_inputs(cfg, make_batch, groups: int, cp: int, image_hw: Tuple[int, 
 
 
 @torch.no_grad()
-def init_params(model: torch.nn.Module, seed: int = 0, scale: float = 0.02) -> torch.nn.Module:
+def init_params(model: torch.nn.Module, seed: int = 0, scale: float = 0.02, keys=None) -> torch.nn.Module:
     """Fill every parameter by the rule of the JAX package's
     `init_params_fast`: ones for norm scales, the fusion layer-scale gammas
     and the `Scale` / `log_scale` scalars (flax leaves named *scale,
-    *gamma_v, *gamma_l), zeros for biases (an attention's `in_proj_bias`
-    holds three flax biases), else numpy normals * `scale` from `seed`,
-    drawn in state_dict order."""
+    *gamma_v, *gamma_l) and BatchNorm running variances, zeros for biases
+    (an attention's `in_proj_bias` holds three flax biases) and running
+    means, else numpy normals * `scale` from `seed`, drawn in state_dict
+    order. `keys`: fill only these state_dict entries (drawn in the same
+    order), leave the others as they are."""
+    from mqdet_torch.models.fusion import BatchNorm
+
     ones = set()
     for name, mod in model.named_modules():
-        if isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+        if isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm, BatchNorm)):
             ones.add(f"{name}.weight")
     rng = np.random.default_rng(seed)
     for key, t in model.state_dict().items():
-        if key in ones or key.endswith(("gamma_v", "gamma_l", "scale")):
+        if keys is not None and key not in keys:
+            continue
+        if key in ones or key.endswith(("gamma_v", "gamma_l", "scale", "running_var")):
             t.fill_(1.0)
-        elif key.endswith((".bias", "in_proj_bias")):
+        elif key.endswith((".bias", "in_proj_bias", "running_mean")):
             t.zero_()
         else:
             t.copy_(torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32) * scale))

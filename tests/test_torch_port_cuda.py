@@ -1116,3 +1116,80 @@ def test_remat_protocol_launches_the_plain_protocols_kernels(dev):
     assert counts[False] == counts[True] == {"dcn_band": 2 * 8 * 13, "bi_attention": 2 * 8}
     for field in ("boxes", "scores", "labels", "valid"):
         assert torch.equal(getattr(outs[False], field), getattr(outs[True], field))
+
+
+def _switch_model(switch):
+    """A tiny MQ-GLIP (C 128, so the band kernel runs; T 64, the bi-attention
+    kernel's multiple) under one of phase 14's switch sets: "S1" (the GCP and
+    query switches with the learnable bank, ADD_LINEAR_LAYER, MLM_LOSS) or
+    "MHA-S"; its inputs (the learnable bank's indices under S1). Returns
+    (cfg, model on the CPU in fp32, [image, ids, mask, queries, query_mask])."""
+    import numpy as np
+
+    from mqdet_torch.mq.bank import QueryBank
+    from mqdet_torch.mq.selector import QuerySelector
+    from mqdet_torch.utils.builders import (
+        build_model, init_params, install_learnable_bank, synthetic_batch, tiny_test_config,
+    )
+
+    cfg = tiny_test_config()
+    cfg.MODEL.BACKBONE.OUT_CHANNELS = cfg.MODEL.DYHEAD.CHANNELS = 128
+    cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN = 64
+    shape, selector = None, None
+    if switch == "S1":
+        for key in ("ADD_ADAPT_LAYER", "SHARE_KV", "AUGMENT_IMAGE_WITH_QUERY", "NEW_MASK_TOKEN", "ADD_VISION_LAYER",
+                    "QUERY_FUSION", "LEARNABLE_BANK"):
+            cfg.VISION_QUERY[key] = True
+        cfg.VISION_QUERY.NO_CAT = False
+        cfg.MODEL.DYHEAD.FUSE_CONFIG.ADD_LINEAR_LAYER = cfg.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS = True
+        bank = QueryBank(channels=128)
+        rng = np.random.default_rng(0)
+        for label in (1, 2, 3):
+            bank.add(label, rng.standard_normal((3, 1, 128)).astype(np.float32))
+        selector = QuerySelector(bank, num_query_per_class=2, max_labels=3, emit_indices=True)
+        shape = selector.bank_table_shape()
+    else:
+        cfg.MODEL.DYHEAD.FUSE_CONFIG.TYPE = switch
+    model = init_params(build_model(cfg, bank_shape=shape), seed=0).eval()
+    b = synthetic_batch(cfg, 1, (64, 64), 3, 2, seed=1)
+    if selector is not None:
+        install_learnable_bank(model, selector)
+        loc = np.zeros((3, 64), np.float32)
+        loc[:, 1:5] = 1
+        b["queries"], b["query_mask"] = (x[None] for x in selector.select([1, 2, 3], loc)[:2])
+    args = [torch.from_numpy(b["images"]).permute(0, 3, 1, 2).contiguous()] + [
+        torch.from_numpy(b[k]) for k in ("input_ids", "attention_mask", "queries", "query_mask")]
+    return cfg, model, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switch", ["S1", "MHA-S"])
+def test_switch_model_on_the_card_against_the_cpu(dev, switch):
+    """A tiny MQ-GLIP under S1 and under MHA-S in bf16 on the card against
+    the same weights in fp32 on the CPU (plain versions): the dot-product
+    logits (and S1's `mlm_logits`) within twice the CPU bf16 drift by
+    relative L2 (floor 1e-2, phase 3's rule); launches 13 `dcn_band`, and 1
+    `bi_attention` under S1 (MHA-B), 0 under MHA-S (one-way attention, plain
+    PyTorch)."""
+    import copy
+
+    from mqdet_torch.ops import launch_counts
+
+    cfg, model, args = _switch_model(switch)
+
+    def run(m, device):
+        with torch.inference_mode():
+            out = m(*(a.to(device) for a in args))
+        return [torch.cat([d.float().cpu().reshape(-1) for d in out["dot_product_logits"]])] + (
+            [out["mlm_logits"].float().cpu()] if "mlm_logits" in out else [])
+
+    ref, plain = run(model, "cpu"), run(copy.deepcopy(model).to(torch.bfloat16), "cpu")
+    launch_counts(reset=True)
+    got = run(copy.deepcopy(model).to(dev, torch.bfloat16), dev)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if v} == (
+        {"dcn_band": 13, "bi_attention": 1} if switch == "S1" else {"dcn_band": 13})
+    assert len(got) == (2 if switch == "S1" else 1)
+    for g, p, r in zip(got, plain, ref):
+        err, drift = ((g - r).norm() / r.norm()).item(), ((p - r).norm() / r.norm()).item()
+        assert err <= max(2 * drift, 1e-2), (err, drift)

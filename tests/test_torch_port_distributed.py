@@ -267,8 +267,25 @@ def _case_bank(spec, rank):
             "saves": saves, "path": path}
 
 
+def _case_four(spec, rank):
+    """(j) one GLIP step under MLM_LOSS, text dropout 0.5, on the rank's
+    image of a global batch of 4 (the 4-rank spawn): its gradients."""
+    from mqdet_torch.core.config import trainable_patterns
+    from mqdet_torch.engine import train as tt
+
+    cfg, model = load_model(spec["four_cfg"], spec["four_model"])
+    batch = rows(dict(np.load(spec["four_batch"])), rank)
+    state, tx = tt.init_train_state(model, cfg, trainable_patterns(cfg))
+    grads = {}
+    _, metrics = tt.make_train_step(model, tx, cfg)(state, tt.batch_to_device(batch, "cpu"),
+                                                    tt.step_generator(cfg.SOLVER.SEED, 0, "cpu"), grads_out=grads)
+    return {"grads": grads, "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
 CASES = {"glip": _case_glip, "gate": _case_gate, "nan": _case_nan, "batch": _case_batch, "gdino": _case_gdino,
-         "inference": _case_inference, "bank": _case_bank, "uneven": _case_uneven, "resume": _case_resume}
+         "inference": _case_inference, "bank": _case_bank, "uneven": _case_uneven, "resume": _case_resume,
+         "four": _case_four}
+FOUR = 4  # the ranks of the "four" spawn
 
 
 def worker(spec_path: str) -> int:
@@ -296,6 +313,8 @@ if __name__ == "__main__":
 
 
 # ------------------------------------------------------------ the tests (parent)
+
+import re  # noqa: E402
 
 import pytest  # noqa: E402
 
@@ -383,8 +402,8 @@ def ranks(tmp_path_factory, glip_pair, gdino_one, gpair, eval_pair):
     [rank 0's results, rank 1's], raising with a rank's output where one
     failed; wait.spec the workers' spec."""
     root = tmp_path_factory.mktemp("ranks")
-    spec = {"dir": str(root), "cases": list(CASES), "bank_stores": BANK_STORES, "bank_capacity": BANK_CAPACITY,
-            "extract_capacity": 2}
+    spec = {"dir": str(root), "cases": [c for c in CASES if c != "four"], "bank_stores": BANK_STORES,
+            "bank_capacity": BANK_CAPACITY, "extract_capacity": 2}
 
     def save_cfg(name, cfg):
         path = root / f"{name}.yml"
@@ -438,13 +457,22 @@ def ranks(tmp_path_factory, glip_pair, gdino_one, gpair, eval_pair):
     mixed.DATASETS.DISABLE_SHUFFLE = True
     save_cfg("mixed", mixed)
 
+    wait = _spawn(root, spec, WORLD)
+    yield wait
+    wait.kill()
+
+
+def _spawn(root, spec, world):
+    """Start `world` workers of this file on `spec`; returns wait() -> each
+    rank's results, raising with a rank's output where one failed (each
+    within RANK_TIMEOUT_S); wait.spec the spec, wait.kill() ends them."""
     spec_path = root / "spec.json"
     spec_path.write_text(json.dumps(spec))
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(WORLD),
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world),
                LOCAL_RANK="0", OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
     procs = [subprocess.Popen([sys.executable, __file__, str(spec_path)], env=dict(env, RANK=str(r)), cwd=REPO,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
     started = time.monotonic()
     done = {}
 
@@ -463,15 +491,50 @@ def ranks(tmp_path_factory, glip_pair, gdino_one, gpair, eval_pair):
             for r, p in enumerate(procs):
                 if p.returncode != 0:
                     raise AssertionError(f"rank {r} exited {p.returncode}:\n{logs[r][-6000:]}")
-            done["out"] = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+            done["out"] = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(world)]
         return done["out"]
 
-    wait.spec = spec
-    yield wait
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.wait()
+    def kill():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    wait.spec, wait.kill = spec, kill
+    return wait
+
+
+def _four_mods(cfg):
+    """The 4-rank case: phase 13's recipe shape at the tiny config (the
+    `vision_query` GCP set, 32 head channels so one image a rank meets no
+    GroupNorm refusal, text dropout 0.5) with MLM_LOSS on, so the MLM
+    normaliser is summed over the ranks too."""
+    _glip_mods_dropout(cfg)
+    cfg.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS = True
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """The tiny GLIP from `init_params(seed 0)` (every gate non-zero), a
+    global batch of 4 with 3 boxes an image, and 4 workers started on it:
+    (cfg, model, batch, wait)."""
+    root = tmp_path_factory.mktemp("four")
+    cfg = tb.tiny_test_config()
+    _four_mods(cfg)
+    model = no_dropout(tb.init_params(tb.build_model(cfg), seed=0).eval())
+    b = tb.synthetic_batch(cfg, FOUR, (64, 64), num_labels=3, k_shot=2, seed=4)
+    gt = _gt(9, b=FOUR, g=4, n_valid=(3, 2))
+    batch = {k: b[k] for k in ("images", "input_ids", "attention_mask", "queries", "query_mask")}
+    batch.update(gt_boxes=gt[0], gt_labels=gt[1], gt_valid=gt[2], gt_token_map=gt[3],
+                 pos_category_map=(b["agg_map"] > 0).astype(np.float32), has_query=np.ones((FOUR, 3), np.int32))
+    (root / "four.yml").write_text(cfg.dump_yaml())
+    torch.save(model.state_dict(), root / "four.pt")
+    np.savez(root / "four_batch.npz", **batch)
+    spec = {"dir": str(root), "cases": ["four"], "four_cfg": str(root / "four.yml"),
+            "four_model": str(root / "four.pt"), "four_batch": str(root / "four_batch.npz")}
+    wait = _spawn(root, spec, FOUR)
+    yield cfg, model, batch, wait
+    wait.kill()
 
 
 def _uniforms(cfg, it, b=2, labels=3):
@@ -491,6 +554,37 @@ def _assert_masters(got, want_of, err_msg=""):
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+
+
+def test_glip_step_on_four_ranks_matches_one_process_at_batch_four(four_ranks):
+    """(j) ROADMAP Queue C 3's question on the CPU, noise or fault: 4 gloo
+    ranks of 1 image against one process at batch 4, in fp32, one GLIP step
+    under MLM_LOSS and text dropout (the draws the global batch's): every
+    gradient the optimizer takes (summed over the ranks) within 1e-5
+    relative L2 of the one process's, the summed losses within rtol 1e-5,
+    the ranks' gradients bitwise equal. Prints the GCP attention gates'
+    norm biases (`qv_layer.*.attn_gate.norm.bias`), the tensor the card's
+    `--cards 4` run flagged."""
+    cfg, model, batch, wait = four_ranks
+    model = copy.deepcopy(model)
+    state, tx = tt.init_train_state(model, cfg, trainable_patterns(cfg))
+    want = {}
+    _, metrics = tt.make_train_step(model, tx, cfg)(state, tt.batch_to_device(batch, "cpu"),
+                                                    tt.step_generator(cfg.SOLVER.SEED, 0, "cpu"), grads_out=want)
+    out = [o["four"] for o in wait()]
+    assert "loss_mlm" in out[0]["metrics"] and all(o["metrics"] == out[0]["metrics"] for o in out)
+    for k, v in metrics.items():
+        assert abs(out[0]["metrics"][k] - float(v)) <= 1e-5 * max(abs(float(v)), 1e-30), k
+    dist = {n: float(torch.linalg.vector_norm(out[0]["grads"][n] - g) / torch.linalg.vector_norm(g).clamp(min=1e-30))
+            for n, g in want.items()}
+    for n, d in sorted(dist.items()):
+        if re.fullmatch(r".*qv_layer\.\d+\.attn_gate\.norm\.bias", n):
+            print(f"{n}: relative L2 {d!r} (one process's norm {float(torch.linalg.vector_norm(want[n]))!r})")
+    assert len(dist) > 10 and any(".attn_gate.norm.bias" in n for n in dist)
+    bad = {n: d for n, d in dist.items() if not d <= 1e-5}
+    assert not bad, bad
+    for o in out[1:]:
+        assert all(torch.equal(o["grads"][n], out[0]["grads"][n]) for n in want)
 
 
 def test_glip_step_on_two_ranks_matches_jax_on_a_two_device_mesh(ranks, glip_pair):

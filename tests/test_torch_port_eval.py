@@ -442,8 +442,7 @@ def test_online_update_matches_jax(request, jax_fns, data, family):
 # ---- refusals ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("option", ["TEST.USE_MULTISCALE", "VISION_QUERY.RETURN_ATTN_GATE_VALUE",
-                                    "GLIPKNOW.KNOWLEDGE_FILE"])
+@pytest.mark.parametrize("option", ["TEST.USE_MULTISCALE", "GLIPKNOW.KNOWLEDGE_FILE"])
 def test_unported_options_raise(simple_coco, option):
     cfg = fake_cfg(((64, 96),))
     node, key = option.split(".")

@@ -133,7 +133,8 @@ def test_query_bank_copy_matches(tmp_path):
 
 def test_query_selector_copy_matches():
     """One seed on both sides: `random.seed(s)` right before each call, because
-    both selectors draw from the one module-level `random` when given no rng."""
+    both selectors draw from the one module-level `random` when given no rng;
+    the feature form and the learnable bank's index form (`emit_indices`)."""
     rng = np.random.default_rng(1)
     feats = {lab: rng.standard_normal((n, 1, 8)).astype(np.float32) for lab, n in ((1, 9), (2, 3), (4, 7))}
     jbk, tbk = jbank.QueryBank(channels=8), tbank.QueryBank(channels=8)
@@ -152,8 +153,20 @@ def test_query_selector_copy_matches():
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
         assert js.max_queries == ts.max_queries
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        tsel.QuerySelector(tbk, emit_indices=True)
+    # the learnable bank's index form: int32 (row, slot) pairs, the table's shape and values
+    js = jsel.QuerySelector(jbk, num_query_per_class=4, max_labels=5, emit_indices=True)
+    ts = tsel.QuerySelector(tbk, num_query_per_class=4, max_labels=5, emit_indices=True)
+    assert js.bank_table_shape() == ts.bank_table_shape() == (3, 9, 8)
+    np.testing.assert_array_equal(js.bank_table(), ts.bank_table())
+    for seed in range(3):
+        random.seed(seed)
+        a = js.select([1, 2, 3, 4, 9], loc, training=bool(seed))
+        random.seed(seed)
+        b = ts.select([1, 2, 3, 4, 9], loc, training=bool(seed))
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+            assert x.dtype == y.dtype
+        assert b[0].dtype == np.int32 and b[0].shape == (20, 2)
 
 
 def write_coco(root, sizes, boxes_per_image=3, categories=None, seed=0):

@@ -638,16 +638,20 @@ def test_training_forward_draws_from_its_generator(pair):
 
 
 def test_unported_training_options_are_refused(pair, coco, tmp_path):
-    """MLM_LOSS raises; MQ-GroundingDINO, once refused here (ROADMAP Queue A
-    2), builds its own step: the set criterion's, with no anchors. (REMAT,
-    once refused here too, is ported: `test_torch_port_remat.py`.)"""
+    """SCAN and FILM training raise, with the reason (the JAX step has no
+    mutable batch_stats; `test_torch_port_fusions_mlm.py` shows JAX's
+    failing); MQ-GroundingDINO, once refused here (ROADMAP Queue A 2), builds
+    its own step: the set criterion's, with no anchors. (REMAT and MLM_LOSS,
+    once refused here too, are ported: `test_torch_port_remat.py`,
+    `test_torch_port_fusions_mlm.py`.)"""
     tcfg = pair[4].clone()
     model = copy.deepcopy(pair[2])
     state, tx = tt.init_train_state(model, tcfg, [""])
-    c = tcfg.clone()
-    c.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS = True
-    with pytest.raises(NotImplementedError, match="MLM head"):
-        tt.make_train_step(model, tx, c)
+    for fuse_type in ("SCAN", "FILM"):
+        c = tcfg.clone()
+        c.MODEL.DYHEAD.FUSE_CONFIG.TYPE = fuse_type
+        with pytest.raises(NotImplementedError, match="batch_stats"):
+            tt.make_train_step(model, tx, c)
     from mqdet_torch.data.coco import CocoDetectionDataset
     from mqdet_torch.data.tokenizer import WordPieceTokenizer
     from mqdet_torch.models.gdino import MQGroundingDINO
