@@ -8,8 +8,9 @@ Run from the root of a checkout. It needs a CUDA device and the CUDA toolkit
 both evaluation paths of the port, MQ-GLIP-T and MQ-GroundingDINO-T, the
 modulated pre-training of both, the evaluation CLI, MQ-GLIP-L through the
 same entry points (with TPU.REMAT in training), the few-shot finetuning
-CLI, data parallelism and MQ-Det's model switches. Phases, each printing
-lines:
+CLI, data parallelism, MQ-Det's model switches, test-time augmentation,
+knowledge prompts, the CLIP / RNN towers and Swin v2 / vl. Phases, each
+printing lines:
 
   1. the card (`nvidia-smi` name and power limit) and the kernels' build from
      `mqdet_torch/csrc/` with nvcc for sm_90a (one nvcc per source, in
@@ -258,7 +259,35 @@ lines:
      (phase 8's reference step, 3 steps at batch 2 and 800x1344 with 78
      `dcn_band` each, `loss_mlm` finite, the bank entries with a query
      moved and every entry no batch names bitwise, the frozen parameters
-     bitwise; ms a step, peak memory, the MLM head's share).
+     bitwise; ms a step, peak memory, the MLM head's share);
+ 15. test-time augmentation, knowledge prompts, the other language towers
+     and Swin versions, run per model right after its phase 7: the kernels
+     at the augmentation's buckets (608x1024, 800x1344, 1216x2016), one
+     chunk group of the protocol each, the first launch of each kernel at
+     each shape held against its plain version in fp32 on the card by
+     phase 2's rule (K1 at every level and stride, K3, and for
+     MQ-GroundingDINO-T K5 and the exact MSDA; the cases join the kernel
+     JSON line), K5's band geometry per level pair printed;
+     `run_inference` under TEST.USE_MULTISCALE on 1 of phase 7's images
+     (TEST.SCALES' 8 scales x flip under MAX_SIZE 2000, one chunk group of
+     160 classes), launches gated at 16 passes x one group's, the merged
+     detections against the same call on the kernels' plain versions on
+     the card (`ops.kernels.plain_versions`, no launch: the top 300 scores
+     sorted within 2e-2 * the largest), the seconds an image;
+     MQ-GLIP-T alone: `run_inference` with a GLIPKNOW.KNOWLEDGE_FILE
+     written here (the token ids the card's language tower received equal
+     to the host plan's, and unlike the plan without it), and MQ-GLIP-T
+     with MODEL_TYPE clip and rnn and Swin v2 and vl (`init_like` the
+     default model): phase 14's reference check at 256x256 and one timed
+     chunk group at 800x1344, launches gated.
+
+The training reference steps (phases 8, 13 and 14's S1) also take ROADMAP
+Queue C 4's second gate (`fp32_verdict`): the step in fp32 on the card's
+plain versions (cuDNN off) against the CPU's fp32 step, within 1e-1
+relative L2 (reduction order alone moves the gates' cancelling sums by up
+to ~4e-2; a zeroed gradient reads 1) on every tensor whose bf16 bound is 1
+or more and every 0-d or 1-element tensor; phase 13's ranks take it on the first global batch
+against one process at batch 2, both fp32 on the card.
 
     python3 chip_smoke.py --cards N
 
@@ -276,7 +305,7 @@ The line before the last is a JSON object with one entry per kernel (its
 launches summed over the counted paths: the protocols, phase 3's card runs,
 the sweep path, phase 7's evaluation and update, phases 8 and 9's timed
 training steps, phase 10's CLI runs, phases 11 and 12's paths, phase
-13's, summed over its ranks, and phase 14's); the last
+13's, summed over its ranks, phase 14's and phase 15's); the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero without
 those lines.
 """
@@ -297,6 +326,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 ERR_BOUND = 2e-2      # kernel vs fp32 plain, relative to max|ref| (bf16 in/out)
 E2E_FLOOR = 1e-2      # whole network: floor of the bf16-vs-fp32 relative L2 bound
+FP32_BOUND = 1e-1     # training step, fp32 on the card's plain versions vs fp32 on the CPU: relative L2 (the
+                      # card's cuDNN off; reduction order alone moved phase 14's S1 gate tensors by up to 4.0e-2)
+FP32_SCALE_FLOOR = 1e-3  # its norm floor: this share of the step's per-element gradient scale
 HBM_BYTES_S = 3.35e12  # H100 SXM: device memory rate, bf16 dense tensor-core and fp32 peaks
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
@@ -1026,11 +1058,13 @@ def phase_profile(torch, label, protocol, image, text):
     """One protocol run under torch.profiler: the device's busy time (union
     of kernel intervals), its share of the window from the first kernel's
     start to the last one's end, and kernel time by family. The profiler
-    slows the host, so the idle share is an upper bound."""
+    slows the host, so the idle share is an upper bound. It records the
+    CUDA activity alone: the CPU ops' events, which nothing here reads, cost
+    ~20 s of host time a profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         protocol(image, *text)
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1392,14 +1426,21 @@ def phase_train_reference(torch, cfg, model_cpu, seed, bounds=None, phase="phase
     with numpy (the CPU's and the card's generators draw apart); `phase`
     and `label` name the lines. The card takes the step twice, each gated
     and printed: its backward sums by atomic adds, so the two readings show
-    how far the card alone moves a gate's reading. With `card` False only
-    the CPU runs are made, for `bounds` (`--cards`: phase 8 itself gates the
-    card step). Returns one card step's launch counts."""
+    how far the card alone moves a gate's reading. Then the second gate
+    of ROADMAP Queue C 4 (`fp32_verdict`): the step in fp32 on the card
+    through the kernels' plain versions (no launch) and without cuDNN (its
+    fp32 convolution algorithms moved the gradients by up to 7e-2 against
+    the CPU's, 9.1e-3 without it) against the CPU's fp32 step, on every
+    tensor whose bound here is 1 or more and every 0-d or 1-element tensor.
+    With `card` False only the CPU runs are made, for
+    `bounds` (`--cards`: phase 8 itself gates the card step). Returns one
+    card step's launch counts."""
     import numpy as np
 
     from mqdet_torch.core.config import trainable_patterns
     from mqdet_torch.engine.train import batch_to_device, init_train_state, make_train_step
     from mqdet_torch.ops import launch_counts
+    from mqdet_torch.ops.kernels import plain_versions
 
     hw = (256, 256)
     c = cfg.clone()
@@ -1444,8 +1485,19 @@ def phase_train_reference(torch, cfg, model_cpu, seed, bounds=None, phase="phase
         del gpu
         if used != want:
             fail(f"{phase} reference step: launches {used} != predicted {want}")
+    own = {}
     reference_verdict(torch, phase, f"{label} full width at {hw}", cards, ref32, run16, scales,
-                      f"CPU steps {cpu_s!r} s; launches {({k: v for k, v in used.items() if v})} a card step", bounds)
+                      f"CPU steps {cpu_s!r} s; launches {({k: v for k, v in used.items() if v})} a card step", own)
+    if bounds is not None:
+        bounds.update(own)
+    gpu = dropout_off(copy.deepcopy(model_cpu)).to("cuda").to(memory_format=torch.channels_last)
+    launch_counts(reset=True)
+    with plain_versions(), torch.backends.cudnn.flags(enabled=False):  # fp32 convolutions without cuDNN's algorithms
+        card32 = step(gpu, torch.device("cuda"))
+    del gpu
+    if any(launch_counts().values()):
+        fail(f"{phase} fp32 gate: the plain route launched {launch_counts()}")
+    fp32_verdict(torch, phase, f"{label} full width at {hw}, batch 2", card32, ref32[1.0], own)
     return used
 
 
@@ -1514,6 +1566,58 @@ def reference_verdict(torch, phase, what, cards, ref32, run16, scales, tail, bou
              f"{bad[:3]}; concatenated {[g for _, g, _ in readings]!r} vs plain {g_plain!r}; fp32 moved {moved!r}")
 
 
+def fp32_covered(grads, bounds) -> list:
+    """The trainable tensors whose bf16 bound cannot tell noise from a fault
+    (ROADMAP Queue C 4): a bound of 1 or more (it passes a zero gradient),
+    and every 0-d or 1-element tensor (a gate, whose bf16 drift is one noisy
+    sample)."""
+    return [n for n, g in grads.items() if bounds.get(n, 0.0) >= 1.0 or g.numel() <= 1]
+
+
+def fp32_errors(torch, got, ref, names) -> dict:
+    """{name: ||got - ref|| / max(||ref||, floor)} over `names`; the floor is
+    FP32_SCALE_FLOOR of the norm the tensor would have at the step's
+    per-element gradient scale (the RMS over every gradient of `ref`), so a
+    gradient that is 0 in exact arithmetic, whose fp32 values are rounding
+    noise on both sides, is held at the model's scale."""
+    flat = _flat(torch, ref)
+    rms = float(torch.linalg.vector_norm(flat)) / math.sqrt(flat.numel())
+    out = {}
+    for n in names:
+        floor = FP32_SCALE_FLOOR * rms * math.sqrt(ref[n].numel())
+        out[n] = float(torch.linalg.vector_norm(got[n].float() - ref[n].float())) / max(
+            float(torch.linalg.vector_norm(ref[n].float())), floor, 1e-30)
+    return out
+
+
+def fp32_verdict(torch, phase, what, got, ref, bounds, against="the CPU fp32 step") -> int:
+    """The second gate of ROADMAP Queue C 4: a training step in fp32 on the
+    card through the kernels' plain versions (`ops.kernels.plain_versions`,
+    the explicit reference route) against the same step in fp32 elsewhere
+    (`against`: on the CPU, or one process where ranks split the batch;
+    `got`, `ref`: (loss, {name: gradient})). No bf16 rounding is left, only
+    reduction order (the gates' gradients are sums that cancel, so it moves
+    them by up to ~4e-2, not fp32's 1e-7) and the backward's atomic adds:
+    each tensor of `fp32_covered(ref, bounds)` and the loss must agree
+    within FP32_BOUND relative L2 (`fp32_errors`), where a zeroed gradient
+    reads 1. Prints the coverage and every reading; fails outside. Returns
+    how many tensors it covers."""
+    names = fp32_covered(ref[1], bounds)
+    errs = fp32_errors(torch, got[1], ref[1], names)
+    loss = abs(got[0] - ref[0]) / abs(ref[0])
+    bad = [(n, e) for n, e in errs.items() if not (math.isfinite(e) and e <= FP32_BOUND)]
+    worst = max(errs.items(), key=lambda kv: kv[1]) if errs else ("none", 0.0)
+    loose = sum(bounds.get(n, 0.0) >= 1.0 for n in names)
+    say(f"{phase}: fp32 gate (ROADMAP Queue C 4), {what}: the step in fp32 on the card's plain versions vs "
+        f"{against}: loss {loss!r}; {len(names)} of {len(ref[1])} trainable tensors covered ({loose} whose bf16 "
+        f"bound is 1 or more, {len(names) - loose} more 0-d or 1-element); worst {worst[1]!r} at {worst[0]}; bound "
+        f"{FP32_BOUND} relative L2; {'ok' if not bad and loss <= FP32_BOUND else 'FAIL'}; each: "
+        + ", ".join(f"{n.split('.', 4)[-1]} {e:.3g}" for n, e in errs.items()))
+    if bad or not loss <= FP32_BOUND:
+        fail(f"{phase} fp32 gate: {len(bad)} of {len(names)} outside {FP32_BOUND}, e.g. {bad[:4]}; loss {loss!r}")
+    return len(names)
+
+
 def phase_dcn_backward(torch, seed, smi):
     """Each DCN Function's backward on the card (bf16 inputs, the fp32 VJP
     recomputed from them) against the plain VJP in fp32 on the same inputs
@@ -1568,17 +1672,19 @@ def phase_dcn_backward(torch, seed, smi):
     return times
 
 
-def phase_train(torch, seed, dataset, bank, smi, bounds=None):
+def phase_train(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None):
     """Phase 8: MQ-GLIP-T modulated pre-training at full width on the card
     (`mq_glip_t_pretrain_config`) on phase 7's synthetic LVIS-shaped dataset and
     phase 7's extracted MQ-GLIP-T bank: the reference step, each DCN
     Function's backward, then `train_steps` on the landscape images.
     Returns the launch counts of the timed steps; `bounds`, a dict,
-    receives the reference step's bounds."""
+    receives the reference step's bounds. `model_cpu`: the model of
+    init_params(seed) where the caller holds one (the train entry takes it
+    over), else drawn here."""
     from mqdet_torch.utils.builders import build_model, init_params, landscape, mq_glip_t_pretrain_config
 
     cfg = mq_glip_t_pretrain_config()
-    model_cpu = init_params(build_model(cfg), seed=seed)
+    model_cpu = init_params(build_model(cfg), seed=seed) if model_cpu is None else model_cpu
     phase_train_reference(torch, cfg, model_cpu, seed, bounds)
     bwd_ms = phase_dcn_backward(torch, seed, smi)
     torch.cuda.empty_cache()
@@ -1917,18 +2023,19 @@ def phase_msda_backward(torch, seed, smi):
     return times
 
 
-def phase_train_gdino(torch, seed, dataset, bank, smi, bounds=None):
+def phase_train_gdino(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None):
     """Phase 9: MQ-GroundingDINO-T modulated pre-training at full width on
     the card (`train_config_gdino`) on phase 7's dataset and phase 7's
     extracted MQ-GroundingDINO-T bank: the reference step, the MSDA
     Function's backward, then `train_steps` (6 clipped + 6 exact MSDA
     launches a forward, no bi-attention kernel: the fusion's training
     composite). Returns the launch counts of the timed steps; `bounds`, a
-    dict, receives the reference step's bounds."""
+    dict, receives the reference step's bounds. `model_cpu`: the model of init_params(seed) where the caller
+    holds one (the train entry takes it over), else drawn here."""
     from mqdet_torch.utils.builders import build_model, init_params, landscape
 
     cfg = train_config_gdino()
-    model_cpu = init_params(build_model(cfg), seed=seed)
+    model_cpu = init_params(build_model(cfg), seed=seed) if model_cpu is None else model_cpu
     phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds)
     bwd_ms = phase_msda_backward(torch, seed, smi)
     g = cfg.GROUNDINGDINO
@@ -2553,28 +2660,50 @@ def dp_train(torch, cfg, model_cpu, batches, dev, rank=0, world=1, assignment=No
 
 
 def dp_eval_model(torch, seed, dev):
-    """Phase 7's MQ-GLIP-T on the card (bf16, channels last) and its config."""
+    """Phase 7's MQ-GLIP-T on the card (bf16, channels last) and its config:
+    a copy of the rank's training model where it holds one (the pretraining
+    config builds the same tensors, so init_params(seed) draws the same
+    weights)."""
     from mqdet_torch.utils.builders import build_model, init_params, mq_glip_t_config
 
     cfg = mq_glip_t_config()
     cfg.MODEL.ATSS.DETECTIONS_PER_IMG = 300
-    model = init_params(build_model(cfg), seed=seed).eval()
+    held = _RANK_MODELS.get("glip")
+    model = (copy.deepcopy(held) if held is not None else init_params(build_model(cfg), seed=seed)).eval()
     return cfg, model.to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
+
+
+_RANK_MODELS = {}  # a rank's models on the host, built once for its parts
+
+
+def fp32_config(cfg):
+    """A copy of `cfg` computing in fp32 (phase 13's fp32 gate)."""
+    c = cfg.clone()
+    c.TPU.COMPUTE_DTYPE = "float32"
+    return c
 
 
 def rank_part_train(torch, spec, dev, rank, world, name):
     """A rank's training part: `name` glip (phase 8's recipe) or gdino
-    (phase 9's), on the global batches the parent saved."""
+    (phase 9's), on the global batches the parent saved; glip32, the glip
+    part's first step in fp32 through the kernels' plain versions (the
+    fp32 gate of ROADMAP Queue C 4), on the glip part's model."""
     import numpy as np
 
+    from mqdet_torch.ops.kernels import plain_versions
     from mqdet_torch.utils.builders import build_model, init_params, mq_glip_t_pretrain_config
 
-    cfg = mq_glip_t_pretrain_config() if name == "glip" else train_config_gdino()
-    model_cpu = init_params(build_model(cfg), seed=spec["seed"])
-    batches = torch.load(spec[f"{name}_batches"], weights_only=False)[:spec.get("steps", 99)]
+    base = "gdino" if name == "gdino" else "glip"
+    cfg = mq_glip_t_pretrain_config() if base == "glip" else train_config_gdino()
+    if base not in _RANK_MODELS:
+        _RANK_MODELS[base] = init_params(build_model(cfg), seed=spec["seed"])
+    batches = torch.load(spec[f"{base}_batches"], weights_only=False)[:spec.get("steps", 99)]
     assignment = np.load(spec["gdino_assignment"]) if name == "gdino" else None
     save = os.path.join(spec["dir"], f"{spec['tag']}_{name}_rank0_step") if rank == 0 else None
-    return dp_train(torch, cfg, model_cpu, batches, dev, rank, world, assignment, save, timing=spec["timing"])
+    if name == "glip32":
+        with plain_versions():
+            return dp_train(torch, fp32_config(cfg), _RANK_MODELS[base], batches[:1], dev, rank, world, save=save)
+    return dp_train(torch, cfg, _RANK_MODELS[base], batches, dev, rank, world, assignment, save, timing=spec["timing"])
 
 
 def rank_part_eval(torch, spec, dev, rank, world):
@@ -2755,14 +2884,16 @@ def dp_verdict(torch, label, ref, got, root, tag, name, bounds, smi):
     sign(gradient), so a zero-initialised bias whose small gradients flip
     sign under bf16 noise differs by up to 2 lr there (the one process's
     own step is not bitwise repeatable on the card: its backward's atomic
-    adds sum in varying order)."""
-    lines, bad = [], []
+    adds sum in varying order). Returns each tensor's bound, the largest
+    over the steps."""
+    lines, bad, used = [], [], {}
     for it, want in enumerate(ref["steps"][:len(got[0][name]["metrics"])]):
         mine = torch.load(os.path.join(root, f"{tag}_{name}_rank0_step{it}.pt"), weights_only=False)
         loss = got[0][name]["metrics"][it]["loss_total"]
         dist = step_distances(torch, mine, want, loss, want["loss"])
         noise = ref["noise"][it]
         rows = [(k, d, max(bounds.get(k, E2E_FLOOR), 2 * noise[k])) for k, d in dist.items()]
+        used.update({k: max(b, used.get(k, 0.0)) for k, _, b in rows})
         out = [r for r in rows if not (math.isfinite(r[1]) and r[1] <= r[2])]
         bad += [(it + 1, *r) for r in out]
         w = max(rows, key=lambda r: r[1] / r[2])
@@ -2791,13 +2922,14 @@ def dp_verdict(torch, label, ref, got, root, tag, name, bounds, smi):
     if not all(r[name]["frozen_same"] for r in got):
         fail(f"phase 13 {label}: frozen parameters changed on a rank")
     if "warm_ms" not in got[0][name]:
-        return
+        return used
     per_rank = "; ".join(f"rank {r['rank']}: warm step {r[name]['warm_ms']!r} ms, peak {r[name]['peak_gib']!r} GiB, "
                          f"split {({k: v * 1000.0 for k, v in r[name]['times'].items()})} ms" for r in got)
     say(f"phase 13: {label} ({smi}; host clock, synchronised; the split synchronised at each boundary): frozen "
         f"parameters unchanged on every rank; {per_rank}; one process at batch {len(ref['batch_rows'])}: warm step "
         f"{ref['warm_ms']!r} ms, peak {ref['peak_gib']!r} GiB, split "
         f"{({k: v * 1000.0 for k, v in ref['times'].items()})} ms")
+    return used
 
 
 def rel_l2(torch, a, b) -> float:
@@ -2849,7 +2981,8 @@ def dp_reference(torch, cfg, model_cpu, batches, dev, root, tag, scales=NOISE_SC
     return dict(rec, steps=steps, noise=noise, batch_rows=list(range(len(batches[0]["images"]))))
 
 
-def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_bounds):
+def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_bounds, glip_model=None,
+                        gdino_model=None):
     """Phase 13: data parallelism on the one card. Two rank processes over
     gloo (NCCL refuses two ranks on one device), each on the card with its
     shard: MQ-GLIP-T training, 2 steps of phase 8's recipe at full width (1
@@ -2865,10 +2998,12 @@ def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_
     saving. Then one rank over NCCL (a world of one, through
     `init_distributed`): one GLIP step against the one process's first by
     the same rule. Returns the launch counts, each path's summed over its
-    ranks."""
+    ranks. `glip_model`, `gdino_model`: the models of init_params(seed)
+    where the caller holds them (not changed), else drawn here."""
     import numpy as np
 
     from mqdet_torch.mq.bank import QueryBank
+    from mqdet_torch.ops.kernels import plain_versions
     from mqdet_torch.utils.builders import build_model, init_params, landscape, mq_glip_t_pretrain_config
 
     t_phase = time.perf_counter()
@@ -2879,20 +3014,27 @@ def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_
     glip_cfg = mq_glip_t_pretrain_config()
     glip_batches = loader_batches(glip_cfg, ds, glip_vq["bank"], 2)
     torch.save(glip_batches, os.path.join(root, "glip_batches.pt"))
-    glip_ref = dp_reference(torch, glip_cfg, init_params(build_model(glip_cfg), seed=seed), glip_batches, dev, root,
-                            "one_glip")
+    glip_model = glip_model if glip_model is not None else init_params(build_model(glip_cfg), seed=seed)
+    glip_ref = dp_reference(torch, glip_cfg, glip_model, glip_batches, dev, root, "one_glip")
+    with plain_versions():  # the fp32 gate's one process: the first global batch, fp32, no launch
+        one32 = dp_train(torch, fp32_config(glip_cfg), glip_model, glip_batches[:1], dev,
+                         save=os.path.join(root, "one_glip32_step"))
+    del glip_model
     torch.cuda.empty_cache()
     gdino_cfg = train_config_gdino()
     gdino_batches = loader_batches(gdino_cfg, ds, gdino_vq["bank"], 1)
     torch.save(gdino_batches, os.path.join(root, "gdino_batches.pt"))
-    gdino_ref = dp_reference(torch, gdino_cfg, init_params(build_model(gdino_cfg), seed=seed), gdino_batches, dev,
+    if gdino_model is None:
+        gdino_model = init_params(build_model(gdino_cfg), seed=seed)
+    gdino_ref = dp_reference(torch, gdino_cfg, gdino_model, gdino_batches, dev,
                              root, "one_gdino")
     np.save(os.path.join(root, "gdino_assignment.npy"), gdino_ref["assignment"])
     glip_vq["bank"].save(os.path.join(root, "glip_bank.npz"))
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t_phase
 
-    spec = {"seed": seed, "backend": "gloo", "tag": "gloo", "parts": ["glip", "gdino", "eval"], "timing": True,
+    spec = {"seed": seed, "backend": "gloo", "tag": "gloo", "parts": ["glip", "glip32", "gdino", "eval"],
+            "timing": True,
             "glip_batches": os.path.join(root, "glip_batches.pt"), "gdino_batches": os.path.join(root,
                                                                                               "gdino_batches.pt"),
             "gdino_assignment": os.path.join(root, "gdino_assignment.npy"),
@@ -2904,7 +3046,16 @@ def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_
         fail(f"phase 13: ranks report {[(r['backend'], r['world']) for r in got]}")
     say(f"phase 13: {DP_RANKS} rank processes over gloo on the one card ({smi}), LOCAL_RANK 0 for both; "
         f"{ranks_s!r} s; seconds by part {[r['seconds'] for r in got]}")
-    dp_verdict(torch, "MQ-GLIP-T training", glip_ref, got, root, "gloo", "glip", glip_bounds, smi)
+    used = dp_verdict(torch, "MQ-GLIP-T training", glip_ref, got, root, "gloo", "glip", glip_bounds, smi)
+    mine, want = (torch.load(os.path.join(root, f), weights_only=False)
+                  for f in ("gloo_glip32_rank0_step0.pt", "one_glip32_step0.pt"))
+    if any(any(r["glip32"]["launches"].values()) for r in got) or any(one32["launches"].values()):
+        fail("phase 13 fp32 gate: the plain route launched a kernel")
+    fp32_verdict(torch, "phase 13", f"MQ-GLIP-T, {DP_RANKS} ranks of 1 image over gloo against one process at batch "
+                 f"{DP_RANKS}, the first global batch at 800x1344, covering phase 13's bounds",
+                 (got[0]["glip32"]["metrics"][0]["loss_total"], mine["grads"]),
+                 (one32["metrics"][0]["loss_total"], want["grads"]), used,
+                 against=f"one process's fp32 step on the card at batch {DP_RANKS}")
     dp_verdict(torch, "MQ-GroundingDINO-T training", gdino_ref, got, root, "gloo", "gdino", gdino_bounds, smi)
 
     stages, levels = glip_cfg.MODEL.DYHEAD.NUM_CONVS, len(glip_cfg.MODEL.RPN.ANCHOR_STRIDE)
@@ -3073,16 +3224,18 @@ def on_card(torch, model):
     return copy.deepcopy(model).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
 
 
-def phase_switch_reference(torch, label, cfg, model_cpu, model_gpu, seed, want, bank=None):
+def phase_switch_reference(torch, label, cfg, model_cpu, model_gpu, seed, want, bank=None, phase="phase 14"):
     """Phase 14's reference check, phase 3's rule: one forward at 256x256,
     one chunk of 40 labels x 5 queries (the learnable bank's indices where
-    `bank` is given), the card (bf16, kernels) against the CPU fp32 plain
-    path by relative L2 within twice the CPU bf16 drift (floor E2E_FLOOR),
-    on the 5 dot-product logit levels, the 5 box-regression levels and,
-    under MLM_LOSS, `mlm_logits`; the launches gated at `want`. The card
-    runs the forward twice, each gated, and the line gives both readings
-    and whether they are bitwise equal (a reading near its bound is safe
-    only if the card repeats it). Returns the first forward's launches."""
+    `bank` is given; no queries where VISION_QUERY.ENABLED is off, as for
+    the CLIP and RNN towers), the card (bf16, kernels) against the CPU fp32
+    plain path by relative L2 within twice the CPU bf16 drift (floor
+    E2E_FLOOR), on the 5 dot-product logit levels, the 5 box-regression
+    levels and, under MLM_LOSS, `mlm_logits`; the launches gated at `want`.
+    The card runs the forward twice, each gated, and the line gives both
+    readings and whether they are bitwise equal (a reading near its bound
+    is safe only if the card repeats it); `phase` names the lines. Returns
+    the first forward's launches."""
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.utils.builders import synthetic_batch
 
@@ -3091,7 +3244,8 @@ def phase_switch_reference(torch, label, cfg, model_cpu, model_gpu, seed, want, 
     if bank is not None:
         batch["queries"] = bank_indices(bank, batch["queries"].shape[:2], seed)
     image = torch.from_numpy(batch["images"]).permute(0, 3, 1, 2).contiguous()
-    text = [torch.from_numpy(batch[k]) for k in ("input_ids", "attention_mask", "queries", "query_mask")]
+    keys = ("input_ids", "attention_mask") + (("queries", "query_mask") if cfg.VISION_QUERY.ENABLED else ())
+    text = [torch.from_numpy(batch[k]) for k in keys]
 
     def run(model, dev):
         with torch.inference_mode():
@@ -3106,13 +3260,13 @@ def phase_switch_reference(torch, label, cfg, model_cpu, model_gpu, seed, want, 
     card = run(model_gpu, torch.device("cuda"))
     used = launch_counts()
     if used != want:
-        fail(f"phase 14 {label}: reference forward launches {used} != predicted {want}")
+        fail(f"{phase} {label}: reference forward launches {used} != predicted {want}")
     again = run(model_gpu, torch.device("cuda"))
     names = [f"logits{i}" for i in range(5)] + [f"bbox{i}" for i in range(5)] + ["mlm_logits"][:len(ref) - 10]
-    worst = compare_to_reference(torch, f"phase 14 {label}", names, ref, plain16, card)
-    second = compare_to_reference(torch, f"phase 14 {label} (second card forward)", names, ref, plain16, again)
+    worst = compare_to_reference(torch, f"{phase} {label}", names, ref, plain16, card)
+    second = compare_to_reference(torch, f"{phase} {label} (second card forward)", names, ref, plain16, again)
     same = all(torch.equal(a, b) for a, b in zip(card, again))
-    say(f"phase 14: reference check, MQ-GLIP-T under {label}, full width at {hw}, card bf16 kernels vs CPU fp32 "
+    say(f"{phase}: reference check, MQ-GLIP-T under {label}, full width at {hw}, card bf16 kernels vs CPU fp32 "
         f"plain on 5 logit and 5 box levels{' and mlm_logits' if len(names) > 10 else ''}: worst err / bound "
         f"{worst[0]!r} at {worst[1]} (card relative L2 {worst[2]!r}, "
         f"plain bf16 {worst[3]!r}; bound max(2 * plain, {E2E_FLOOR})); a second card forward {second[0]!r} at "
@@ -3432,6 +3586,366 @@ def phase_switches(torch, seed, runs, smi, glip_vq):
     return launches
 
 
+# ---- phase 15: test-time augmentation, knowledge prompts, towers, Swin versions
+
+TTA_BUCKETS = ((608, 1024), (800, 1344), (1216, 2016))  # the buckets TEST.SCALES' 480x640 images resize into
+TTA_CLASSES = 160  # one chunk group: 4 chunks of 40 at CP 4
+
+
+@contextlib.contextmanager
+def first_launches(keep):
+    """Inside the block, the first launch of each kernel at each input shape
+    is kept in `keep`, {(kernel, shapes...): (args, output)}: the ops
+    modules' launchers (`_launch_band`, the bi-attention `_launch`, the MSDA
+    `_launch`) are wrapped, every launch still counted by its own counter."""
+    from mqdet_torch.ops import bi_attention as ba
+    from mqdet_torch.ops import deform_conv as dc
+    from mqdet_torch.ops import ms_deform_attn as ms
+
+    def shape(t):
+        return tuple(t.shape)
+
+    rules = ((dc, "_launch_band", lambda x, off, m, w, b, stride, *a: ("dcn_band", shape(x), stride)),
+             (ba, "_launch", lambda q, k, *a: ("bi_attention", shape(q), shape(k))),
+             (ms, "_launch", lambda v, shapes, loc, attn, clip=False: (
+                 "ms_deform_attn_clip" if clip else "ms_deform_attn", shape(v), shape(loc))))
+    saved = []
+    for mod, attr, key_of in rules:
+        original = getattr(mod, attr)
+
+        def launcher(*args, _original=original, _key_of=key_of, **kw):
+            out = _original(*args, **kw)
+            keep.setdefault(_key_of(*args, **kw), (args, out))
+            return out
+
+        saved.append((mod, attr, original))
+        setattr(mod, attr, launcher)
+    try:
+        yield
+    finally:
+        for mod, attr, original in saved:
+            setattr(mod, attr, original)
+
+
+def kept_launch_check(torch, label, where, key, args, out):
+    """One kept launch (`first_launches`) against its plain version in fp32
+    on the card on the same inputs, by phase 2's rule. Returns (the kernel's
+    case record, the line)."""
+    from mqdet_torch.ops import bi_attention as ba
+    from mqdet_torch.ops import deform_conv as dc
+    from mqdet_torch.ops import ms_deform_attn as ms
+    from mqdet_torch.tools import cuda_time_ms
+
+    name = key[0]
+    if name == "dcn_band":
+        x, off, m, w, b, stride, radius = args[:7]
+        ins, outs, launcher = (x, off, m, w, b), (out,), dc._launch_band  # b may be None
+
+        def plain(*a):
+            return dc.modulated_deform_conv_clipped_plain(*a, stride=stride, radius=radius)
+
+        bnd = dcn_bound(x.shape[0], *x.shape[1:], *off.shape[1:3], w.shape[-1])
+        case = f"x{tuple(x.shape)} s{stride}"
+    elif name == "bi_attention":
+        q, k, vv, vl, bias_l, heads = args[:6]
+        ins, outs, launcher = (q, k, vv, vl), out, ba._launch
+
+        def plain(*a):
+            return ba.bi_attention_plain(*a, bias_l, heads)
+
+        bnd = bi_bound(q.shape[0], q.shape[1], k.shape[1], q.shape[2])
+        case = f"q/vv {tuple(q.shape)} T {k.shape[1]} heads {heads}"
+    else:
+        value, shapes, loc, attn = args[:4]
+        ins, outs, launcher = (value, loc, attn), (out,), ms._launch
+        fn = ms.ms_deform_attn_clipped_plain if name == "ms_deform_attn_clip" else ms.ms_deform_attn_plain
+
+        def plain(v, lo, at):
+            return fn(v, shapes, lo, at)
+
+        bnd = msda_bound(value.shape[0], value.shape[1], loc.shape[1], value.shape[2], value.shape[3], len(shapes),
+                         loc.shape[4])
+        case = f"Q {loc.shape[1]} levels {[tuple(s) for s in shapes]}"
+    refs = plain(*(a.float() if a is not None else None for a in ins))
+    errs = [max_err(o, r) for o, r in zip(outs, refs if isinstance(refs, tuple) else (refs,))]
+    del refs
+    ok = all(e <= ERR_BOUND * sc for e, sc in errs) and all(bool(torch.isfinite(o).all()) for o in outs)
+    if not ok:
+        fail(f"phase 15 {label} {name} at {where} {case}: the kernel disagrees with its plain version")
+    ms_ = cuda_time_ms(lambda: launcher(*args))
+    plain_ms = cuda_time_ms(lambda: plain(*ins), iters=3, warmup=1)
+    err = max(e for e, _ in errs)
+    record = {"case": f"TTA {where} {case}", "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+              "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+    return record, (f"{name} {case}: max_abs_err {err!r} (bound {ERR_BOUND * max(sc for _, sc in errs)!r}), "
+                    f"kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms; ok")
+
+
+def phase_tta_kernels(torch, label, model, cfg, make_batch, seed, kres):
+    """Phase 15.1: the kernels at the test-time augmentation's buckets
+    (TTA_BUCKETS), on the model's own activations. Per bucket, one chunk
+    group (CP 4) of the protocol (`make_protocol_fn`) is run with the first
+    launch of each kernel at each shape kept (`first_launches`); each kept
+    launch is held against its plain version on the card in fp32
+    (`kept_launch_check`, phase 2's rule, 2e-2 * max|ref|): K1 `dcn_band`
+    at every level and stride, K3 `bi_attention`, K5 `ms_deform_attn_clip`
+    and the exact `ms_deform_attn`; the kernel's and the plain version's
+    (bf16) ms and the bound join the kernel's cases. K5's band geometry
+    (`msda_band_geometry`: GATHER, BAND or WHOLE per (query level, value
+    level) pair) is printed per bucket. Counted nowhere: these launches
+    serve the comparison."""
+    from mqdet_torch.engine.predict import make_protocol_fn
+    from mqdet_torch.ops import ms_deform_attn as ms
+    from mqdet_torch.utils.builders import protocol_inputs
+
+    dev = torch.device("cuda")
+    stage = {ms.GATHER: "GATHER", ms.BAND: "BAND", ms.WHOLE: "WHOLE"}
+    for bucket in TTA_BUCKETS:
+        image, text = protocol_inputs(cfg, make_batch, 1, 4, bucket, seed)
+        keep = {}
+        with first_launches(keep):
+            make_protocol_fn(model, bucket, cfg)(image.to(dev), *(t.to(dev) for t in text))
+        lines = []
+        with torch.no_grad():  # the kept weights are parameters: the launchers refuse them under grad
+            for key, (args, out) in sorted(keep.items(), key=lambda kv: str(kv[0])):
+                record, line = kept_launch_check(torch, label, bucket, key, args, out)
+                kres[key[0]].append(record)
+                lines.append(line)
+        geometry = ""
+        clipped = [k for k in keep if k[0] == "ms_deform_attn_clip"]
+        if clipped:
+            value, shapes = keep[clipped[0]][0][:2]
+            geo = ms.msda_band_geometry(shapes, value.shape[3])
+            geometry = f"; K5 band geometry per (query level, value level) at levels {[tuple(x) for x in shapes]}: " + \
+                ", ".join(f"{lq}{lv} {stage[g[0]]}" + ("" if g[0] == ms.GATHER else f" {g[1]}x{g[2]}")
+                          for (lq, lv), g in geo.items())
+        say(f"phase 15: {label} kernels at the bucket {bucket}, one chunk group's first launch at each shape "
+            f"against the plain version in fp32 on the card (phase 2's rule, {ERR_BOUND} * max|ref|): "
+            f"{'; '.join(lines)}{geometry}")
+        del keep
+        torch.cuda.empty_cache()
+
+
+def tta_config(cfg, dataset, image_id):
+    """Phase 7's settings (`vq_settings`) under TEST.USE_MULTISCALE: the
+    config's 8 TEST.SCALES (400-1200) with flip under TEST.MAX_SIZE 2000,
+    the three TTA_BUCKETS, one chunk group (TEST.SELECT_CLASSES: the image's
+    GT classes, then the first others, TTA_CLASSES in all)."""
+    c = vq_settings(cfg)
+    c.TEST.USE_MULTISCALE, c.TEST.FLIP, c.TEST.MAX_SIZE = True, True, 2000
+    c.TPU.IMAGE_BUCKETS = TTA_BUCKETS
+    gt = sorted({int(l) for l in dataset.annotations(image_id)[1]})
+    rest = [l for l in sorted(dataset.ind_to_class) if l not in gt]
+    c.TEST.SELECT_CLASSES = tuple(gt + rest[:TTA_CLASSES - len(gt)])
+    return c
+
+
+def phase_tta(torch, label, cfg, model, vq, per_pass):
+    """Phase 15.2: `run_inference` under TEST.USE_MULTISCALE on 1 image of
+    phase 7's dataset with phase 7's bank (`tta_config`: 8 scales x 2 flips
+    = 16 passes, one chunk group each), launches gated at 16 x `per_pass`;
+    then the same call on the kernels' plain versions on the card
+    (`ops.kernels.plain_versions`, the explicit reference route: no launch),
+    the merged detections held against it: each run at least the cap
+    (DETECTIONS_PER_IMG; the merge keeps the cap's ties too), the top cap
+    scores sorted within 2e-2 * the largest, and the share of the kernel
+    run's detections that the plain run has with the same label at IoU >=
+    0.5 printed (ungated: random-init scores lie close, so near-equal
+    detections trade ranks under rounding). Detections finite and inside
+    the image; the card's peak memory printed. Returns the launches."""
+    import numpy as np
+
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.engine.box_aug import _iou_matrix
+    from mqdet_torch.engine.evaluator import DetectionEvaluator
+    from mqdet_torch.engine.inference import run_inference
+    from mqdet_torch.mq.selector import QuerySelector
+    from mqdet_torch.ops import kernels, launch_counts
+
+    ds, img_id = vq["dataset"], vq["dataset"].ids[0]
+    c = tta_config(cfg, ds, img_id)
+    passes = len(c.TEST.SCALES) * 2
+    ih, iw = ds.image_size(img_id)
+
+    def once():
+        seen = {}
+
+        class Rec(DetectionEvaluator):
+            def add_image(self, image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw):
+                seen[image_id] = (det_boxes, det_scores, det_labels)
+                super().add_image(image_id, gt_boxes, gt_labels, det_boxes, det_scores, det_labels, **kw)
+
+        selector = QuerySelector(vq["bank"], num_query_per_class=5, max_labels=40)
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        res = run_inference(c, model, ds, WordPieceTokenizer(), selector, evaluator=Rec(style="coco"), max_images=1,
+                            verbose=False)
+        torch.cuda.synchronize()
+        return seen[img_id], time.perf_counter() - t0, launch_counts(), res["seconds"]
+
+    torch.cuda.reset_peak_memory_stats()
+    (b, s, l), secs, used, stages = once()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: v * passes for k, v in per_pass.items()}
+    if used != want:
+        fail(f"phase 15 {label} TTA: launches {used} != predicted {want}")
+    with kernels.plain_versions():
+        (pb, ps, pl), plain_s, plain_used, _ = once()
+    if any(plain_used.values()):
+        fail(f"phase 15 {label} TTA: the plain route launched {plain_used}")
+    for bx, sx in ((b, s), (pb, ps)):
+        if not (np.isfinite(bx).all() and np.isfinite(sx).all() and (bx >= 0).all() and (bx[:, 0::2] <= iw).all()
+                and (bx[:, 1::2] <= ih).all()):
+            fail(f"phase 15 {label} TTA: a detection not finite or outside {(ih, iw)}")
+    # the cap keeps every detection tied with the cap-th score (JAX's rule): where scores saturate (GDINO's
+    # random init) the count past the cap moves with the rounding, so the gate reads the top `cap` of each
+    cap = c.MODEL.ATSS.DETECTIONS_PER_IMG
+    enough = min(len(s), len(ps)) >= cap
+    sorted_err = float(np.abs(np.sort(s)[::-1][:cap] - np.sort(ps)[::-1][:cap]).max()) if enough else math.inf
+    top = float(max(ps.max(initial=0.0), 1e-30))
+    iou = _iou_matrix(b, pb) if len(b) and len(pb) else np.zeros((len(b), len(pb)))
+    matched = float(((iou >= 0.5) & (l[:, None] == pl[None, :])).any(1).mean()) if len(b) else 0.0
+    ok = sorted_err <= ERR_BOUND * top
+    say(f"phase 15: {label} run_inference under TEST.USE_MULTISCALE, 1 image {(ih, iw)}, scales {tuple(c.TEST.SCALES)} "
+        f"x flip under MAX_SIZE {c.TEST.MAX_SIZE} ({passes} passes, one chunk group of {len(c.TEST.SELECT_CLASSES)} "
+        f"classes each, SPECIAL_NMS {c.TEST.SPECIAL_NMS}): {secs!r} s an image (host clock; seconds by stage "
+        f"{stages}); peak memory {peak!r} GiB (the 1216x2016 passes at CP 4); launches "
+        f"{({k: v for k, v in used.items() if v})} (predicted {({k: v for k, v in want.items() if v})}); the plain "
+        f"versions on the card (`plain_versions`, no launch): {plain_s!r} s; merged detections {len(s)} vs "
+        f"{len(ps)} (the cap {cap} and its ties), the top {cap} sorted scores max abs diff {sorted_err!r} (bound "
+        f"{ERR_BOUND * top!r} = {ERR_BOUND} * max score {top!r}), {matched!r} of the kernel run's detections found "
+        f"in the plain run (same label, IoU >= 0.5); {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"phase 15 {label} TTA: the merged detections disagree with the plain route's")
+    return {f"{label} TTA": used}
+
+
+def knowledge_yaml(path, names) -> None:
+    """A GLIPKNOW knowledge file for `names`, in PyYAML's block style (no
+    PyYAML here): per class clean_name, def_wiki (a sentence long enough to
+    wrap over two lines, as PyYAML's dump wraps it) and three gpt3 lines."""
+    lines = []
+    for i, n in enumerate(names):
+        clean = n.replace("_", " ")
+        lines += [f"{n}:", f"  clean_name: {clean}",
+                  f"  def_wiki: a seeded description of {clean} number {i}, long enough that a yaml writer wraps",
+                  "    it onto a second line as plain text.",
+                  "  gpt3:", f"  - {clean} is an object", f"  - a {clean} has parts", f"  - seen in scene {i}"]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def phase_knowledge(torch, cfg, model, vq, root, per_group):
+    """Phase 15.3: MQ-GLIP-T's `run_inference` on 1 image with
+    GLIPKNOW.KNOWLEDGE_FILE (a yaml written here, `knowledge_yaml`; read by
+    `core/yaml_lite.py`), KNOWLEDGE_TYPE def_wiki, one chunk group: the token
+    ids the language tower received on the card equal to those of the same
+    plan built on the host, and different from the plan without the file;
+    launches gated at one group's. Returns the launches."""
+    import numpy as np
+
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.engine.inference import ChunkedEvaluationPlan, run_inference
+    from mqdet_torch.mq.selector import QuerySelector
+    from mqdet_torch.ops import launch_counts
+
+    ds = vq["dataset"]
+    c = tta_config(cfg, ds, ds.ids[0])
+    c.TEST.USE_MULTISCALE = False
+    path = os.path.join(root, "knowledge.yaml")
+    knowledge_yaml(path, [ds.ind_to_class[l] for l in c.TEST.SELECT_CLASSES])
+    c.GLIPKNOW.KNOWLEDGE_FILE, c.GLIPKNOW.KNOWLEDGE_TYPE = path, "def_wiki"
+    seen = []
+    hook = model.language_backbone.register_forward_pre_hook(lambda m, a: seen.append(a[0].cpu().numpy()))
+    try:
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        run_inference(c, model, ds, WordPieceTokenizer(), QuerySelector(vq["bank"], num_query_per_class=5,
+                                                                        max_labels=40), max_images=1, verbose=False)
+        torch.cuda.synchronize()
+        secs, used = time.perf_counter() - t0, launch_counts()
+    finally:
+        hook.remove()
+    plan = ChunkedEvaluationPlan(c, ds, WordPieceTokenizer(), None)
+    c.GLIPKNOW.KNOWLEDGE_FILE = ""
+    bare = ChunkedEvaluationPlan(c, ds, WordPieceTokenizer(), None)
+    same = len(seen) == 1 and np.array_equal(seen[0], plan.input_ids)
+    differs = not np.array_equal(plan.input_ids, bare.input_ids)
+    say(f"phase 15: MQ-GLIP-T run_inference with GLIPKNOW.KNOWLEDGE_FILE (def_wiki; {len(plan)} chunks, one "
+        f"group) on 1 image: {secs!r} s; the card's token ids (CP, T) {seen[0].shape if seen else None} equal to "
+        f"the plan built on the host: {same}; different from the plan without knowledge: {differs}; tokens in "
+        f"use {int(plan.attention_mask.sum())} vs {int(bare.attention_mask.sum())} without; launches "
+        f"{({k: v for k, v in used.items() if v})} (predicted {({k: v for k, v in per_group.items() if v})})")
+    if not (same and differs) or used != per_group:
+        fail("phase 15: the knowledge prompts did not reach the card as planned")
+    return {"MQ-GLIP-T knowledge": used}
+
+
+TOWER_VARIANTS = {  # name -> (config key, value)
+    "clip": ("MODEL.LANGUAGE_BACKBONE.MODEL_TYPE", "clip"),
+    "rnn": ("MODEL.LANGUAGE_BACKBONE.MODEL_TYPE", "rnn"),
+    "Swin v2": ("MODEL.SWINT.VERSION", "v2"),
+    "Swin vl": ("MODEL.SWINT.VERSION", "vl"),
+}
+
+
+def phase_towers(torch, cfg, donor, seed, per_group):
+    """Phase 15.4: MQ-GLIP-T at full width with the CLIP and RNN (LSTM)
+    language towers (VISION_QUERY off: they take no queries) and Swin v2 and
+    vl, each `init_like` the default model (the weights it shares by name
+    and shape copied, the rest drawn): phase 3's rule at 256x256
+    (`phase_switch_reference`: logits and boxes, card bf16 against CPU fp32
+    plain, twice) and one chunk group (CP 4, 40 labels) at 800x1344
+    through the split functions, the encode and head ms (host clock,
+    synchronised, median of 3 after one warm-up); launches gated at one
+    group's. Returns the launches of the reference forwards and groups."""
+    from mqdet_torch.engine.predict import make_split_predict_fns
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import build_model, protocol_inputs, synthetic_batch
+
+    dev = torch.device("cuda")
+    launches = {}
+    for name, (key, value) in TOWER_VARIANTS.items():
+        c = cfg.clone()
+        node, leaf = key.rsplit(".", 1)
+        parent = c
+        for part in node.split("."):
+            parent = parent[part]
+        parent[leaf] = value
+        c.VISION_QUERY.ENABLED = node != "MODEL.LANGUAGE_BACKBONE"
+        t0 = time.perf_counter()
+        model_cpu = init_like(build_model(c), donor, seed).eval()
+        built = time.perf_counter() - t0
+        model = on_card(torch, model_cpu)
+        launches[f"phase 15 {name} reference"] = phase_switch_reference(torch, name, c, model_cpu, model, seed,
+                                                                         per_group, phase="phase 15")
+        del model_cpu
+        hw = (800, 1344)
+        image, text = protocol_inputs(c, synthetic_batch, 1, 4, hw, seed)
+        encode_fn, head_fn = make_split_predict_fns(model, hw, c)
+        image, text = image.to(dev), [t[0].to(dev) for t in text]
+        with torch.inference_mode():
+            feats = encode_fn(image)
+            head_fn(feats, *text)  # warm-up
+            launch_counts(reset=True)
+            head_fn(feats, *text)
+            torch.cuda.synchronize()
+            used = launch_counts()
+            enc_ms = statistics.median(synced_seconds(torch, lambda: encode_fn(image)) for _ in range(3)) * 1e3
+            head_ms = statistics.median(synced_seconds(torch, lambda: head_fn(feats, *text)) for _ in range(3)) * 1e3
+        say(f"phase 15: MQ-GLIP-T with {key} {value} full width: built on the host in {built!r} s (init_like the "
+            f"default model); one chunk group (CP 4) at {hw}: encode {enc_ms!r} ms, head {head_ms!r} ms (host "
+            f"clock, synchronised, median of 3); launches {({k: v for k, v in used.items() if v})} (predicted "
+            f"{({k: v for k, v in per_group.items() if v})})")
+        if used != per_group:
+            fail(f"phase 15 {name}: a chunk group's launches {used} != predicted {per_group}")
+        launches[f"phase 15 {name} group"] = used
+        del model, feats, encode_fn, head_fn
+        torch.cuda.empty_cache()
+    return launches
+
+
 def multi_card(torch, cards, seed) -> int:
     """`--cards N`: phase 13's MQ-GLIP-T training check over NCCL across N
     cards of one host. The bank is pooled over phase 7's dataset by
@@ -3558,6 +4072,7 @@ def main() -> int:
     model = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
     launches.update(phase_reference_glip(torch, cfg, model_cpu, model, args.seed))
     phase_reference_extract(torch, "MQ-GLIP-T", cfg, model_cpu, model, args.seed, (True, False))
+    glip_cpu = model_cpu  # phase 15's towers share its weights; phases 8 and 13 train copies of it
     del model_cpu
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
     groups = -(-31 // 4)
@@ -3581,8 +4096,17 @@ def main() -> int:
     glip_vq = {}  # phase 7's dataset and bank, for phase 8
     launches.update(phase_vision_query(torch, "MQ-GLIP-T", cfg, model, args.seed,
                                        predicted(dcn_band=dcn, bi_attention=fuse), tmp.name, 300, glip_vq))
-    del model, tower, parts  # nothing of MQ-GLIP-T may stay on the card
+    del tower, parts
+    t15 = time.perf_counter()  # phase 15 for MQ-GLIP-T: the TTA buckets, TTA, knowledge, towers and Swin versions
+    per_group = predicted(dcn_band=stages * (3 * levels - 2), bi_attention=stages)
+    phase_tta_kernels(torch, "MQ-GLIP-T", model, cfg, synthetic_batch, args.seed, kres)
+    launches.update(phase_tta(torch, "MQ-GLIP-T", cfg, model, glip_vq, per_group))
+    launches.update(phase_knowledge(torch, cfg, model, glip_vq, tmp.name, per_group))
+    del model  # nothing of MQ-GLIP-T may stay on the card
     torch.cuda.empty_cache()
+    launches.update(phase_towers(torch, cfg, glip_cpu, args.seed, per_group))
+    torch.cuda.empty_cache()
+    phase15_s = time.perf_counter() - t15
 
     # ---- MQ-GroundingDINO-T ----------------------------------------------
     cfg = mq_groundingdino_t_config()
@@ -3591,6 +4115,7 @@ def main() -> int:
     model = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
     launches["MQ-GroundingDINO-T reference"] = phase_reference_gdino(torch, cfg, model_cpu, model, args.seed)
     phase_reference_extract(torch, "MQ-GroundingDINO-T", cfg, model_cpu, model, args.seed, (True,))
+    gdino_cpu = model_cpu  # phases 9 and 13 train copies of it (the training config builds the same tensors)
     del model_cpu
     enc, dec, fuse = groups * g.enc_layers, groups * g.dec_layers, groups * g.enc_layers
     tr = model.transformer
@@ -3613,17 +4138,24 @@ def main() -> int:
         torch, "MQ-GroundingDINO-T", cfg, model, args.seed,
         predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention=fuse), tmp.name, g.num_queries,
         gdino_vq))
-    del model, tr, parts
+    del tr, parts
+    t15 = time.perf_counter()  # phase 15 for MQ-GroundingDINO-T: the TTA buckets and TTA
+    phase_tta_kernels(torch, "MQ-GroundingDINO-T", model, cfg, synthetic_caption_batch, args.seed, kres)
+    launches.update(phase_tta(torch, "MQ-GroundingDINO-T", cfg, model, gdino_vq, predicted(
+        ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers, bi_attention=g.enc_layers)))
+    phase15_s += time.perf_counter() - t15
+    del model
     torch.cuda.empty_cache()
 
-    say(f"phases 1-7 done {time.perf_counter() - t_start!r} s after the start")
+    say(f"phases 1-7 and 15 done {time.perf_counter() - t_start!r} s after the start (phase 15 {phase15_s!r} s)")
 
     # ---- phases 8 and 9: modulated pre-training -------------------------
     glip_bounds, gdino_bounds = {}, {}  # the reference steps' bounds, for phase 13
     launches["MQ-GLIP-T training"] = phase_train(torch, args.seed, glip_vq["dataset"], glip_vq["bank"], smi,
-                                                 glip_bounds)
+                                                 glip_bounds, copy.deepcopy(glip_cpu))
     launches["MQ-GroundingDINO-T training"] = phase_train_gdino(torch, args.seed, gdino_vq["dataset"],
-                                                                gdino_vq["bank"], smi, gdino_bounds)
+                                                                gdino_vq["bank"], smi, gdino_bounds,
+                                                                copy.deepcopy(gdino_cpu))
     say(f"phases 1-9 done {time.perf_counter() - t_start!r} s after the start")
 
     # ---- phase 10: the evaluation CLI ------------------------------------
@@ -3654,7 +4186,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 13: data parallel on the one card ------------------------
-    launches.update(phase_data_parallel(torch, args.seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_bounds))
+    launches.update(phase_data_parallel(torch, args.seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_bounds,
+                                        glip_cpu, gdino_cpu))
+    del glip_cpu, gdino_cpu
     say(f"phases 1-13 done {time.perf_counter() - t_start!r} s after the start")
 
     # ---- phase 14: MQ-Det's model switches ------------------------------

@@ -15,7 +15,8 @@ replaces SIZE_DIVISIBILITY), SOLVER.USE_AMP and the FUSE_CONFIG clamps (bf16
 has no fp16 range problem), TEST.DURING_TRAINING (SOLVER.TEST_WITH_INFERENCE
 is the knob read), MODEL.DYHEAD.USE_GN, the experiment-only FUSE_CONFIG and
 VISION_QUERY flags, MODEL.SWINT.APE, the mesh keys of TPU, and the
-backbones, heads and fuse types that the port refuses (ROADMAP Queue A 5).
+ResNet / EfficientNet backbones and the legacy heads, which the port does
+not build yet (ROADMAP Queue A 5.3).
 """
 from __future__ import annotations
 

@@ -8,9 +8,10 @@ gives what PyYAML's `yaml.safe_load` gives for it:
     indentation (`TEST:` then `- val`, PyYAML's own dump style);
   * flow sequences and flow mappings (`[[800, 1344]]`, `{a: 1}`), which may
     span lines;
-  * plain, single-quoted and double-quoted scalars; a quoted scalar may span
-    lines, each line break folded to one space (an empty line to a newline)
-    as YAML folds flow scalars;
+  * plain, single-quoted and double-quoted scalars; a quoted scalar, and a
+    plain one in block context (PyYAML's dump wraps long strings so), may
+    span lines, each line break folded to one space (an empty line to a
+    newline) as YAML folds flow scalars;
   * comments;
   * YAML 1.1 resolution of plain scalars as PyYAML's resolver does it: bools
     (`true`, `yes`, `on`, ... in three casings), ints (decimal, `0b`, `0x`,
@@ -19,9 +20,9 @@ gives what PyYAML's `yaml.safe_load` gives for it:
     nothing).
 
 Anything else (anchors and aliases, tags, block scalars `|` and `>`,
-complex keys, a plain scalar over several lines, `- key: value` on one
-line, directives and document markers, timestamps, tabs in the
-indentation) raises ValueError with the line number: it is never read
+complex keys, a plain scalar over several lines inside a flow collection,
+`- key: value` on one line, directives and document markers, timestamps,
+tabs in the indentation) raises ValueError with the line number: it is never read
 differently from PyYAML. `tests/test_torch_port_cli.py` holds the reader
 against `yaml.safe_load` on every file under `configs/`.
 
@@ -322,15 +323,39 @@ class _Reader:
             if c == ":" and self.peek(1) in " \t\n\0":
                 self.fail("'key: value' inside a value is outside the subset this reader takes")
             self.pos += 1
-        text = self.text[start:self.pos].rstrip(" \t")
-        # a more indented line after a plain scalar continues it in YAML
-        save = self.pos
-        self.end_of_line()
-        self.skip_blank_lines()
-        if not self.at_end() and self.indent_at(self.pos) > n:
-            self.fail("a plain scalar over several lines is outside the subset this reader takes")
-        self.pos = save
-        return resolve_plain(text, self.line(start))
+        pieces = [self.text[start:self.pos].rstrip(" \t")]
+        while self.peek() == _BREAK:  # not after a comment, which ends the scalar
+            folded = self.continuation(n)
+            if folded is None:
+                break
+            pieces += folded
+        return resolve_plain("".join(pieces), self.line(start))
+
+    def continuation(self, n: int):
+        """A plain scalar's next line, at `self.pos` (a line break): a line
+        more indented than n that is not a comment continues the scalar,
+        folded as YAML folds it (one break to a space, k empty lines to k
+        newlines). Returns [fold, text] with `self.pos` after the text, or
+        None with `self.pos` unmoved."""
+        p, empty = self.pos + 1, 0
+        while True:
+            q = p
+            while self.text[q] == " ":
+                q += 1
+            if self.text[q] != _BREAK:
+                break
+            p, empty = q + 1, empty + 1
+        if q - p <= n or self.text[q] in "#\0\t":
+            return None
+        self.pos = start = q
+        while True:
+            c = self.peek()
+            if c in (_BREAK, "\0") or (c == "#" and self.text[self.pos - 1] in " \t"):
+                break
+            if c == ":" and self.peek(1) in " \t\n\0":
+                self.fail("'key: value' inside a value is outside the subset this reader takes")
+            self.pos += 1
+        return [_BREAK * empty if empty else " ", self.text[start:self.pos].rstrip(" \t")]
 
     def skip_flow_space(self) -> None:
         while True:

@@ -25,10 +25,19 @@ the single-process summary, and `images_per_second` is the rank's own.
 Under VISION_QUERY.RETURN_ATTN_GATE_VALUE `run_inference` adds
 `attn_gate_value` (gate telemetry, `attn_gate_value`). The plan carries the
 learnable bank's int32 (row, slot) queries as they come from the selector.
+Under GLIPKNOW.KNOWLEDGE_FILE (and no DATASETS.CAPTION_PROMPT) each class's
+prompt carries its knowledge text after the name (`data/knowledge.py`).
 
-Refused with NotImplementedError, each naming its ROADMAP item:
-TEST.USE_MULTISCALE (test-time augmentation, `engine/box_aug.py`),
-GLIPKNOW.KNOWLEDGE_FILE (`data/knowledge.py`).
+Under TEST.USE_MULTISCALE `run_inference` runs the test-time augmentation
+of JAX's loop (mqdet_tpu/engine/inference.py:251-291; `engine/box_aug.py`):
+every image at each of TEST.SCALES (else INPUT.MIN_SIZE_TEST) with the cap
+TEST.MAX_SIZE (else INPUT.MAX_SIZE_TEST), and mirrored under TEST.FLIP (its
+boxes mirrored back), each pass in the bucket `pick_bucket` gives its
+resized image (a scale that fits no TPU.IMAGE_BUCKETS entry raises, as in
+JAX), the passes merged per class by TEST.SPECIAL_NMS at TEST.TH and capped
+at MODEL.ATSS.DETECTIONS_PER_IMG. The predict functions are built once per
+bucket for the whole run. `online_update` reads no TEST.USE_MULTISCALE: it
+updates at the single scale, as JAX's.
 """
 from __future__ import annotations
 
@@ -41,7 +50,9 @@ import torch
 
 from mqdet_torch.core.detections import Detections
 from mqdet_torch.data import grounding as G
+from mqdet_torch.data.knowledge import knowledge_caption_prompts
 from mqdet_torch.data.transforms import EvalTransform
+from mqdet_torch.engine.box_aug import im_detect_bbox_aug
 from mqdet_torch.engine.evaluator import DetectionEvaluator
 from mqdet_torch.engine.predict import make_split_predict_fns
 from mqdet_torch.models.bert import gate_telemetry
@@ -80,10 +91,9 @@ class ChunkedEvaluationPlan:
                 for l in all_labels
             ]
         if cap_prompt is None and cfg.GLIPKNOW.KNOWLEDGE_FILE:
-            raise NotImplementedError(
-                "GLIPKNOW.KNOWLEDGE_FILE prompts need data/knowledge.py, which reads yaml: not ported "
-                "(ROADMAP Queue A 5)"
-            )
+            # GLIPKNOW (generalized_vl_rcnn_new.py:521-666): clean_name and a
+            # ": <knowledge>" suffix per class, the span on the name
+            cap_prompt = knowledge_caption_prompts(cfg, [dataset.ind_to_class[l] for l in all_labels])
         self.chunks = G.chunk_classes(all_labels, chunk_size)
         label_pos = {l: i for i, l in enumerate(all_labels)}
         self.bundles = [
@@ -127,14 +137,6 @@ class ChunkedEvaluationPlan:
 
     def __len__(self):
         return len(self.bundles)
-
-
-def refuse_unported(cfg) -> None:
-    """Raise for the options of the JAX loop that the port does not have."""
-    if cfg.TEST.USE_MULTISCALE:
-        raise NotImplementedError(
-            "TEST.USE_MULTISCALE (test-time augmentation, engine/box_aug.py) is not ported (ROADMAP Queue A 5)"
-        )
 
 
 def chunk_groups(plan: ChunkedEvaluationPlan, cp: int) -> List[List[int]]:
@@ -221,11 +223,12 @@ class _ImageRunner:
         self.fns = {}
         self.seconds = {"transform": 0.0, "encode": 0.0, "head": 0.0, "fetch": 0.0}
 
-    def __call__(self, img: np.ndarray):
+    def __call__(self, img: np.ndarray, transform: Optional[EvalTransform] = None):
         """-> (image (1, 3, bh, bw) on the device, (oh, ow), (sy, sx), numpy
-        boxes (G, CP, N, 4), scores, labels and valid (G, CP, N))."""
+        boxes (G, CP, N, 4), scores, labels and valid (G, CP, N));
+        `transform` replaces the config's (a scale of the augmentation)."""
         m0 = _mark(self.device)
-        image, (oh, ow), scale = self.transform(img, self.device)
+        image, (oh, ow), scale = (transform or self.transform)(img, self.device)
         bucket = tuple(image.shape[-2:])
         if bucket not in self.fns:
             self.fns[bucket] = make_split_predict_fns(self.model, bucket, self.cfg)
@@ -260,7 +263,6 @@ def run_inference(
     """Full finetuning-free evaluation over a dataset on the model's device:
     the evaluator's summary, `images_per_second`, and `seconds` per stage
     (`_ImageRunner`'s, and `evaluator`: host clock of the evaluator)."""
-    refuse_unported(cfg)
     device = next(model.parameters()).device
     plan = ChunkedEvaluationPlan(cfg, dataset, tokenizer, selector)
     groups = chunk_groups(plan, max(1, cfg.TEST.CHUNK_PARALLELISM))
@@ -269,6 +271,40 @@ def run_inference(
     if vq.ENABLED and vq.MASK_DURING_INFERENCE and vq.TEXT_DROPOUT > 0 and plan.queries is not None:
         ids_per_group = masked_input_ids(cfg, plan, groups, getattr(tokenizer, "mask_token_id", None) or 103)
     runner = _ImageRunner(cfg, model, group_inputs(cfg, plan, groups, device, ids_per_group), device)
+
+    def detect(img: np.ndarray, transform: Optional[EvalTransform] = None):
+        """One pass over every group: the image's (boxes, scores, labels),
+        dataset labels, boxes in the original image's frame."""
+        _, _, (sy, sx), boxes, scores, labels, valid = runner(img, transform)
+        det_boxes, det_scores, det_labels = [], [], []
+        for g, sel in enumerate(groups):
+            for row, ci in enumerate(sel):
+                v = valid[g, row]
+                if not v.any():
+                    continue
+                # chunk-local 1-based slot -> dataset label
+                det_labels.append(plan.slot_to_label[ci][labels[g, row][v] - 1])
+                det_boxes.append(boxes[g, row][v] * np.array([sx, sy, sx, sy], np.float32))
+                det_scores.append(scores[g, row][v])
+        if not det_boxes:
+            return np.zeros((0, 4), np.float32), np.zeros((0,), np.float32), np.zeros((0,), np.int32)
+        return np.concatenate(det_boxes), np.concatenate(det_scores), np.concatenate(det_labels)
+
+    scale_transforms: Dict[tuple, EvalTransform] = {}
+
+    def predict_at_scale(img: np.ndarray, min_size: int, max_size: int, hflip: bool) -> Dict[str, np.ndarray]:
+        """One augmentation pass (JAX's `predict_at_scale`): the image (or its
+        mirror) resized to `min_size` under `max_size`, the boxes back in the
+        original image's frame."""
+        if (min_size, max_size) not in scale_transforms:
+            c = cfg.clone()
+            c.INPUT.MIN_SIZE_TEST, c.INPUT.MAX_SIZE_TEST = min_size, max_size
+            scale_transforms[min_size, max_size] = EvalTransform(c)
+        b, s, l = detect(np.ascontiguousarray(img[:, ::-1]) if hflip else img, scale_transforms[min_size, max_size])
+        if hflip:
+            w = img.shape[1]
+            b = np.stack([w - b[:, 2], b[:, 1], w - b[:, 0], b[:, 3]], -1).reshape(-1, 4)
+        return {"boxes": b, "scores": s, "labels": l}
 
     if evaluator is None:
         evaluator = DetectionEvaluator(style="coco")
@@ -281,21 +317,20 @@ def run_inference(
     t_eval = 0.0
     t0 = time.time()
     for count, img_id in enumerate(ids):
-        _, _, (sy, sx), boxes, scores, labels, valid = runner(dataset.load_image(img_id))
-        det_boxes, det_scores, det_labels = [], [], []
-        for g, sel in enumerate(groups):
-            for row, ci in enumerate(sel):
-                v = valid[g, row]
-                if not v.any():
-                    continue
-                # chunk-local 1-based slot -> dataset label
-                det_labels.append(plan.slot_to_label[ci][labels[g, row][v] - 1])
-                det_boxes.append(boxes[g, row][v] * np.array([sx, sy, sx, sy], np.float32))
-                det_scores.append(scores[g, row][v])
-        if det_boxes:
-            db, ds, dl = np.concatenate(det_boxes), np.concatenate(det_scores), np.concatenate(det_labels)
+        img = dataset.load_image(img_id)
+        if cfg.TEST.USE_MULTISCALE:
+            merged = im_detect_bbox_aug(
+                predict_at_scale, img,
+                scales=tuple(cfg.TEST.SCALES or (cfg.INPUT.MIN_SIZE_TEST,)),
+                max_size=cfg.TEST.MAX_SIZE or cfg.INPUT.MAX_SIZE_TEST,
+                flip=cfg.TEST.FLIP,
+                nms_type=cfg.TEST.SPECIAL_NMS,
+                thresh=cfg.TEST.TH,
+                max_detections=cfg.MODEL.ATSS.DETECTIONS_PER_IMG,
+            )
+            db, ds, dl = merged["boxes"], merged["scores"], merged["labels"]
         else:
-            db, ds, dl = np.zeros((0, 4), np.float32), np.zeros((0,), np.float32), np.zeros((0,), np.int32)
+            db, ds, dl = detect(img)
         t1 = time.perf_counter()
         gt_boxes, gt_labels = dataset.annotations(img_id)
         neg = [dataset.cat_id_to_contiguous[c] for c in dataset.img_neg_cats.get(img_id, ())
@@ -352,8 +387,8 @@ def online_update(
     again) from the transformed image and added to the selector's bank with
     exclude_similar, capped at MAX_TEST_QUERY_NUMBER; the next turn's plan
     selects from the grown bank. Additions follow the JAX loop's order
-    (image, group, row)."""
-    refuse_unported(cfg)
+    (image, group, row). One scale, whatever TEST.USE_MULTISCALE says, as
+    JAX's `online_update`."""
     device = next(model.parameters()).device
     turns = num_turns or cfg.VISION_QUERY.NUM_TURNS
     thresh = cfg.VISION_QUERY.SCORE_THRESHOLD

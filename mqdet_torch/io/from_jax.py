@@ -11,10 +11,11 @@ the reference's 1-element tensors, and, for GroundingDINO's attentions, the
 torch `in_proj_weight` (3C, C) / `in_proj_bias` (3C,) assembled from the
 three flax q/k/v leaves that `_t_inproj_w(i)` / `_t_inproj_b(i)` slice out of
 it. Where a rule names several candidate reference keys, the first is the
-port's. MQ-GLIP's table is the JAX package's plus `port_rules()`: the
-parameters of MQ-Det's switches, which the JAX package's table (and so its
-`.pth` import) does not name, and the BatchNorm running statistics of the
-SCAN / FILM fusions, whose flax leaves are in the `batch_stats` collection
+port's. MQ-GLIP's table is the JAX package's plus `port_rules()`, `tower_rules()`
+and `swin_version_rules()`: the parameters of MQ-Det's switches, of the
+CLIP / RNN language towers and of Swin v2 / vl, which the JAX package's
+table (and so its `.pth` import) does not name, and the BatchNorm running
+statistics of the SCAN / FILM fusions, whose flax leaves are in the `batch_stats` collection
 (keys `batch_stats/...` in the flat dict; the `params` leaves carry no
 prefix). A released GLIP / MQ-Det / GroundingDINO `.pth` therefore loads
 directly:
@@ -108,6 +109,48 @@ def port_rules(stages: int = 8, levels: int = 5, qv_layers: int = 12):
     return r
 
 
+def tower_rules(layers: int = 24, ob: str = "language_backbone", lb: str = "language_backbone.body"):
+    """(flax path, port key, transform) of the CLIP and RNN language towers
+    (`models/text_towers.py`), which the JAX package's table does not name:
+    one port tensor for each flax leaf; the RNN's two cells are flax's
+    `OptimizedLSTMCell_0` / `GRUCell_0` (forward) and `_1` (reversed)."""
+    r = [(f"{ob}/token_embedding/embedding", f"{lb}.token_embedding.weight", TI._ident),
+         (f"{ob}/positional_embedding", f"{lb}.positional_embedding", TI._ident)]
+    r += _norm_rules(f"{ob}/ln_final", f"{lb}.ln_final")
+    for i in range(layers):
+        p, q = f"{ob}/resblock_{i}", f"{lb}.resblocks.{i}"
+        r += _norm_rules(f"{p}/ln_1", f"{q}.ln_1") + _norm_rules(f"{p}/ln_2", f"{q}.ln_2")
+        for n in ("query", "key", "value", "out"):
+            r += [(f"{p}/attn/{n}/{leaf}", f"{q}.attn.{n}.{leaf}", TI._ident) for leaf in ("kernel", "bias")]
+        r += _dense_rules(f"{p}/mlp_fc", f"{q}.mlp_fc") + _dense_rules(f"{p}/mlp_proj", f"{q}.mlp_proj")
+    r += [(f"{ob}/embedding/embedding", f"{lb}.embedding.weight", TI._ident)] + _dense_rules(f"{ob}/mlp", f"{lb}.mlp")
+    for cell, gates in (("OptimizedLSTMCell", "ifgo"), ("GRUCell", "rzn")):
+        for k, side in enumerate(("fwd", "bwd")):
+            for g in gates:
+                for n in ("i", "h"):
+                    r += _dense_rules(f"{ob}/{cell}_{k}/{n}{g}", f"{lb}.cell_{side}.{n}{g}")
+    return r
+
+
+def swin_version_rules(our: str = "backbone", b: str = "backbone.body"):
+    """(flax path, port key, transform) of Swin v2's and vl's parameters
+    beyond v1's (`models/swin.py`): v2's `logit_scale` and CPB MLP, the vl
+    text stream of the last stage's blocks."""
+    r = []
+    for i in range(4):
+        for j in range(24):  # an upper bound, as the JAX package's Swin rules
+            p, q = f"{our}/layers_{i}_blocks_{j}", f"{b}.layers.{i}.blocks.{j}"
+            r += [(f"{p}/attn/logit_scale", f"{q}.attn.logit_scale", TI._ident),
+                  (f"{p}/attn/cpb_mlp_fc2/kernel", f"{q}.attn.cpb_mlp.2.weight", TI._t_linear)]
+            r += _dense_rules(f"{p}/attn/cpb_mlp_fc1", f"{q}.attn.cpb_mlp.0")
+            r += [(f"{p}/attn/{n}", f"{q}.attn.{n}", TI._ident)
+                  for n in ("i2t_relative_position_bias", "t2t_relative_position_bias")]
+            for n in ("attn/qkv_text", "attn/proj_text", "mlp_text/fc1", "mlp_text/fc2"):
+                r += _dense_rules(f"{p}/{n}", f"{q}.{n.replace('/', '.')}")
+            r += _norm_rules(f"{p}/norm1_text", f"{q}.norm1_text") + _norm_rules(f"{p}/norm2_text", f"{q}.norm2_text")
+    return r
+
+
 def reference_rules(model: Optional[torch.nn.Module] = None) -> Dict[str, Tuple[str, Callable]]:
     """Reference key -> (flax path, forward transform reference->flax) of
     `model`'s family (`rule_table`; MQ-GLIP without a model). Where several
@@ -150,7 +193,8 @@ def _reference_rules(family) -> Dict[str, Tuple[str, Callable]]:
 def _table(family) -> Dict:
     if isinstance(family, tuple):
         return TI.build_gdino_rule_table(*family)
-    return {**TI.build_rule_table(), **{ours: (theirs, tf) for ours, theirs, tf in port_rules()}}
+    extra = port_rules() + tower_rules() + swin_version_rules()
+    return {**TI.build_rule_table(), **{ours: (theirs, tf) for ours, theirs, tf in extra}}
 
 
 def rule_table(model: Optional[torch.nn.Module] = None) -> Dict:

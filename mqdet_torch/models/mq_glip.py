@@ -5,8 +5,17 @@ Swin -> FPN -> [vision queries -> PreSelect -> GCP-BERT] -> VLDyHead, with the
 reference's module tree (`backbone.body`, `backbone.fpn`,
 `language_backbone.body.model`, `rpn.head`). `encode_image` (text
 independent) runs once per image; `forward_head` (text dependent) runs once
-per group of prompt chunks. Only the bert language backbone and Swin v1 are
-built (MODEL_TYPE clip / rnn and Swin v2 are refused).
+per group of prompt chunks.
+
+MODEL.LANGUAGE_BACKBONE.MODEL_TYPE picks the language tower by its base name,
+as JAX's `MQGLIP.setup` does: `clip` the CLIP text transformer (width
+LANG_DIM, HIDDEN_LAYERS blocks, NUM_HEADS heads), `rnn` the bidirectional
+LSTM encoder (LANG_DIM // 2 a direction), anything else the GCP-BERT tower
+(`models/text_towers.py`, `models/bert.py`). The CLIP and RNN towers take no
+vision queries (VISION_QUERY.ENABLED off): `forward_head` raises if given
+some. MODEL.SWINT.VERSION picks Swin v1 / v2 / vl / v2_vl
+(`models/swin.py`); no text reaches the backbone, as in JAX, so vl and v2_vl
+compute v1's function.
 
 MQ-Det's model switches are the JAX module's: the GCP variants
 (`models/bert.py`), the head's (`models/vldyhead.py`), and two on the
@@ -33,6 +42,7 @@ backward. Under `no_grad` / `inference_mode` it runs nothing more.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -42,6 +52,7 @@ from mqdet_torch.models.bert import LanguageBackbone
 from mqdet_torch.models.fpn import FPN
 from mqdet_torch.models.layers import avg_pool_2x, cl, training_draws
 from mqdet_torch.models.swin import SwinTransformer
+from mqdet_torch.models.text_towers import CLIPTextTransformer, RNNEncoder
 from mqdet_torch.models.vldyhead import VLDyHead
 
 
@@ -60,10 +71,35 @@ class _Backbone(nn.Module):
         sw = cfg.MODEL.SWINT
         self.body = SwinTransformer(
             sw.EMBED_DIM, tuple(sw.DEPTHS), tuple(sw.NUM_HEADS), sw.WINDOW_SIZE, sw.MLP_RATIO,
-            sw.DROP_PATH_RATE,
+            sw.DROP_PATH_RATE, sw.VERSION,
         )
         e = sw.EMBED_DIM
         self.fpn = FPN([2 * e, 4 * e, 8 * e], cfg.MODEL.BACKBONE.OUT_CHANNELS)
+
+
+class _Tower(nn.Module):
+    """The CLIP or RNN language tower under the reference's `body`."""
+
+    def __init__(self, body: nn.Module):
+        super().__init__()
+        self.body = body
+
+    def forward(self, input_ids, attention_mask, generator=None):
+        if isinstance(self.body, RNNEncoder):
+            return self.body(input_ids, attention_mask, generator)
+        return self.body(input_ids, attention_mask)
+
+
+def language_tower(cfg, remat: bool = False) -> nn.Module:
+    """MODEL.LANGUAGE_BACKBONE.MODEL_TYPE's tower, by its base name (JAX's
+    `MQGLIP.setup`, mq_glip.py:213-231)."""
+    lb = cfg.MODEL.LANGUAGE_BACKBONE
+    kind = os.path.basename(lb.MODEL_TYPE)
+    if kind == "clip":
+        return _Tower(CLIPTextTransformer(width=lb.LANG_DIM, layers=lb.HIDDEN_LAYERS, heads=lb.NUM_HEADS))
+    if kind == "rnn":  # the bidirectional output is 2 x hidden (reference rnn_model.py:54)
+        return _Tower(RNNEncoder(hidden_size=lb.LANG_DIM // 2))
+    return LanguageBackbone(cfg, remat)
 
 
 class _RPN(nn.Module):
@@ -76,10 +112,6 @@ class MQGLIP(nn.Module):
     def __init__(self, cfg, bank_shape: Optional[Tuple[int, int, int]] = None):
         super().__init__()
         vq = cfg.VISION_QUERY
-        if cfg.MODEL.LANGUAGE_BACKBONE.MODEL_TYPE != "bert-base-uncased":
-            raise NotImplementedError("only the bert language backbone is ported")
-        if cfg.MODEL.SWINT.VERSION != "v1":
-            raise NotImplementedError("only Swin v1 is ported")
         # activation checkpointing of the text layers and head stages (JAX's rule)
         remat = bool(cfg.TPU.REMAT or cfg.MODEL.DYHEAD.USE_CHECKPOINT or cfg.MODEL.LANGUAGE_BACKBONE.USE_CHECKPOINT)
         c = cfg.MODEL.BACKBONE.OUT_CHANNELS
@@ -92,7 +124,7 @@ class MQGLIP(nn.Module):
         self.tunable_vision_linear = nn.Parameter(torch.zeros(1000, c)) if vq.ADD_VISION_LAYER else None
         self.query_fusion = bool(vq.QUERY_FUSION)
         self.backbone = _Backbone(cfg)
-        self.language_backbone = LanguageBackbone(cfg, remat)
+        self.language_backbone = language_tower(cfg, remat)
         self.rpn = _RPN(cfg, remat)
 
     @property
@@ -128,18 +160,22 @@ class MQGLIP(nn.Module):
             queries = self.qv_layer_learnable_bank[queries[..., 0].long(), queries[..., 1].long()]
         if queries is not None and self.tunable_vision_linear is not None:
             queries = queries + self.tunable_vision_linear[None, :queries.shape[1]].to(queries.dtype)
-        image_tokens = flatten_fpn_features(fpn_feats) if queries is not None else None
-        lang = self.language_backbone(
-            input_ids,
-            attention_mask,
-            queries=queries.to(self.dtype) if queries is not None else None,
-            query_mask=query_mask,
-            image_tokens=image_tokens,
-        )
+        if isinstance(self.language_backbone, _Tower):
+            if queries is not None:  # no GCP pathway in these towers
+                raise ValueError("vision queries require the bert language backbone: set VISION_QUERY.ENABLED off")
+            lang = self.language_backbone(input_ids, attention_mask, training_draws(deterministic, generator))
+        else:
+            lang = self.language_backbone(
+                input_ids,
+                attention_mask,
+                queries=queries.to(self.dtype) if queries is not None else None,
+                query_mask=query_mask,
+                image_tokens=flatten_fpn_features(fpn_feats) if queries is not None else None,
+            )
         out = self.rpn.head(
             fpn_feats, lang["hidden"], lang["masks"], training_draws(deterministic, generator),
             embedding=lang["embedded"],
-            augmented_vision=lang["augmented_vision"] if self.query_fusion else None,
+            augmented_vision=lang.get("augmented_vision") if self.query_fusion else None,
             query_mask=query_mask if self.query_fusion else None,
             lang_aggregate=lang["aggregate"],
         )

@@ -376,19 +376,13 @@ def _launch_levels(qs, k, vvs, vl, bias_l, num_heads, splits=None):
     return out_vs, out_l
 
 
-def _device(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no bi-attention kernel for device {x.device}")
-    return x.device.type
-
-
 def flash_bi_attention(q, k, vv, vl, bias_l, num_heads, dual_scores=None):
     """See module docstring."""
     if dual_scores is None:
         dual = os.environ.get("MQDET_FLASH_SCORES", "single") == "dual"
     else:
         dual = bool(dual_scores)
-    if _device(q) == "cpu":
+    if kernels.runs_plain(q):
         plain = bi_attention_dual_plain if dual else bi_attention_plain
         return plain(q, k, vv, vl, bias_l, num_heads)
     return _launch(q, k, vv, vl, bias_l, num_heads, dual)
@@ -396,6 +390,6 @@ def flash_bi_attention(q, k, vv, vl, bias_l, num_heads, dual_scores=None):
 
 def flash_bi_attention_levels(qs, k, vvs, vl, bias_l, num_heads):
     """See module docstring: one call of the two kernels per level on the card."""
-    if _device(k) == "cpu":
+    if kernels.runs_plain(k):
         return bi_attention_levels_plain(qs, k, vvs, vl, bias_l, num_heads)
     return _launch_levels(qs, k, vvs, vl, bias_l, num_heads)

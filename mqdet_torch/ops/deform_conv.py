@@ -242,11 +242,7 @@ def _launch(x, offset, mask, weight, bias, stride, radius) -> torch.Tensor:
 
 
 def _on_device(x, plain, launch):
-    if x.device.type == "cpu":
-        return plain()
-    if x.device.type != "cuda":
-        raise ValueError(f"no DCN kernel for device {x.device}")
-    return launch()
+    return plain() if kernels.runs_plain(x) else launch()
 
 
 def modulated_deform_conv(

@@ -10,6 +10,13 @@ an exception.
 
 Nothing here runs at import time: the CPU tests import every module, and a
 CPU-only machine has neither `nvcc` nor a card.
+
+`plain_versions()` opens the explicit reference route: inside it, every
+kernel wrapper given a CUDA tensor runs its kernel's plain PyTorch version on
+the card (the same function, the same dispatch rule) instead of launching,
+and counts no launch. It exists for checks that hold a whole path against
+itself without the kernels (an fp32 training step, the test-time
+augmentation); no wrapper takes it on its own.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from contextlib import contextmanager
 from typing import Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -165,6 +173,29 @@ def ptxas_notes(code: str = "C75") -> list:
     (C75xx: wgmma serialised, and why)."""
     with open(library_path() + ".log") as f:
         return [line for line in f.read().splitlines() if f"({code}" in line]
+
+
+_plain_route = False
+
+
+@contextmanager
+def plain_versions():
+    """The explicit reference route (module docstring)."""
+    global _plain_route
+    before, _plain_route = _plain_route, True
+    try:
+        yield
+    finally:
+        _plain_route = before
+
+
+def runs_plain(x) -> bool:
+    """Whether a wrapper runs its plain version for `x`: a CPU tensor, or
+    any tensor inside `plain_versions()`; raises for a device that has no
+    kernel (neither the CPU nor CUDA)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    return x.device.type == "cpu" or _plain_route
 
 
 def needs_grad(*tensors) -> bool:

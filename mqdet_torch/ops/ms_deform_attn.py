@@ -364,13 +364,12 @@ def ms_deform_attn(
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
     """See module docstring."""
-    if value.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no MSDA kernel for device {value.device}")
+    plain_route = kernels.runs_plain(value)
     clip = clips(value, spatial_shapes, sampling_locations)
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
 
     def run(value, loc, attn):
-        if value.device.type == "cpu":
+        if plain_route:
             plain = ms_deform_attn_clipped_plain if clip else ms_deform_attn_plain
             return plain(value, shapes, loc, attn)
         return _launch(value, shapes, loc, attn, clip)

@@ -8,6 +8,10 @@ index, as `lax.top_k` breaks them); the strict lower-triangular relation
 M[i, j] = (j outranks i) & same label & IoU > t is built in row blocks; then
 keep <- valid & ~any(M & keep) is iterated to its fixpoint, which is the
 greedy keep set (entries of rank r are final after r + 1 steps).
+
+`soft_nms` is the JAX package's Gaussian soft-NMS (`mqdet_tpu/ops/nms.py::
+soft_nms`), batched; as in JAX, no model calls it (the test-time
+augmentation's merge, `engine/box_aug.py`, has its own numpy one).
 """
 from __future__ import annotations
 
@@ -70,3 +74,36 @@ def class_aware_nms(
         keep_idx = torch.cat([keep_idx, keep_idx.new_zeros(b, pad)], 1)
         keep_valid = torch.cat([keep_valid, keep_valid.new_zeros(b, pad)], 1)
     return keep_idx, keep_valid
+
+
+def soft_nms(
+    boxes: torch.Tensor,   # (..., N, 4)
+    scores: torch.Tensor,  # (..., N)
+    valid: torch.Tensor,   # (..., N) bool
+    sigma: float = 0.5,
+    score_threshold: float = 0.001,
+    max_outputs: int = 300,
+):
+    """Gaussian soft-NMS (the JAX package's `soft_nms`; reference
+    csrc/cpu/soft_nms.cpp, method gaussian), batched over leading dims, on
+    the tensors' device: `max_outputs` greedy steps, each taking the best
+    remaining score (ties to the lower index) and decaying every other by
+    exp(-IoU^2 / sigma), with the +1 IoU. Returns keep_idx (..., max_outputs)
+    int64, keep_score float32 (the decayed score at selection) and
+    keep_valid bool; a step whose best is not above `score_threshold` gives
+    index 0, score 0, invalid."""
+    n = scores.shape[-1]
+    work = torch.where(valid, scores.float(), torch.full_like(scores, NEG_INF, dtype=torch.float32))
+    ar = torch.arange(n, device=scores.device)
+    idx, kept, ok_all = [], [], []
+    for _ in range(max_outputs):
+        best = work.argmax(-1, keepdim=True)                        # (..., 1)
+        best_score = work.gather(-1, best)
+        ok = best_score > score_threshold
+        idx.append(torch.where(ok, best, torch.zeros_like(best)))
+        kept.append(torch.where(ok, best_score, torch.zeros_like(best_score)))
+        ok_all.append(ok)
+        top = boxes.gather(-2, best[..., None].expand(*best.shape, 4))  # (..., 1, 4)
+        decay = torch.exp(-(box_iou(top, boxes)[..., 0, :] ** 2) / sigma)
+        work = torch.where(ar == best, torch.full_like(work, NEG_INF), work * decay)
+    return torch.cat(idx, -1), torch.cat(kept, -1), torch.cat(ok_all, -1)

@@ -146,9 +146,9 @@ def build_dataset(cfg, name: str, train: bool):
 
 def build_cli_model(cfg) -> torch.nn.Module:
     """The model of `cfg` from init_params(SOLVER.SEED), fp32 on the CPU, at
-    any Swin v1 width (MQ-GLIP-T, MQ-GLIP-L); the models raise for the
-    options the port does not build (Swin v2, other language towers, heads
-    and fuse types)."""
+    any Swin width and version (MQ-GLIP-T, MQ-GLIP-L; v1, v2, vl, v2_vl)
+    with any of the three language towers; the models raise for the options
+    the port does not build."""
     return init_params(build_model(cfg), seed=cfg.SOLVER.SEED)
 
 

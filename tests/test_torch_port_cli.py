@@ -117,7 +117,7 @@ def test_yaml_lite_matches_pyyaml_inside_its_subset(case):
 
 REFUSED = {
     "anchor": "a: &x 1\n", "alias": "a: *x\n", "tag": "a: !!str 1\n", "literal block": "a: |\n  x\n",
-    "folded block": "a: >\n  x\n", "complex key": "? a\n: b\n", "multi-line plain": "a: b\n  c\n",
+    "folded block": "a: >\n  x\n", "complex key": "? a\n: b\n", "multi-line plain": "a: [b\n  c]\n",
     "compact mapping in a sequence": "- a: 1\n", "document marker": "--- \na: 1\n",
     "timestamp": "a: 2001-01-01\n", "tab indentation": "a:\n\t- b\n", "directive": "%YAML 1.1\na: 1\n",
     "pair in a flow sequence": "a: [b: c]\n", "unterminated quote": "a: \"x\n", "nested entry": "- - 1\n",
@@ -650,3 +650,39 @@ def test_eval_cli_matches_the_jax_cli(family, dataset, cli_data, jax_cached, tmp
     np.testing.assert_allclose(values, jvalues, atol=1e-6, rtol=0)
     style = {"coco_val": "AP75", "lvis_val": "AP75", "voc_test": "mAP", "flickr_val": "recall@10"}[dataset]
     assert style in keys
+
+
+OPTION_CASES = [("glip", "lvis_val", "tta"), ("gdino", "coco_val", "tta"), ("glip", "coco_val", "knowledge")]
+
+
+@pytest.mark.parametrize("family,dataset,option", OPTION_CASES, ids=["-".join(c) for c in OPTION_CASES])
+def test_eval_cli_options_match_the_jax_cli(family, dataset, option, cli_data, jax_cached, tmp_path):
+    """TEST.USE_MULTISCALE (three scales over two buckets, flip, soft-vote)
+    and GLIPKNOW.KNOWLEDGE_FILE (a knowledge yaml of the dataset's classes)
+    given as KEY VALUE overrides to both CLIs on the same yaml, .pth and
+    bank: the same results (timing apart) and bbox.csv within 1e-6."""
+    from mqdet_torch.tools import eval as teval
+
+    _, (yml, pth) = cli_data[0], cli_data[1][family]
+    opts = ["DATASETS.TEST", f"['{dataset}']"]
+    if option == "tta":
+        buckets, scales = {"glip": ("[[48, 64], [64, 96]]", "[40, 48, 56]"),
+                           "gdino": ("[[64, 96], [96, 96]]", "[60, 64, 72]")}[family]
+        opts += ["TEST.USE_MULTISCALE", "True", "TEST.SCALES", scales, "TEST.MAX_SIZE", "96",
+                 "TPU.IMAGE_BUCKETS", buckets, "TEST.SPECIAL_NMS", "soft-vote"]
+    else:
+        know = {c["name"]: {"clean_name": c["name"].replace("_", " "),
+                            "def_wiki": f"the seeded description number {i} of a {c['name']}, long enough to wrap"}
+                for i, c in enumerate(CATEGORIES)}
+        (tmp_path / "know.yaml").write_text(yaml.safe_dump(know))
+        opts += ["GLIPKNOW.KNOWLEDGE_FILE", str(tmp_path / "know.yaml"), "GLIPKNOW.KNOWLEDGE_TYPE", "def_wiki",
+                 "MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN", "64"]
+    want = jax_cli(["--config-file", yml, "--weight", pth, *opts, "OUTPUT_DIR", str(tmp_path / "jax")])
+    got = teval.main(["--config-file", yml, "--weight", pth, "--device", "cpu", *opts, "OUTPUT_DIR",
+                      str(tmp_path / "port")], device="cuda")
+    timing = ("images_per_second", "seconds")
+    same_results({k: v for k, v in got.items() if k not in timing}, {k: v for k, v in want.items() if k not in timing})
+    keys, values = read_csv(tmp_path / "port" / "bbox.csv")
+    jkeys, jvalues = read_csv(tmp_path / "jax" / "bbox.csv")
+    assert keys == jkeys
+    np.testing.assert_allclose(values, jvalues, atol=1e-6, rtol=0)
