@@ -9,8 +9,10 @@ both evaluation paths of the port, MQ-GLIP-T and MQ-GroundingDINO-T, the
 modulated pre-training of both, the evaluation CLI, MQ-GLIP-L through the
 same entry points (with TPU.REMAT in training), the few-shot finetuning
 CLI, data parallelism, MQ-Det's model switches, test-time augmentation,
-knowledge prompts, the CLIP / RNN towers and Swin v2 / vl. Phases, each
-printing lines:
+knowledge prompts, the CLIP / RNN towers and Swin v2 / vl, GDINO at 3
+feature levels, DyConv's merged canvas, MQDET_FUSION_IMPL, the demo, the
+legacy detector family (ResNet / EfficientNet / BiFPN with the FCOS /
+RetinaNet / ATSS heads) and pooling. Phases, each printing lines:
 
   1. the card (`nvidia-smi` name and power limit) and the kernels' build from
      `mqdet_torch/csrc/` with nvcc for sm_90a (one nvcc per source, in
@@ -58,14 +60,16 @@ printing lines:
      clip moves printed; the band kernel's ptxas reports without a spill or
      a stack frame), and under
      MQDET_MSDA_IMPL=gather on the exact mode; decoder queries (Q = 900) and
-     locations far off the image on the exact mode;
+     locations far off the image on the exact mode; then phase 16.1's cases
+     (below);
   3. per model, a small-input reference check: the full-width model on a
      256x256 image, one chunk, on the card (bf16, kernels) against the same
      weights in fp32 on the CPU (plain versions), by relative L2 error within
      twice the drift of the plain path run in bf16 on the CPU (or 1e-2 where
      that is larger). MQ-GLIP-T: FPN features and dot-product logits, the
      card run under each fusion switch (default, MQDET_FLASH_LEVELS=stream,
-     MQDET_FLASH_SCORES=dual) and under MQDET_DEFORM_IMPL unset (the band
+     MQDET_FLASH_SCORES=dual, MQDET_FUSION_IMPL=xla: no bi-attention
+     launch) and under MQDET_DEFORM_IMPL unset (the band
      kernel), window (K2) and gather (exact), each against the CPU plain
      path of the same DCN route, with its launches counted; the max |offset|
      of the random-init model is printed (whether the clip binds).
@@ -98,9 +102,10 @@ printing lines:
      MQDET_DEFORM_IMPL=gather (624 exact launches), MQ-GroundingDINO-T under
      dual (48; its fusion takes one flattened tensor, so stream does not
      apply);
-  5. per protocol run, one run under torch.profiler: device busy time,
-     idle share, kernel time by family and the time and launches of each
-     hand-written kernel;
+  5. per model, its default protocol run once more under torch.profiler
+     (the switches' runs are not profiled: their kernels' times are phase
+     2's): device busy time, idle share, kernel time by family and the time
+     and launches of each hand-written kernel;
   6. per model, last of its protocol runs (default switches), one protocol
      run with a device synchronise at the boundaries of its main modules
      (forward hooks): host-clock ms per module;
@@ -136,8 +141,9 @@ printing lines:
      time. Then 2 warm-up and 4 timed steps: ms per step, train img/s, peak
      memory, launches (gated: 78 `dcn_band` a forward, no bi-attention
      kernel: the fusion's training composite); one step split at forward /
-     backward / update; one profiled step (device busy, idle share, the DCN
-     backward's device time and share); one timed step on phase 7's 2
+     backward / update; one profiled step (device busy, idle share, the
+     device time of the kernels inside the `dcn_backward` spans; ~20 s of
+     host time, phase 8 alone); one timed step on phase 7's 2
      portrait images, batched in the rotated bucket 1344x800 and trained
      against that bucket's anchors (ROADMAP Queue C 1; loss finite, 78
      `dcn_band` launches); gates: every loss term finite, the
@@ -156,8 +162,7 @@ printing lines:
      forward with locations past their windows, and at decoder queries (Q
      900, exact), against the fp32 exact VJP within 2e-2 * max|ref|, with ms
      per backward; then phase 8's steps, split (the matcher's host time
-     apart), profile (the `msda_backward` spans' device time and share) and
-     gates, launches gated at 6 `ms_deform_attn_clip` + 6 `ms_deform_attn` a
+     apart) and gates, launches gated at 6 `ms_deform_attn_clip` + 6 `ms_deform_attn` a
      forward and no bi-attention kernel;
  10. last, the evaluation CLI (`mqdet_torch.tools.eval.evaluate`, the body
      of `python -m mqdet_torch.tools.eval`): first every yaml under
@@ -181,7 +186,7 @@ printing lines:
      8 head stages) at full width from init_params(seed), built once on the
      host and reused by every part: phase 3's reference check at 256x256
      (default route; the bound twice the CPU bf16 drift, floor 1e-2); phase
-     4's LVIS protocol with phases 5 and 6, launches gated at 832
+     4's LVIS protocol with phase 6 (no profile), launches gated at 832
      `dcn_band` (13 a stage x 8 stages x 8 groups) and 64 `bi_attention`;
      phase 7's route on phase 7's dataset (the GLIP-L bank extracted,
      `run_inference` with launches 8 x one protocol's, the online update);
@@ -279,7 +284,37 @@ printing lines:
      to the host plan's, and unlike the plan without it), and MQ-GLIP-T
      with MODEL_TYPE clip and rnn and Swin v2 and vl (`init_like` the
      default model): phase 14's reference check at 256x256 and one timed
-     chunk group at 800x1344, launches gated.
+     chunk group at 800x1344, launches gated;
+ 16. the legacy family and the remainders:
+     16.1 (the end of phase 2) K1 on DyConv's merged canvas (GLIP's levels
+     of at most 600 output positions at 800x1344 zero-padded onto one
+     canvas at batch 2B, offsets edge-padded, x3 past the clip) at strides
+     1 and 2, and K5 and the exact MSDA kernel with a 3-level table at
+     GDINO's 800x1344 levels, by phase 2's rule; 16.2 MQ-GroundingDINO-T at
+     GROUNDINGDINO.num_feature_levels 3, 6 + 6 layers (`init_like` the
+     4-level model): phase 3's reference check, one protocol group (CP 4)
+     at 800x1344 with launches 6 + 6 MSDA + 6 bi-attention and each
+     kernel's first launch
+     held to its plain version, one training step by phase 9's rule; 16.3
+     the first head stage's DyConv on MQ-GLIP-T's own P3..P7 with its
+     DeformConvGNs' `merge_max_positions` 600 against 0: outputs within
+     phase 2's rule, one `dcn_band` launch fewer for each of its three
+     convs; 16.4 one MQ-GLIP-T chunk group under
+     MQDET_FUSION_IMPL=xla: 0 bi-attention launches, its sorted top 300
+     scores within 2e-2 of the default's; 16.6 the demo (`MQDetDemo`) per
+     model on a numpy image: its head's detections bitwise those of the
+     split functions it wraps, launches gated (these run after each model's
+     phase 15, GDINO at 3 levels after GDINO's); last, 16.5 the legacy
+     family: a reference forward at 256x256 of R-50-RETINANET + ATSS,
+     R-101-C4 (the body), EFFICIENT3-FPN-RETINANET + RETINA,
+     EFFICIENT3-BIFPN-FCOS + FCOS and EFFICIENT-DET (compound 0) + ATSS by
+     phase 3's rule; for FCOS, RETINA and ATSS on R-50-RETINANET a
+     reference SGD step at 256x256 by phase 8's rule and 1 + 3 SGD steps at
+     800x1344, batch 2, bf16 autocast (ms a step, peak memory; losses
+     finite, the body, FPN and head moved, post-processed detections at
+     pre-NMS threshold 0 at least one an image, finite and inside the
+     image); no hand-written kernel launched anywhere in it;
+     16.7 `deform_psroi_pool` and `roi_pool` on the card against the CPU.
 
 The training reference steps (phases 8, 13 and 14's S1) also take ROADMAP
 Queue C 4's second gate (`fp32_verdict`): the step in fp32 on the card's
@@ -305,7 +340,7 @@ The line before the last is a JSON object with one entry per kernel (its
 launches summed over the counted paths: the protocols, phase 3's card runs,
 the sweep path, phase 7's evaluation and update, phases 8 and 9's timed
 training steps, phase 10's CLI runs, phases 11 and 12's paths, phase
-13's, summed over its ranks, phase 14's and phase 15's); the last
+13's, summed over its ranks, phase 14's, phase 15's and phase 16's); the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero without
 those lines.
 """
@@ -352,7 +387,8 @@ L_YAML = os.path.join(REPO, "configs", "pretrain", "mq-glip-l.yaml")
 LVIS_L_YAML = os.path.join(REPO, "configs", "vision_query_5shot", "lvis_minival_L.yaml")
 GDINO_800 = [(100, 168), (50, 84), (25, 42), (13, 21)]  # the 800x1344 pyramid
 GLIP_800 = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
-SWITCHES = {"default": {}, "stream": {"MQDET_FLASH_LEVELS": "stream"}, "dual": {"MQDET_FLASH_SCORES": "dual"}}
+SWITCHES = {"default": {}, "stream": {"MQDET_FLASH_LEVELS": "stream"}, "dual": {"MQDET_FLASH_SCORES": "dual"},
+            "xla": {"MQDET_FUSION_IMPL": "xla"}}  # xla: the fusion's composite, no bi-attention kernel
 # MQDET_DEFORM_IMPL -> the DCN kernel of the route at C = 256 (None: unset, the default)
 DEFORM_ROUTES = {None: "dcn_band", "window": "dcn_gather_clip", "gather": "dcn"}
 SWEEP_VERSIONS, SWEEP_BLOCK_ROWS = (2, 1, 3, 5, 6), (8, 16)  # version 2 first: the sweep's reference
@@ -362,7 +398,7 @@ SWEEP_VERSIONS, SWEEP_BLOCK_ROWS = (2, 1, 3, 5, 6), (8, 16)  # version 2 first: 
 def switched(name: str, deform=None, msda=None):
     """Sets the fusion switches of SWITCHES[name], MQDET_DEFORM_IMPL and
     MQDET_MSDA_IMPL (None: unset) for the block."""
-    keys = ("MQDET_FLASH_LEVELS", "MQDET_FLASH_SCORES", "MQDET_DEFORM_IMPL", "MQDET_MSDA_IMPL")
+    keys = ("MQDET_FLASH_LEVELS", "MQDET_FLASH_SCORES", "MQDET_FUSION_IMPL", "MQDET_DEFORM_IMPL", "MQDET_MSDA_IMPL")
     old = {k: os.environ.pop(k, None) for k in keys}
     os.environ.update(SWITCHES[name])
     if deform is not None:
@@ -479,7 +515,8 @@ def phase_kernels(torch, seed):
     def check(label, got, ref, tag=None):
         err, scale = max_err(got, ref)
         ok = bool(torch.isfinite(got).all()) and err <= ERR_BOUND * scale
-        say(f"phase 2: {label}: max_abs_err {err!r} (bound {ERR_BOUND * scale!r} = {ERR_BOUND} * max|ref| "
+        say(f"{'' if label.startswith('phase ') else 'phase 2: '}{label}: max_abs_err {err!r} (bound "
+            f"{ERR_BOUND * scale!r} = {ERR_BOUND} * max|ref| "
             f"{scale!r}){tag or ''}; {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{label}: kernel disagrees with its plain version")
@@ -734,7 +771,7 @@ def phase_kernels(torch, seed):
     if any(r["spill_stores"] or r["spill_loads"] or r["stack"] for r in band_regs):
         fail("msda_band_kernel spills registers or has a stack frame")
 
-    def msda_case(name, b, q, lo, hi, nh=8, hd=32, p=4, impl=None, scale=2.0):
+    def msda_case(name, b, q, lo, hi, nh=8, hd=32, p=4, impl=None, scale=2.0, shapes=GDINO_800, tag="phase 2"):
         """q None: encoder queries (Q = S), each sampling every level around
         its own cell centre with N(0, `scale` cells) offsets, so samples leave
         the image near the borders; q "edge": encoder queries whose samples
@@ -743,8 +780,8 @@ def phase_kernels(torch, seed):
         2 pixels of the map); else Q decoder queries at uniform locations in
         [lo, hi) of every level. Under MQDET_MSDA_IMPL `impl` (None: unset):
         encoder queries take the clipped mode unless `gather`, against
-        `ms_deform_attn_clipped_plain`; the rest the exact mode."""
-        shapes = GDINO_800
+        `ms_deform_attn_clipped_plain`; the rest the exact mode. `shapes`:
+        the level table (GDINO's 800x1344 pyramid); `tag` names the line."""
         s = sum(h * w for h, w in shapes)
         value = torch.randn(b, s, nh, hd, generator=g, device=dev).bfloat16()
         if q == "edge":
@@ -793,7 +830,7 @@ def phase_kernels(torch, seed):
         ok = bool(torch.isfinite(got).all()) and err <= ERR_BOUND * scale
         moved = f", the clip moves {clip_share(torch, shapes, loc)!r} of the sample points" if q == s else ""
         say(
-            f"phase 2: msda {name} ({kernel}, MQDET_MSDA_IMPL {impl or 'unset'}): value {(b, s, nh, hd)} Q {q} "
+            f"{tag}: msda {name} ({kernel}, MQDET_MSDA_IMPL {impl or 'unset'}): value {(b, s, nh, hd)} Q {q} "
             f"levels {shapes} P {p}, locations {where}{moved}: max_abs_err {err!r} (bound "
             f"{ERR_BOUND * scale!r} = {ERR_BOUND} * max|ref| {scale!r}); kernel {ms_!r} ms, plain bf16 "
             f"{plain_ms!r} ms, bound {bnd[0]!r} ms ({bnd[1]}); {'ok' if ok else 'FAIL'}"
@@ -812,6 +849,38 @@ def phase_kernels(torch, seed):
     # query, far past the TPU kernel's +-4 cell window
     msda_case("decoder far", 4, 900, -1.0, 2.0)
     msda_case("encoder", 4, None, None, None, impl="gather")   # the exact mode on encoder queries
+
+    # phase 16.1: the slice's new shapes. K1 on DyConv's merged canvas (the
+    # levels of at most 600 output positions at 800x1344, zero-padded onto one
+    # canvas at batch 2B, offsets edge-padded), offsets x3 past the +-2 clip
+    from mqdet_torch.models.vldyhead import merge_onto_canvas
+
+    for stride, levels in ((1, GLIP_800[3:]), (2, GLIP_800[2:4])):
+        parts = []
+        for h, w in levels:
+            x, off, mask, wt, bias = dcn_inputs(4, h, w, 256, stride, 3.0)
+            parts.append((x.permute(0, 3, 1, 2), off, mask))
+        xc, offc, maskc = merge_onto_canvas(parts, stride)
+        args = (xc.permute(0, 2, 3, 1).contiguous(), offc, maskc, wt, bias)
+        b, h, w, c = args[0].shape
+        ho, wo = offc.shape[1:3]
+        got = dc.modulated_deform_conv_pallas(*args, stride=stride, radius=2, block_rows=8)
+        torch.cuda.synchronize()
+        ref = dc.modulated_deform_conv_clipped_plain(*(a.float() for a in args), stride=stride, radius=2)
+        ms_ = cuda_time_ms(lambda: dc.modulated_deform_conv_pallas(*args, stride=stride, radius=2, block_rows=8))
+        plain_ms = cuda_time_ms(lambda: dc.modulated_deform_conv_clipped_plain(*args, stride=stride, radius=2))
+        bnd = dcn_bound(b, h, w, c, ho, wo, c)
+        err = check(f"phase 16: dcn_band on the merged canvas of levels {levels} at stride {stride}, x{(b, h, w, c)} "
+                    f"-> {(ho, wo)}", got, ref, f"; kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms "
+                    f"({bnd[1]})")
+        record("dcn_band", f"merged canvas x{(b, h, w, c)} s{stride}", err, ms_, plain_ms, bnd)
+        del parts, args, got, ref
+    # K5 and the exact kernel with a 3-level table (GDINO at 3 feature levels)
+    g3 = GDINO_800[:3]
+    msda_case("encoder, 3 levels", 4, None, None, None, shapes=g3, tag="phase 16")
+    msda_case("encoder far, 3 levels", 4, None, None, None, scale=12.0, shapes=g3, tag="phase 16")
+    msda_case("decoder, 3 levels", 4, 900, 0.0, 1.0, shapes=g3, tag="phase 16")
+    msda_case("encoder, 3 levels", 4, None, None, None, impl="gather", shapes=g3, tag="phase 16")
     return results, sweep_launches
 
 
@@ -899,7 +968,7 @@ def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed, label="MQ-GLIP-
     # one VLFuse per head stage (under stream one launch per level); 3 * levels - 2 DCN calls per stage
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
     fusion = {"default": {"bi_attention": stages}, "stream": {"bi_attention_levels": stages * levels},
-              "dual": {"bi_attention_dual": stages}}
+              "dual": {"bi_attention_dual": stages}, "xla": {}}
     launches = {}
     for switch, deform in routes:
         with switched(switch, deform):
@@ -923,7 +992,7 @@ def phase_reference_glip(torch, cfg, model_cpu, model_gpu, seed, label="MQ-GLIP-
     return launches
 
 
-def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
+def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed, label="MQ-GroundingDINO-T", phase="phase 3"):
     """As phase_reference_glip for MQ-GroundingDINO-T, on the encoder's
     memory and text and on enc_logits (through `debug_outputs`): tensors
     before the top-900 selection, which bf16 may legitimately change. The
@@ -974,16 +1043,16 @@ def phase_reference_gdino(torch, cfg, model_cpu, model_gpu, seed):
         card, card_idx = run(model_gpu, torch.device("cuda"))
         used = launch_counts()
     if (used["ms_deform_attn_clip"], used["ms_deform_attn"]) != (g.enc_layers, g.dec_layers):
-        fail(f"MQ-GroundingDINO-T reference run: MSDA launches {used} (predicted {g.enc_layers} clipped, "
+        fail(f"{label} reference run: MSDA launches {used} (predicted {g.enc_layers} clipped, "
              f"{g.dec_layers} exact)")
-    say(f"phase 3: MQ-GroundingDINO-T at {hw}, CPU under MQDET_MSDA_IMPL=pallas_interpret: the clip moves "
+    say(f"{phase}: {label} at {hw}, CPU under MQDET_MSDA_IMPL=pallas_interpret: the clip moves "
         f"{moved!r} of the encoder's sample points, layer by layer (fp32 run); card launches "
         f"{ {k: v for k, v in used.items() if v} }")
-    worst = compare_to_reference(torch, "MQ-GroundingDINO-T", ("memory", "text", "enc_logits"),
+    worst = compare_to_reference(torch, label, ("memory", "text", "enc_logits"),
                                  ref, plain16, card)
     overlap = len(set(ref_idx[0].tolist()) & set(card_idx[0].tolist()))
     say(
-        f"phase 3: reference check, MQ-GroundingDINO-T full width at {hw}, card bf16 kernels vs CPU "
+        f"{phase}: reference check, {label} full width at {hw}, card bf16 kernels vs CPU "
         f"fp32 plain on the encoder's memory and text and enc_logits: worst err / bound {worst[0]!r} "
         f"at {worst[1]} (card relative L2 err {worst[2]!r}, plain bf16 {worst[3]!r}; bound max(2 * "
         f"plain, {E2E_FLOOR})); top-{ref_idx.shape[1]} selections share {overlap} of "
@@ -1190,10 +1259,11 @@ def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed
             protocol(image, *text)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        p50 = statistics.median(times)
-        say(f"{phase}: {label} protocol p50 {p50 * 1000.0!r} ms over {runs} runs "
-            f"(min {min(times) * 1000.0!r}, max {max(times) * 1000.0!r}); {1.0 / p50!r} img/s; "
-            f"peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+        if times:
+            p50 = statistics.median(times)
+            say(f"{phase}: {label} protocol p50 {p50 * 1000.0!r} ms over {runs} runs "
+                f"(min {min(times) * 1000.0!r}, max {max(times) * 1000.0!r}); {1.0 / p50!r} img/s; "
+                f"peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
         if profile:
             phase_profile(torch, label, protocol, image, text)
         if parts is not None:
@@ -1559,8 +1629,8 @@ def reference_verdict(torch, phase, what, cards, ref32, run16, scales, tail, bou
         f"{loss!r} vs {ref32[1.0][0]!r}; {len(rows) - 1} trainable gradients; worst err / bound {ratio(worst)!r} "
         f"at {worst[0]} (card relative L2 {worst[1]!r}; plain bf16 {worst[3]!r}, the largest of the three CPU bf16 "
         f"runs {worst[2]!r}; bound max(2 * largest, {E2E_FLOOR})); the concatenated gradient: card {g_card!r}, "
-        f"plain bf16 {g_plain!r} (bound max(2 * plain, {E2E_FLOOR})){again}; the 1e-3 image scaling moves the fp32 "
-        f"gradients by at most {moved!r}; {tail}; {'ok' if ok else 'FAIL'}")
+        f"plain bf16 {g_plain!r} (bound max(2 * plain, {E2E_FLOOR})){again}; the {scales[1] - 1.0:.0e} image scaling moves the "
+        f"fp32 gradients by at most {moved!r}; {tail}; {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{phase} reference step: {len(bad)} readings outside the bound over {len(cards)} card step(s), e.g. "
              f"{bad[:3]}; concatenated {[g for _, g, _ in readings]!r} vs plain {g_plain!r}; fp32 moved {moved!r}")
@@ -1691,21 +1761,23 @@ def phase_train(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None):
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
     return train_steps(torch, "phase 8", "MQ-GLIP-T", cfg, model_cpu, landscape(dataset), bank, smi,
                        predicted(dcn_band=stages * (3 * levels - 2)),  # 78 a forward; no bi-attention kernel
-                       "dcn_backward", "`DeformConvFunction`", ("dcn_band_kernel",),
-                       f"level-0 backward alone (CUDA events) {bwd_ms}",
-                       portrait=landscape(dataset, portrait=True))
+                       portrait=landscape(dataset, portrait=True),
+                       profiled=("dcn_backward", "`DeformConvFunction`", ("dcn_band_kernel",),
+                                 f"level-0 backward alone (CUDA events) {bwd_ms}"))
 
 
-def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, span, function, fwd_kernels, note,
-                portrait=None, out=None):
+def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, portrait=None, out=None,
+                profiled=None):
     """The timed part of a training phase, through the port's train entry
     (`tools.train.build_training`: model, selector, loader, state, step,
     checkpointer): two warm-up steps, 4 timed steps (launches gated at
     `per_step` a step), one step split by a synchronise at forward /
     backward / update (and the matcher's host time, where the step has
-    one), one profiled step (device busy, idle share, the kernels inside
-    the `span` annotations of the `function` backwards, the forward kernels
-    named like `fwd_kernels`), where `portrait` (a dataset of portrait
+    one), where `profiled` (span, function, fwd_kernels, note) is given
+    one profiled step (device busy, idle share, the kernels inside the
+    `span` annotations of the `function` backwards, the forward kernels
+    named like `fwd_kernels`; phase 8 alone, for the script's time), where
+    `portrait` (a dataset of portrait
     images) is given one step on a batch of them in the rotated bucket
     (ROADMAP Queue C 1: its own anchors; loss finite, launches as a step's),
     a checkpoint save and restore; then the gates (losses finite, frozen
@@ -1772,28 +1844,30 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, sp
     say(f"{phase}: one step split by a synchronise at each boundary ({smi}): "
         + ", ".join(f"{k} {v * 1000.0!r} ms" for k, v in times.items()) + f" (step {step_ms[-1]!r} ms)")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    if profiled is not None:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    marks = [(e.time_range.start, e.time_range.end) for e in device if e.name == span]
-    kernels = [(e.time_range.start, e.time_range.end, e.name) for e in device if e.name != span]
-    if kernels:
-        busy = union_us([k[:2] for k in kernels]) / 1000.0
-        window = (max(k[1] for k in kernels) - min(k[0] for k in kernels)) / 1000.0
-        # the kernels inside the device-side spans of the annotation
-        bwd = union_us([k[:2] for k in kernels if any(s0 <= k[0] and k[1] <= s1 for s0, s1 in marks)]) / 1000.0
-        fwd = sum(k[1] - k[0] for k in kernels if any(n in k[2] for n in fwd_kernels)) / 1000.0
-        said = (f"{bwd!r} ms, a share {bwd / busy!r} of busy" if marks
-                else f"not measured (the profiler recorded no device-side `{span}` span)")
-        say(f"{phase}: profiled step ({smi}): device busy {busy!r} ms in a {window!r} ms window (idle share "
-            f"{1.0 - busy / window!r}, profiler on); the backward (the kernels inside the {len(marks)} `{span}` "
-            f"spans of the {function} backwards) {said}; the forward kernels ({', '.join(fwd_kernels)}) "
-            f"{fwd!r} ms; {note}")
-    else:
-        say(f"{phase}: the profiler recorded no device kernels; the backward's device share not measured")
+        span, function, fwd_kernels, note = profiled
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            one()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        marks = [(e.time_range.start, e.time_range.end) for e in device if e.name == span]
+        kernels = [(e.time_range.start, e.time_range.end, e.name) for e in device if e.name != span]
+        if kernels:
+            busy = union_us([k[:2] for k in kernels]) / 1000.0
+            window = (max(k[1] for k in kernels) - min(k[0] for k in kernels)) / 1000.0
+            # the kernels inside the device-side spans of the annotation
+            bwd = union_us([k[:2] for k in kernels if any(s0 <= k[0] and k[1] <= s1 for s0, s1 in marks)]) / 1000.0
+            fwd = sum(k[1] - k[0] for k in kernels if any(n in k[2] for n in fwd_kernels)) / 1000.0
+            said = (f"{bwd!r} ms, a share {bwd / busy!r} of busy" if marks
+                    else f"not measured (the profiler recorded no device-side `{span}` span)")
+            say(f"{phase}: profiled step ({smi}): device busy {busy!r} ms in a {window!r} ms window (idle share "
+                f"{1.0 - busy / window!r}, profiler on); the backward (the kernels inside the {len(marks)} `{span}` "
+                f"spans of the {function} backwards) {said}; the forward kernels ({', '.join(fwd_kernels)}) "
+                f"{fwd!r} ms; {note}")
+        else:
+            say(f"{phase}: the profiler recorded no device kernels; the backward's device share not measured")
 
     if portrait is not None:
         from mqdet_torch.data.loader import GroundingTrainLoader
@@ -1876,7 +1950,8 @@ def train_config_gdino():
     return cfg
 
 
-def phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds=None):
+def phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds=None, phase="phase 9",
+                                label="MQ-GroundingDINO-T"):
     """Phase 9's reference step: one MQ-GroundingDINO-T training step at
     256x256, full width, batch 2 (40 labels, 8 gt boxes an image), dropout
     off, the card (bf16, kernels) against the CPU in fp32 (plain versions,
@@ -1942,9 +2017,9 @@ def phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds=None):
     g = cfg.GROUNDINGDINO
     want = predicted(ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers)
     if used != want:
-        fail(f"phase 9 reference step: launches {used} != predicted {want}")
+        fail(f"{phase} reference step: launches {used} != predicted {want}")
     flips = int((own != fixed).sum())
-    reference_verdict(torch, "phase 9", f"MQ-GroundingDINO-T full width at {hw}, MSDA clipped on both sides", [card],
+    reference_verdict(torch, phase, f"{label} full width at {hw}, MSDA clipped on both sides", [card],
                       ref32, run16, scales,
                       f"every run on the fp32 run's assignment ({int((fixed >= 0).sum())} pairs over "
                       f"{fixed.shape[0]} decoder layers); the card's own matcher would choose {flips} of them "
@@ -2037,13 +2112,10 @@ def phase_train_gdino(torch, seed, dataset, bank, smi, bounds=None, model_cpu=No
     cfg = train_config_gdino()
     model_cpu = init_params(build_model(cfg), seed=seed) if model_cpu is None else model_cpu
     phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds)
-    bwd_ms = phase_msda_backward(torch, seed, smi)
+    phase_msda_backward(torch, seed, smi)
     g = cfg.GROUNDINGDINO
     return train_steps(torch, "phase 9", "MQ-GroundingDINO-T", cfg, model_cpu, landscape(dataset), bank,
-                       smi,
-                       predicted(ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers),
-                       "msda_backward", "`MSDeformAttnFunction`", ("msda_band_kernel", "msda_forward_kernel"),
-                       f"one MSDA backward alone (CUDA events) {bwd_ms}")
+                       smi, predicted(ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers))
 
 
 def merge_shipped_configs():
@@ -2373,7 +2445,7 @@ def phase_remat_reference(torch, cfg, model_off, model_on, seed, smi):
 def phase_glip_l(torch, seed, runs, smi, root, configs, keep):
     """Phase 11: MQ-GLIP-L at full width from init_params(seed), built once
     on the host: phase 3's reference check at 256x256 (default route), phase
-    4's LVIS protocol with phases 5 and 6, phase 7's route (the GLIP-L bank
+    4's LVIS protocol with phase 6, phase 7's route (the GLIP-L bank
     extracted, run_inference, the online update), the evaluation CLI on
     mq-glip-l.yaml + lvis_minival_L.yaml (phase 10's overrides, the model
     saved as a reference .pth), then modulated pre-training with
@@ -2402,7 +2474,7 @@ def phase_glip_l(torch, seed, runs, smi, root, configs, keep):
     parts = {"image tower": [model.backbone.body, model.backbone.fpn], "language tower": [model.language_backbone],
              "VLFuse": list(tower[0::3]), "head BERT layers": list(tower[1::3]), "DyConv": list(tower[2::3])}
     launches["MQ-GLIP-L default"] = phase_protocol(torch, "MQ-GLIP-L", model, cfg, synthetic_batch, 300, per_image,
-                                                   runs, seed, parts)
+                                                   runs, seed, parts, profile=False)
     vq = {}
     launches.update(phase_vision_query(torch, "MQ-GLIP-L", cfg, model, seed, per_image, root, 300, vq, "phase 11"))
     del model, tower, parts
@@ -2428,9 +2500,7 @@ def phase_glip_l(torch, seed, runs, smi, root, configs, keep):
         out = runs_out[remat] = {}
         launches[f"MQ-GLIP-L training{' REMAT' if remat else ''}"] = train_steps(
             torch, "phase 11", f"MQ-GLIP-L (TPU.REMAT {remat})", rcfg if remat else tcfg, run_model,
-            landscape(vq["dataset"]), vq["bank"], smi, predicted(dcn_band=per_step * (2 if remat else 1)),
-            "dcn_backward", "`DeformConvFunction`", ("dcn_band_kernel",),
-            "the DCN forward runs twice a step under REMAT" if remat else "REMAT off", out=out)
+            landscape(vq["dataset"]), vq["bank"], smi, predicted(dcn_band=per_step * (2 if remat else 1)), out=out)
         del run_model
         torch.cuda.empty_cache()
     del model_on
@@ -3627,7 +3697,7 @@ def first_launches(keep):
             setattr(mod, attr, original)
 
 
-def kept_launch_check(torch, label, where, key, args, out):
+def kept_launch_check(torch, label, where, key, args, out, phase="phase 15", tag="TTA"):
     """One kept launch (`first_launches`) against its plain version in fp32
     on the card on the same inputs, by phase 2's rule. Returns (the kernel's
     case record, the line)."""
@@ -3671,11 +3741,11 @@ def kept_launch_check(torch, label, where, key, args, out):
     del refs
     ok = all(e <= ERR_BOUND * sc for e, sc in errs) and all(bool(torch.isfinite(o).all()) for o in outs)
     if not ok:
-        fail(f"phase 15 {label} {name} at {where} {case}: the kernel disagrees with its plain version")
+        fail(f"{phase} {label} {name} at {where} {case}: the kernel disagrees with its plain version")
     ms_ = cuda_time_ms(lambda: launcher(*args))
     plain_ms = cuda_time_ms(lambda: plain(*ins), iters=3, warmup=1)
     err = max(e for e, _ in errs)
-    record = {"case": f"TTA {where} {case}", "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+    record = {"case": f"{tag} {where} {case}", "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
     return record, (f"{name} {case}: max_abs_err {err!r} (bound {ERR_BOUND * max(sc for _, sc in errs)!r}), "
                     f"kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms; ok")
@@ -3946,6 +4016,465 @@ def phase_towers(torch, cfg, donor, seed, per_group):
     return launches
 
 
+# ---- phase 16: GDINO at 3 levels, the merged canvas, MQDET_FUSION_IMPL, the legacy family, the demo, pooling ----
+
+LEGACY_FAMILIES = (  # (CONV_BODY, RPN_ARCHITECTURE; None: the body alone): phase 16.5's reference forwards
+    ("R-50-RETINANET", "ATSS"), ("R-101-C4", None), ("EFFICIENT3-FPN-RETINANET", "RETINA"),
+    ("EFFICIENT3-BIFPN-FCOS", "FCOS"), ("EFFICIENT-DET", "ATSS"),
+)
+LEGACY_HEADS = ("FCOS", "RETINA", "ATSS")  # trained on R-50-RETINANET
+LEGACY_STEPS = (1, 3)  # warm-up and timed SGD steps at 800x1344, batch 2
+LEGACY_LR = 1e-3
+
+
+def legacy_config(body, arch):
+    """The default config with CONV_BODY `body` and RPN_ARCHITECTURE `arch`
+    (80 COCO classes, 100 detections, TPU.COMPUTE_DTYPE bf16)."""
+    from mqdet_torch.core.config import default_config
+
+    cfg = default_config()
+    cfg.MODEL.BACKBONE.CONV_BODY = body
+    if arch:
+        cfg.MODEL.RPN_ARCHITECTURE = arch
+    return cfg
+
+
+def legacy_model(torch, cfg, seed, gain=1.0, perturb=True):
+    """The detector of `cfg` (or, for a body-only CONV_BODY, the backbone)
+    on the CPU in fp32 with seeded weights that keep a deep trunk's
+    activations O(1): conv kernels normal with std gain * sqrt(1 / fan in)
+    (init_params' 0.02 would shrink ResNet-101's maps to nothing), the
+    classifier's bias at the prior probability 0.01; with `perturb`,
+    FrozenBatchNorm and GroupNorm near identity and biases and BiFPN blends
+    perturbed, else the norms at identity and the biases at 0."""
+    import numpy as np
+
+    from mqdet_torch.models.backbones import build_backbone
+    from mqdet_torch.models.legacy_heads import build_legacy_detector
+
+    model = build_legacy_detector(cfg) if cfg.MODEL.RPN_ARCHITECTURE != "VLDYHEAD" else build_backbone(cfg)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            n = torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32))
+            if t.dim() == 4:
+                t.copy_(n * gain / math.sqrt(t[0].numel()))
+            elif not perturb:
+                t.fill_(1.0 if name.endswith(("var", "scale", "weight", "_w1", "_w2")) else 0.0)
+            elif name.endswith(("var",)):
+                t.copy_(1.0 + 0.2 * n.abs())
+            elif name.endswith(("scale", "weight", "_w1", "_w2")):
+                t.copy_(1.0 + 0.1 * n)
+            else:
+                t.copy_(0.1 * n)
+        if hasattr(model, "head"):  # the classifier's prior-probability bias, as the heads initialise it
+            model.head.cls_logits.bias.fill_(-math.log((1 - 0.01) / 0.01))
+    return model.eval()
+
+
+def legacy_outputs(out):
+    """A head's dict (or a body's list) of maps -> (names, fp32 CPU tensors)."""
+    if isinstance(out, dict):
+        items = [(f"{k}{i}", t) for k in sorted(out) for i, t in enumerate(out[k])]
+    else:
+        items = [(f"C{i + 2}", t) for i, t in enumerate(out)]
+    return [n for n, _ in items], [t.float().cpu() for _, t in items]
+
+
+def phase_legacy_reference(torch, seed):
+    """Phase 16.5's reference forwards: each family of LEGACY_FAMILIES at
+    256x256, batch 2, card bf16 against the CPU in fp32 by phase 3's rule
+    (every map within twice the CPU bf16 path's drift, floor E2E_FLOOR); no
+    hand-written kernel may launch."""
+    import numpy as np
+
+    from mqdet_torch.ops import launch_counts
+
+    x = torch.from_numpy(np.random.default_rng(seed + 16).standard_normal((2, 3, 256, 256)).astype(np.float32))
+    for body, arch in LEGACY_FAMILIES:
+        cfg = legacy_config(body, arch)
+        t0 = time.perf_counter()
+        model = legacy_model(torch, cfg, seed)
+        with torch.inference_mode():
+            names, ref = legacy_outputs(model(x))
+            _, plain16 = legacy_outputs(copy.deepcopy(model).to(torch.bfloat16)(x.bfloat16()))
+            gpu = copy.deepcopy(model).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
+            launch_counts(reset=True)
+            _, card = legacy_outputs(gpu(x.to("cuda", torch.bfloat16)))
+            torch.cuda.synchronize()
+        used = {k: v for k, v in launch_counts().items() if v}
+        del gpu
+        what = f"{body}{' + ' + arch if arch else ' (body)'}"
+        if used:
+            fail(f"phase 16 {what}: launched {used}; the legacy family runs no hand-written kernel")
+        worst = compare_to_reference(torch, f"phase 16 {what}", names, ref, plain16, card)
+        say(f"phase 16: reference check, {what} ({sum(p.numel() for p in model.parameters())} parameters) at "
+            f"(256, 256), batch 2, card bf16 vs CPU fp32 on {len(names)} maps: worst err / bound {worst[0]!r} at "
+            f"{worst[1]} (card relative L2 {worst[2]!r}, plain bf16 {worst[3]!r}); no kernel launched; "
+            f"{time.perf_counter() - t0!r} s; ok")
+        torch.cuda.empty_cache()
+
+
+def legacy_batch(torch, hw, seed):
+    """Batch 2 at `hw` with 6 seeded ground-truth boxes an image (one padded row)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    images = rng.standard_normal((2, 3, h, w)).astype(np.float32)
+    xy = rng.uniform(0, 0.6, (2, 6, 2)) * np.array([w, h])
+    boxes = np.concatenate([xy, xy + rng.uniform(0.1, 0.35, (2, 6, 2)) * np.array([w, h])], -1).astype(np.float32)
+    labels = rng.integers(1, 81, (2, 6)).astype(np.int32)
+    valid = np.ones((2, 6), bool)
+    valid[1, 5] = False
+    return [torch.from_numpy(a) for a in (images, boxes.clip(0, min(h, w) - 1), labels, valid)]
+
+
+def legacy_step(torch, model, cfg, batch, dev, compute_dtype, lr=LEGACY_LR):
+    """One SGD step (`make_legacy_train_step`) of `model` on `dev`; returns
+    (loss, {name: gradient, fp32 on the CPU}, losses)."""
+    from mqdet_torch.engine.legacy_losses import build_legacy_machinery, make_legacy_train_step
+
+    hw = tuple(batch[0].shape[2:])
+    opt = torch.optim.SGD(model.parameters(), lr=lr)
+    step = make_legacy_train_step(model, build_legacy_machinery(cfg, hw)[0], opt, compute_dtype)
+    loss, losses = step(*(t.to(dev) for t in batch))
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    return float(loss), grads, {k: float(v) for k, v in losses.items()}
+
+
+def phase_legacy_train(torch, seed, smi):
+    """Phase 16.5's training: for each head of LEGACY_HEADS on
+    R-50-RETINANET, the reference step at 256x256 by phase 8's rule (the
+    card's step, fp32 parameters under bf16 autocast as TPU.COMPUTE_DTYPE
+    computes, against the CPU's fp32 step; bound twice the largest drift of
+    three CPU bf16-autocast steps on the images scaled by 1 and 1 +- 1e-4),
+    on `legacy_model` at gain 0.5 with its norms at identity: the rule needs
+    the scaled fp32 steps within 1e-2 of the unscaled, and a random ReLU
+    trunk is not that smooth at phase 8's 1e-3 (measured on the CPU: units
+    crossing 0 moved the FPN's and towers' bias gradients by 1-5% at gain 1
+    with perturbed norms, and by 1.1% at 1e-3 even at gain 0.5; at 1e-4 and
+    gain 0.5 by at most 2.4e-3),
+    then SGD steps at 800x1344, batch 2, on the card: ms a step and peak
+    memory; gates: every loss finite, tensors of the body, the FPN and the
+    head moved, the post-processed detections of the last forward (at
+    pre-NMS threshold 0) at least one an image, finite and inside the
+    image, no hand-written kernel launched."""
+    import numpy as np
+
+    from mqdet_torch.engine.legacy_losses import build_legacy_machinery
+    from mqdet_torch.ops import launch_counts
+
+    dev = torch.device("cuda")
+    scales = (1.0, 1.0 + 1e-4, 1.0 - 1e-4)
+    for arch in LEGACY_HEADS:
+        cfg = legacy_config("R-50-RETINANET", arch)
+        model = legacy_model(torch, cfg, seed, gain=0.5, perturb=False)
+        t0 = time.perf_counter()
+        batch = legacy_batch(torch, (256, 256), seed + 1)
+
+        def scaled(s):
+            return [batch[0] * np.float32(s)] + batch[1:]
+
+        ref32 = {s: legacy_step(torch, copy.deepcopy(model).train(), cfg, scaled(s), "cpu", None)[:2] for s in scales}
+        run16 = {s: legacy_step(torch, copy.deepcopy(model).train(), cfg, scaled(s), "cpu", torch.bfloat16)[:2]
+                 for s in scales}
+        cpu_s = time.perf_counter() - t0
+        launch_counts(reset=True)
+        cards = [legacy_step(torch, copy.deepcopy(model).to(dev).to(memory_format=torch.channels_last).train(),
+                             cfg, batch, dev, torch.bfloat16)[:2] for _ in range(2)]
+        reference_verdict(torch, "phase 16", f"{arch} on R-50-RETINANET at (256, 256)", cards, ref32, run16, scales,
+                          f"SGD lr {LEGACY_LR}; CPU steps {cpu_s!r} s")
+
+        hw = (800, 1344)
+        full = legacy_batch(torch, hw, seed + 2)
+        gpu = copy.deepcopy(model).to(dev).to(memory_format=torch.channels_last).train()
+        before = {n: p.detach().clone() for n, p in gpu.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(sum(LEGACY_STEPS)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss, _, parts = legacy_step(torch, gpu, cfg, full, dev, torch.bfloat16)
+            torch.cuda.synchronize()
+            if i >= LEGACY_STEPS[0]:
+                times.append(time.perf_counter() - t1)
+            losses.append((loss, parts))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        moved = {n for n, p in gpu.named_parameters() if not torch.equal(p, before[n])}
+        groups = {g: [n for n in before if n.startswith(g)] for g in ("backbone.body.", "backbone.fpn.", "head.")}
+        # post-processed at pre-NMS threshold 0: a few steps from random weights leave FCOS's and RETINA's
+        # scores under the config's 0.05, and the gate needs detections through the top-k, decode and NMS
+        pcfg = cfg.clone()
+        pcfg.MODEL.ATSS.INFERENCE_TH = 0.0
+        _, post = build_legacy_machinery(pcfg, hw)
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            head_out = gpu(full[0].to(dev))
+        dets = [post(head_out, hw[0], hw[1], item) for item in (0, 1)]
+        used = {k: v for k, v in launch_counts().items() if v}
+        finite = all(math.isfinite(lo) and all(math.isfinite(v) for v in parts.values()) for lo, parts in losses)
+        dets_ok = all(bool(d.valid.any()) for d in dets) and all(
+            bool(torch.isfinite(d.boxes).all() and torch.isfinite(d.scores).all()) for d in dets) and all(
+            bool((d.boxes[..., 2] <= hw[1] - 1).all() and (d.boxes[..., 3] <= hw[0] - 1).all()) for d in dets)
+        say(f"phase 16: {arch} on R-50-RETINANET at {hw}, batch 2, bf16 autocast, SGD lr {LEGACY_LR}: "
+            f"{statistics.median(times) * 1000.0!r} ms a step (median of {len(times)}; "
+            f"{[round(t * 1000.0, 3) for t in times]}), {2.0 / statistics.median(times)!r} train img/s, peak memory "
+            f"{peak!r} GiB; losses {losses[-1][1]}; {len(moved)} of {len(before)} tensors moved (body "
+            f"{len(moved & set(groups['backbone.body.']))}, FPN {len(moved & set(groups['backbone.fpn.']))}, head "
+            f"{len(moved & set(groups['head.']))}); detections {[int(d.valid.sum()) for d in dets]} valid of "
+            f"{dets[0].valid.shape[0]} an image, finite and inside {dets_ok}; launches {used}; {smi}")
+        if not (finite and dets_ok and all(moved & set(v) for v in groups.values())) or used:
+            fail(f"phase 16 {arch} training: losses finite {finite}, detections {dets_ok}, moved "
+                 f"{ {g: len(moved & set(v)) for g, v in groups.items()} }, launches {used}")
+        del gpu, before, head_out
+        torch.cuda.empty_cache()
+
+
+def phase_merged_canvas(torch, model, cfg, seed):
+    """Phase 16.3: DyConv's merged canvas through the model. The first head
+    stage's DyConv on P3..P7 of two 800x1344 images, its three DeformConvGNs
+    with merge_max_positions 600 (the two smallest output grids of each
+    conv, 273 and 77 positions, on one canvas) and with 0 (one call a
+    level): each level's output within phase 2's rule of the other's, and
+    one K1 launch fewer for each conv (13 launches a stage per level, 10
+    merged). Returns the merged run's launch counts."""
+    from mqdet_torch.models.vldyhead import DeformConvGN
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import synthetic_batch
+
+    dev = torch.device("cuda")
+    images = torch.from_numpy(synthetic_batch(cfg, batch=2, image_hw=(800, 1344), num_labels=4, k_shot=1,
+                                              seed=seed + 16)["images"]).permute(0, 3, 1, 2).contiguous()
+    dy = model.rpn.head.dyhead_tower[2]
+    convs = [m for m in dy.modules() if isinstance(m, DeformConvGN)]
+    total = predicted()
+    with torch.inference_mode(), switched("default"):
+        feats = model.encode_image(images.to(dev))
+        runs = {}
+        for merge in (600, 0):
+            for conv in convs:
+                conv.merge_max_positions = merge
+            launch_counts(reset=True)
+            runs[merge] = (dy(list(feats)), launch_counts()["dcn_band"])
+        (merged, n_merged), (one, n_one) = runs[600], runs[0]
+        n = len(feats)
+        want_one, want_merged = 3 * n - 2, 3 * n - 2 - len(convs)
+        errs = [max_err(a, b) for a, b in zip(merged, one)]
+        same = [torch.equal(a, b) for a, b in zip(merged, one)]
+        ok = all(e <= ERR_BOUND * sc for e, sc in errs) and n_one == want_one and n_merged == want_merged
+        say(f"phase 16: the model's DyConv (head stage 0) over {[tuple(f.shape[2:]) for f in feats]}, batch 2: "
+            f"merge_max_positions 600 {n_merged} dcn_band launches, 0 {n_one} (predicted {want_merged} and "
+            f"{want_one}); per level max_abs_err merged vs one call {[e for e, _ in errs]!r} (bound {ERR_BOUND} * "
+            f"max|ref| {[sc for _, sc in errs]!r}), bitwise {same}; {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"phase 16 merged canvas: launches {n_merged} / {n_one} or outputs apart")
+        total["dcn_band"] += n_merged
+    return total
+
+
+def phase_fusion_impl(torch, model, cfg, seed):
+    """Phase 16.4: MQDET_FUSION_IMPL=xla on one MQ-GLIP-T chunk group (CP 4,
+    40 labels x 5 queries) at 800x1344: 0 bi-attention launches (78
+    `dcn_band`), against the same group under the default: the same launches
+    but 6 `bi_attention`, and the sorted top 300 detection scores of each
+    chunk within 2e-2 * the largest (phase 15's rule on detections; phase 3
+    holds the xla route's features and logits to the CPU). Returns the xla
+    run's launch counts."""
+    from mqdet_torch.engine.predict import make_protocol_fn
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import protocol_inputs, synthetic_batch
+
+    dev = torch.device("cuda")
+    hw = (800, 1344)
+    image, text = protocol_inputs(cfg, synthetic_batch, 1, 4, hw, seed)
+    image, text = image.to(dev), [t.to(dev) for t in text]
+    protocol = make_protocol_fn(model, hw, cfg)
+    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
+    out = {}
+    for switch, want in (("default", predicted(dcn_band=stages * (3 * levels - 2), bi_attention=stages)),
+                         ("xla", predicted(dcn_band=stages * (3 * levels - 2)))):
+        with switched(switch):
+            protocol(image, *text)
+            torch.cuda.synchronize()
+            launch_counts(reset=True)
+            t0 = time.perf_counter()
+            dets = protocol(image, *text)
+            torch.cuda.synchronize()
+            ms_ = (time.perf_counter() - t0) * 1000.0
+            used = launch_counts()
+        if used != want:
+            fail(f"phase 16 MQDET_FUSION_IMPL={SWITCHES[switch].get('MQDET_FUSION_IMPL', 'pallas')}: launches {used} "
+                 f"!= predicted {want}")
+        out[switch] = (dets, used, ms_)
+    a, b = out["default"][0], out["xla"][0]
+    top_a = torch.sort(torch.where(a.valid, a.scores, 0.0), -1, descending=True).values[..., :300]
+    top_b = torch.sort(torch.where(b.valid, b.scores, 0.0), -1, descending=True).values[..., :300]
+    diff, scale = max_err(top_b, top_a)
+    finite = bool(torch.isfinite(b.boxes).all() and torch.isfinite(b.scores).all())
+    ok = finite and diff <= ERR_BOUND * scale
+    say(f"phase 16: MQ-GLIP-T one chunk group at {hw} under MQDET_FUSION_IMPL=xla: launches "
+        f"{ {k: v for k, v in out['xla'][1].items() if v} } (default: "
+        f"{ {k: v for k, v in out['default'][1].items() if v} }); {out['xla'][2]!r} ms vs {out['default'][2]!r} ms "
+        f"(host clock, one run each); valid {int(b.valid.sum())} vs {int(a.valid.sum())}; the sorted top 300 scores "
+        f"a chunk max |diff| {diff!r} (bound {ERR_BOUND * scale!r}); finite {finite}; {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("phase 16 MQDET_FUSION_IMPL=xla: detections apart from the default's")
+    return out["xla"][1]
+
+
+def demo_categories(n=40):
+    """n seeded pseudo-word category names."""
+    import numpy as np
+
+    rng = np.random.default_rng(n)
+    syll = ["ka", "lo", "mi", "ne", "ru", "ta", "vo", "zi", "pe", "sa"]
+    return [" ".join("".join(rng.choice(syll, 2)) for _ in range(1 + i % 2)) for i in range(n)]
+
+
+def phase_demo(torch, label, model, cfg, seed, want):
+    """Phase 16.6: `MQDetDemo` (the demo CLI's predictor) on a 480x640 numpy
+    image with 40 category names, no bank: its head call's detections
+    bitwise those of `make_split_predict_fns` called on the same inputs,
+    the thresholded result those detections' (boxes scaled back to the
+    image), launches `want`. Returns them."""
+    import numpy as np
+
+    from mqdet_torch.data.tokenizer import WordPieceTokenizer
+    from mqdet_torch.engine.demo import MQDetDemo
+    from mqdet_torch.engine.predict import make_split_predict_fns
+    from mqdet_torch.ops import launch_counts
+
+    c = cfg.clone()
+    c.TPU.IMAGE_BUCKETS = ((800, 1344),)
+    demo = MQDetDemo(c, model, confidence_threshold=0.05, tokenizer=WordPieceTokenizer())  # phase 7's hash vocab
+    seen = {}
+    head = demo.head_fn
+
+    def watch(*a):
+        seen["args"], seen["out"] = a, head(*a)
+        return seen["out"]
+
+    demo.head_fn = watch
+    image = (np.random.default_rng(seed + 16).uniform(0, 255, (480, 640, 3))).astype(np.uint8)
+    names = demo_categories()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out = demo(image, names)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    used = launch_counts()
+    enc, hd = make_split_predict_fns(model, (800, 1344), c)
+    feats, *rest = seen["args"]
+    direct = hd(enc(demo.transform(image, device=feats[0].device)[0]), *rest)
+    same = all(torch.equal(getattr(direct, f), getattr(seen["out"], f)) for f in ("boxes", "scores", "labels", "valid"))
+    scores = seen["out"].scores[0].float().cpu().numpy()
+    keep = scores >= 0.05
+    ok = same and used == want and np.array_equal(out["scores"], scores[keep]) and bool(np.isfinite(out["boxes"]).all())
+    say(f"phase 16: {label} demo (MQDetDemo) on a 480x640 numpy image, 40 names: {len(out['scores'])} detections "
+        f"at threshold 0.05, {sec!r} s; the head's detections bitwise make_split_predict_fns' {same}; launches "
+        f"{ {k: v for k, v in used.items() if v} } (predicted { {k: v for k, v in want.items() if v} }); "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"phase 16 {label} demo: bitwise {same}, launches {used}")
+    return used
+
+
+def phase_gdino3(torch, donor, seed, kres):
+    """Phase 16.2: MQ-GroundingDINO-T at GROUNDINGDINO.num_feature_levels 3,
+    at the model's full depth, 6 encoder and 6 decoder layers (`init_like`
+    the 4-level model: its weights, the MSDA projections and level_embed
+    drawn anew): phase 3's reference check at 256x256; one protocol group
+    (CP 4) at 800x1344 with launches 6 clipped + 6 exact MSDA + 6
+    bi-attention, each kernel's first launch at each shape held against its
+    plain version in fp32 (phase 2's rule; the cases join `kres`, the kernel
+    line's); one training step by phase 9's rule. Returns {path: launch
+    counts}."""
+    from mqdet_torch.engine.predict import make_protocol_fn
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils.builders import build_model, mq_groundingdino_t_config, protocol_inputs, \
+        synthetic_caption_batch
+
+    t0 = time.perf_counter()
+    cfg = mq_groundingdino_t_config()
+    g = cfg.GROUNDINGDINO
+    g.num_feature_levels = 3
+    model_cpu = init_like(build_model(cfg), donor, seed).eval()
+    model = copy.deepcopy(model_cpu).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
+    launches = {"GDINO 3 levels reference": phase_reference_gdino(
+        torch, cfg, model_cpu, model, seed, "MQ-GroundingDINO-T at 3 levels", "phase 16")}
+    hw = (800, 1344)
+    image, text = protocol_inputs(cfg, synthetic_caption_batch, 1, 4, hw, seed)
+    image, text = image.to("cuda"), [t.to("cuda") for t in text]
+    protocol = make_protocol_fn(model, hw, cfg)
+    protocol(image, *text)
+    torch.cuda.synchronize()
+    want = predicted(ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers, bi_attention=g.enc_layers)
+    launch_counts(reset=True)
+    t1 = time.perf_counter()
+    dets = protocol(image, *text)
+    torch.cuda.synchronize()
+    ms_ = (time.perf_counter() - t1) * 1000.0
+    used = launch_counts()
+    finite = bool(torch.isfinite(dets.boxes).all() and torch.isfinite(dets.scores).all())
+    say(f"phase 16: MQ-GroundingDINO-T at 3 levels, one protocol group (CP 4) at {hw}: launches "
+        f"{ {k: v for k, v in used.items() if v} } (predicted { {k: v for k, v in want.items() if v} }); "
+        f"{ms_!r} ms (host clock); valid {int(dets.valid.sum())} of {dets.valid.numel()}; finite {finite}")
+    if used != want or not finite:
+        fail("phase 16 GDINO at 3 levels: protocol group launches or outputs")
+    launches["GDINO 3 levels group"] = used
+    keep = {}
+    with first_launches(keep):
+        protocol(image, *text)
+    lines = []
+    with torch.no_grad():
+        for key, (args, out) in sorted(keep.items(), key=lambda kv: str(kv[0])):
+            record, line = kept_launch_check(torch, "MQ-GroundingDINO-T at 3 levels", hw, key, args, out,
+                                             "phase 16", "GDINO 3 levels")
+            kres[key[0]].append(record)
+            lines.append(line)
+    say(f"phase 16: MQ-GroundingDINO-T at 3 levels, the group's first launch of each kernel at each shape against "
+        f"the plain version in fp32 on the card (phase 2's rule): {'; '.join(lines)}")
+    del model, protocol, keep
+    torch.cuda.empty_cache()
+    tcfg = train_config_gdino()
+    tcfg.GROUNDINGDINO.num_feature_levels = 3
+    launches["GDINO 3 levels reference step"] = phase_train_reference_gdino(
+        torch, tcfg, model_cpu, seed, phase="phase 16", label="MQ-GroundingDINO-T at 3 levels")
+    say(f"phase 16: MQ-GroundingDINO-T at 3 levels done in {time.perf_counter() - t0!r} s")
+    return launches
+
+
+def phase_pools(torch, seed):
+    """Phase 16.7: `deform_psroi_pool` (3x3 position-sensitive groups, 2
+    classes of offsets, ROIs partly off the map) and `roi_pool` on the card
+    against the CPU, fp32, within 1e-5 * max|ref|."""
+    import numpy as np
+
+    from mqdet_torch.ops.deform_pool import deform_psroi_pool
+    from mqdet_torch.ops.roi_align import roi_pool
+
+    rng = np.random.default_rng(seed + 16)
+    feats = torch.from_numpy(rng.standard_normal((2, 50, 84, 8 * 9)).astype(np.float32))
+    rois = torch.from_numpy(np.array([[0, 10.3, 20.5, 300.1, 180.7], [1, -40.0, -12.0, 90.0, 70.0],
+                                      [1, 500.0, 300.0, 700.0, 420.0], [0, 33.0, 44.0, 37.0, 50.0]], np.float32))
+    trans = torch.from_numpy(rng.standard_normal((4, 2, 2, 3, 3)).astype(np.float32))
+    kw = dict(spatial_scale=1.0 / 8, output_dim=8, pooled_size=7, group_size=3, part_size=3, sample_per_part=4)
+    ref = deform_psroi_pool(feats, rois, trans, **kw)
+    got = deform_psroi_pool(feats.cuda(), rois.cuda(), trans.cuda(), **kw).cpu()
+    e1, s1 = max_err(got, ref)
+    fmap = feats[0, :, :, :16]
+    boxes = rois[:, 1:]
+    ref2 = roi_pool(fmap, boxes, 1.0 / 8, 7)
+    got2 = roi_pool(fmap.cuda(), boxes.cuda(), 1.0 / 8, 7).cpu()
+    e2, s2 = max_err(got2, ref2)
+    ok = e1 <= 1e-5 * s1 and e2 <= 1e-5 * s2
+    say(f"phase 16: deform_psroi_pool (N 4, 7x7, groups 3, 2 offset classes) card vs CPU fp32 max_abs_err {e1!r} "
+        f"(max|ref| {s1!r}); roi_pool (7x7, 16 channels) {e2!r} (max|ref| {s2!r}); bound 1e-5 * max|ref|; "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("phase 16 pooling: card and CPU apart")
+
+
 def multi_card(torch, cards, seed) -> int:
     """`--cards N`: phase 13's MQ-GLIP-T training check over NCCL across N
     cards of one host. The bank is pooled over phase 7's dataset by
@@ -4025,7 +4554,7 @@ def main() -> int:
         return rank_worker(sys.argv[2])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--runs", type=int, default=3, help="timed protocol runs per model")
+    ap.add_argument("--runs", type=int, default=2, help="timed protocol runs per model")
     ap.add_argument("--cards", type=int, default=0, help="run only the check across N >= 2 cards (`multi_card`)")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -4089,9 +4618,10 @@ def main() -> int:
         ("default", "gather", predicted(dcn=dcn, bi_attention=fuse)),  # the exact mode in the protocol
         ("default", None, predicted(dcn_band=dcn, bi_attention=fuse)),
     ):
+        main_run = switch == "default" and deform is None  # phase 5 profiles the default runs alone
         launches[f"MQ-GLIP-T {switch}{' ' + deform if deform else ''}"] = phase_protocol(
-            torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300, want, args.runs, args.seed,
-            parts if switch == "default" and deform is None else None, switch, deform,
+            torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300, want, args.runs if main_run else 0, args.seed,
+            parts if main_run else None, switch, deform, profile=main_run,
         )
     glip_vq = {}  # phase 7's dataset and bank, for phase 8
     launches.update(phase_vision_query(torch, "MQ-GLIP-T", cfg, model, args.seed,
@@ -4102,11 +4632,18 @@ def main() -> int:
     phase_tta_kernels(torch, "MQ-GLIP-T", model, cfg, synthetic_batch, args.seed, kres)
     launches.update(phase_tta(torch, "MQ-GLIP-T", cfg, model, glip_vq, per_group))
     launches.update(phase_knowledge(torch, cfg, model, glip_vq, tmp.name, per_group))
+    phase15_s = time.perf_counter() - t15
+    t16 = time.perf_counter()  # phase 16 on MQ-GLIP-T: the merged canvas, MQDET_FUSION_IMPL, the demo
+    launches["MQ-GLIP-T merged canvas"] = phase_merged_canvas(torch, model, cfg, args.seed)
+    launches["MQ-GLIP-T MQDET_FUSION_IMPL=xla group"] = phase_fusion_impl(torch, model, cfg, args.seed)
+    launches["MQ-GLIP-T demo"] = phase_demo(torch, "MQ-GLIP-T", model, cfg, args.seed, per_group)
+    phase16_s = time.perf_counter() - t16
+    t15 = time.perf_counter()
     del model  # nothing of MQ-GLIP-T may stay on the card
     torch.cuda.empty_cache()
     launches.update(phase_towers(torch, cfg, glip_cpu, args.seed, per_group))
     torch.cuda.empty_cache()
-    phase15_s = time.perf_counter() - t15
+    phase15_s += time.perf_counter() - t15
 
     # ---- MQ-GroundingDINO-T ----------------------------------------------
     cfg = mq_groundingdino_t_config()
@@ -4131,7 +4668,8 @@ def main() -> int:
     ):
         launches[f"MQ-GroundingDINO-T {switch}"] = phase_protocol(
             torch, "MQ-GroundingDINO-T", model, cfg, synthetic_caption_batch, g.num_queries, want,
-            args.runs, args.seed, parts if switch == "default" else None, switch,
+            args.runs if switch == "default" else 0, args.seed, parts if switch == "default" else None, switch,
+            profile=switch == "default",
         )
     gdino_vq = {}  # phase 7's dataset and bank, for phase 9
     launches.update(phase_vision_query(
@@ -4144,10 +4682,17 @@ def main() -> int:
     launches.update(phase_tta(torch, "MQ-GroundingDINO-T", cfg, model, gdino_vq, predicted(
         ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers, bi_attention=g.enc_layers)))
     phase15_s += time.perf_counter() - t15
+    t16 = time.perf_counter()  # phase 16 on MQ-GroundingDINO-T: the demo, then the model at 3 levels
+    launches["MQ-GroundingDINO-T demo"] = phase_demo(torch, "MQ-GroundingDINO-T", model, cfg, args.seed, predicted(
+        ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers, bi_attention=g.enc_layers))
     del model
     torch.cuda.empty_cache()
+    launches.update(phase_gdino3(torch, gdino_cpu, args.seed, kres))
+    torch.cuda.empty_cache()
+    phase16_s += time.perf_counter() - t16
 
-    say(f"phases 1-7 and 15 done {time.perf_counter() - t_start!r} s after the start (phase 15 {phase15_s!r} s)")
+    say(f"phases 1-7, 15 and 16 (its model paths) done {time.perf_counter() - t_start!r} s after the start "
+        f"(phase 15 {phase15_s!r} s, phase 16 {phase16_s!r} s)")
 
     # ---- phases 8 and 9: modulated pre-training -------------------------
     glip_bounds, gdino_bounds = {}, {}  # the reference steps' bounds, for phase 13
@@ -4193,6 +4738,14 @@ def main() -> int:
 
     # ---- phase 14: MQ-Det's model switches ------------------------------
     launches.update(phase_switches(torch, args.seed, args.runs, smi, glip_vq))
+    say(f"phases 1-14 done {time.perf_counter() - t_start!r} s after the start")
+
+    # ---- phase 16: the legacy detector family, pooling ------------------
+    t16 = time.perf_counter()
+    phase_legacy_reference(torch, args.seed)
+    phase_legacy_train(torch, args.seed, smi)
+    phase_pools(torch, args.seed)
+    say(f"phase 16: the legacy family and pooling {time.perf_counter() - t16!r} s")
 
     say(f"wall time {time.perf_counter() - t_start!r} s (build included)")
     entries = []

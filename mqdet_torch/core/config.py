@@ -14,9 +14,11 @@ yamls load: DATALOADER.* (the host pipeline has no workers; TPU.IMAGE_BUCKETS
 replaces SIZE_DIVISIBILITY), SOLVER.USE_AMP and the FUSE_CONFIG clamps (bf16
 has no fp16 range problem), TEST.DURING_TRAINING (SOLVER.TEST_WITH_INFERENCE
 is the knob read), MODEL.DYHEAD.USE_GN, the experiment-only FUSE_CONFIG and
-VISION_QUERY flags, MODEL.SWINT.APE, the mesh keys of TPU, and the
-ResNet / EfficientNet backbones and the legacy heads, which the port does
-not build yet (ROADMAP Queue A 5.3).
+VISION_QUERY flags, MODEL.SWINT.APE and the mesh keys of TPU. The
+backbone registry (MODEL.BACKBONE.CONV_BODY, MODEL.BIFPN.*,
+EFFICIENT_DET_*) and the legacy heads (MODEL.RPN_ARCHITECTURE FCOS /
+RETINA / ATSS) are read by `models/backbones.py`, `models/legacy_heads.py`
+and `engine/legacy_losses.py`, as in JAX.
 """
 from __future__ import annotations
 

@@ -21,7 +21,7 @@ from mqdet_torch.ops.anchors import anchors_for_fpn
 
 
 def _make_gdino_split_fns(model, cfg):
-    """MQ-GroundingDINO's (encode_fn, head_fn): encode_fn gives the 4
+    """MQ-GroundingDINO's (encode_fn, head_fn): encode_fn gives the
     input_proj levels; head_fn runs `forward_head` and `gdino_postprocess`
     (one detection slot per query)."""
     dev = next(model.parameters()).device
@@ -50,15 +50,17 @@ def _make_gdino_split_fns(model, cfg):
 def make_split_predict_fns(model, image_hw: Tuple[int, int], cfg):
     """Returns (encode_fn, head_fn):
       encode_fn(images (1, 3, H, W)) -> image features (list of NCHW maps:
-                5 FPN levels for MQ-GLIP, 4 levels for MQ-GroundingDINO)
+                5 FPN levels for MQ-GLIP, GROUNDINGDINO.num_feature_levels
+                for MQ-GroundingDINO)
       head_fn(features, input_ids (CP, T), attention_mask (CP, T),
               queries (CP, V, C), query_mask (CP, V, T), agg_map (CP, Cls, T),
               image_sizes (CP, 2)) -> Detections with a leading CP dim
     Dispatches on the model family. Inputs are moved to the model's device."""
     if isinstance(model, MQGroundingDINO):
         return _make_gdino_split_fns(model, cfg)
-    if cfg.MODEL.DYHEAD.SCORE_AGG != "MEAN":
-        raise NotImplementedError("only MEAN score aggregation is ported")
+    # MODEL.DYHEAD.SCORE_AGG: JAX stores it in PostprocessParams and reads it
+    # nowhere; its post-processor always takes the MEAN through the
+    # aggregation matrix, and so does this one, whatever the key says
     dev = next(model.parameters()).device
     anchors = [
         torch.from_numpy(a).to(dev)

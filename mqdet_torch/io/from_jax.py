@@ -151,6 +151,49 @@ def swin_version_rules(our: str = "backbone", b: str = "backbone.body"):
     return r
 
 
+LEGACY = "legacy detector"  # the family of `models/legacy_heads.py::LegacyDetector`
+
+
+def legacy_rules(model: torch.nn.Module) -> Dict[str, Tuple[str, Callable]]:
+    """{flax path: (port key, transform)} of a legacy detector (or of one of
+    its backbones or heads alone). The JAX package has no `.pth` rules for
+    these models, so the port names its modules as flax does and the flax
+    path is the key's, '/'-joined, with the leaf named by the module's kind:
+    a conv's `kernel` (HWIO; a depthwise (kh, kw, 1, C) is torch's (C, 1,
+    kh, kw)), a Dense's `kernel`, a norm's `scale`, FrozenBatchNorm's
+    `scale` / `bias` / `mean` / `var`, a `Scale`'s 0-d `scale`, the BiFPN's
+    blend vectors as they are; the FPN's `top_blocks.p6` / `p7` are flax's
+    `fpn/p6` / `p7`. Swin's parameters (SWINT-FPN) take MQ-GLIP's rules,
+    whose flax tree has the Swin at `backbone/` where the registry's has it
+    at `backbone/body/`."""
+    from mqdet_torch.models.layers import GroupNorm, LayerNorm, Scale
+    from mqdet_torch.models.swin import SwinTransformer
+
+    glip = _reference_rules(None)
+    swin_prefixes = [name + "." for name, m in model.named_modules() if isinstance(m, SwinTransformer)]
+    out = {}
+    for mod_name, mod in model.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            key = f"{mod_name}.{leaf}" if mod_name else leaf
+            if any(key.startswith(p) for p in swin_prefixes):
+                flax, tf = glip[key]
+                out[flax.replace("backbone/", "backbone/body/", 1)] = (key, tf)
+                continue
+            path = mod_name.replace("top_blocks.", "").replace(".", "/")
+            if isinstance(mod, torch.nn.Conv2d):
+                name, tf = ("kernel", TI._t_conv) if leaf == "weight" else (leaf, TI._ident)
+            elif isinstance(mod, torch.nn.Linear):
+                name, tf = ("kernel", TI._t_linear) if leaf == "weight" else (leaf, TI._ident)
+            elif isinstance(mod, (GroupNorm, LayerNorm)):
+                name, tf = ("scale" if leaf == "weight" else leaf), TI._ident
+            elif isinstance(mod, Scale):
+                name, tf = leaf, _scalar
+            else:  # FrozenBatchNorm's scale / bias / mean / var, the BiFPN's blends
+                name, tf = leaf, TI._ident
+            out[f"{path}/{name}" if path else name] = (key, tf)
+    return out
+
+
 def reference_rules(model: Optional[torch.nn.Module] = None) -> Dict[str, Tuple[str, Callable]]:
     """Reference key -> (flax path, forward transform reference->flax) of
     `model`'s family (`rule_table`; MQ-GLIP without a model). Where several
@@ -159,15 +202,22 @@ def reference_rules(model: Optional[torch.nn.Module] = None) -> Dict[str, Tuple[
     for a GroundingDINO in-proj tensor its q leaf (its k and v leaves sit in
     the same module, so every path rule of the JAX package groups the three
     alike). A rule naming candidate keys maps the first, the port's."""
-    return _reference_rules(_family(model))
+    family = _family(model)
+    if family == LEGACY:
+        return {key: (flax, tf) for flax, (key, tf) in legacy_rules(model).items()}
+    return _reference_rules(family)
 
 
 def _family(model: Optional[torch.nn.Module]):
     """None for MQ-GLIP (and no model), PLAIN_DYCONV for MQ-GLIP without
-    DCN; (encoder, decoder) depth for GroundingDINO."""
+    DCN; (encoder, decoder) depth for GroundingDINO; LEGACY for a legacy
+    detector."""
     from mqdet_torch.models.gdino import MQGroundingDINO
+    from mqdet_torch.models.legacy_heads import LegacyDetector
     from mqdet_torch.models.mq_glip import MQGLIP
 
+    if isinstance(model, LegacyDetector):
+        return LEGACY
     if isinstance(model, MQGroundingDINO):
         tr = model.transformer
         return len(tr.encoder.layers), len(tr.decoder.layers)
@@ -199,9 +249,12 @@ def _table(family) -> Dict:
 
 def rule_table(model: Optional[torch.nn.Module] = None) -> Dict:
     """The rule table for `model`'s family: the GroundingDINO
-    table at the model's depth, else (and without a model) MQ-GLIP's with
-    `port_rules()`."""
-    return _table(_family(model))
+    table at the model's depth, a legacy detector's `legacy_rules`, else
+    (and without a model) MQ-GLIP's with `port_rules()`."""
+    family = _family(model)
+    if family == LEGACY:
+        return legacy_rules(model)
+    return _table(family)
 
 
 def inverse_transform(tf: Callable, val: np.ndarray, torch_shape: Optional[tuple] = None) -> np.ndarray:

@@ -12,8 +12,13 @@ value streams the levels through `flash_bi_attention_levels`, one launch per
 level with the l-side softmax state carried between them, without
 concatenating the pyramid or splitting out_v (single-score only, so `dual`
 is ignored there). A single (B, N, C) tensor always takes
-`flash_bi_attention`. q is pre-scaled by d^-0.5; the layer-scale residual is
-added to the NORMED inputs, as in the reference.
+`flash_bi_attention`. `MQDET_FUSION_IMPL` (read at call time, the JAX
+package's switch) set to anything other than `pallas`, its default, takes
+the kernels off the path: the same calls run their plain versions on any
+device (`ops.kernels.plain_versions`), no launch counted, as JAX then runs
+its composite. It is a switch the user sets, not a fallback. q is
+pre-scaled by d^-0.5; the layer-scale residual is added to the NORMED
+inputs, as in the reference.
 
 Training follows the JAX package's `use_flash` rule: the flash kernels run
 only when the forward is deterministic; given a generator (the JAX
@@ -32,6 +37,7 @@ them launches a hand-written kernel: in JAX they are plain XLA.
 from __future__ import annotations
 
 import os
+from contextlib import nullcontext
 from typing import List, Sequence, Tuple, Union
 
 import torch
@@ -40,6 +46,7 @@ from torch import nn
 
 from mqdet_torch.models.layers import LayerNorm, cl, dropout
 from mqdet_torch.ops.bi_attention import bi_attention_dual_plain, flash_bi_attention, flash_bi_attention_levels
+from mqdet_torch.ops.kernels import plain_versions
 
 Visual = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -77,19 +84,22 @@ class BiMultiHeadAttention(nn.Module):
             if not isinstance(v, torch.Tensor):
                 out_v = list(out_v.split([x.shape[1] for x in v], 1))
             return out_v, self.out_l_proj(out_l)
-        if isinstance(v, torch.Tensor) or os.environ.get("MQDET_FLASH_LEVELS", "concat") == "concat":
-            flat = v if isinstance(v, torch.Tensor) else torch.cat(list(v), 1)
-            out_v, out_l = flash_bi_attention(
-                self.v_proj(flat) * scale, k, self.values_v_proj(flat), vl, bias, self.num_heads
-            )
-            out_v = self.out_v_proj(out_v)
-            if not isinstance(v, torch.Tensor):
-                out_v = list(out_v.split([x.shape[1] for x in v], 1))
-            return out_v, self.out_l_proj(out_l)
-        qs = [self.v_proj(x) * scale for x in v]
-        vvs = [self.values_v_proj(x) for x in v]
-        out_vs, out_l = flash_bi_attention_levels(qs, k, vvs, vl, bias, self.num_heads)
-        return [self.out_v_proj(x) for x in out_vs], self.out_l_proj(out_l)
+        # MQDET_FUSION_IMPL other than `pallas` (JAX's default): the composite, i.e. no kernel
+        route = nullcontext() if os.environ.get("MQDET_FUSION_IMPL", "pallas") == "pallas" else plain_versions()
+        with route:
+            if isinstance(v, torch.Tensor) or os.environ.get("MQDET_FLASH_LEVELS", "concat") == "concat":
+                flat = v if isinstance(v, torch.Tensor) else torch.cat(list(v), 1)
+                out_v, out_l = flash_bi_attention(
+                    self.v_proj(flat) * scale, k, self.values_v_proj(flat), vl, bias, self.num_heads
+                )
+                out_v = self.out_v_proj(out_v)
+                if not isinstance(v, torch.Tensor):
+                    out_v = list(out_v.split([x.shape[1] for x in v], 1))
+                return out_v, self.out_l_proj(out_l)
+            qs = [self.v_proj(x) * scale for x in v]
+            vvs = [self.values_v_proj(x) for x in v]
+            out_vs, out_l = flash_bi_attention_levels(qs, k, vvs, vl, bias, self.num_heads)
+            return [self.out_v_proj(x) for x in out_vs], self.out_l_proj(out_l)
 
 
 class BiAttentionBlock(nn.Module):

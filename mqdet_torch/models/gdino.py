@@ -28,6 +28,13 @@ neither. The text enhancer, the deformable layers and the decoder have no
 dropout, as in JAX. The decoder's box chain stops gradients where JAX does:
 at the two-stage reference and at each layer's refined reference.
 
+GROUNDINGDINO.num_feature_levels is 4 (the configs') or 3 (no stride-64
+level: three `input_proj` pairs, a 3-row `level_embed`, MSDA over 3
+levels), as JAX builds `min(levels, 4)` projections; other counts raise,
+where JAX fails. GROUNDINGDINO.two_stage_type, dn_number and query_dim are
+read by nothing in JAX, which builds the same model whatever they say; so
+does this model.
+
 `TPU.REMAT` (and the USE_CHECKPOINT keys) are ignored: JAX's
 `models/gdino.py` checkpoints nothing, so neither does this model. So are
 MODEL.LANGUAGE_BACKBONE.MODEL_TYPE and MODEL.SWINT.VERSION: JAX's
@@ -346,10 +353,12 @@ class MQGroundingDINO(nn.Module):
         super().__init__()
         g = cfg.GROUNDINGDINO
         sw = cfg.MODEL.SWINT
-        if g.two_stage_type != "standard" or g.dn_number != 0 or g.query_dim != 4:
-            raise NotImplementedError("only the standard two-stage eval head is ported")
-        if g.num_feature_levels != 4:
-            raise NotImplementedError("only 4 feature levels are ported (ROADMAP Queue A 5.4)")
+        if g.num_feature_levels not in (3, 4):
+            raise ValueError(
+                f"GROUNDINGDINO.num_feature_levels {g.num_feature_levels}: 3 or 4. The JAX package builds no "
+                "other either: at 2 its encode_image indexes a third input_proj norm it did not make "
+                "(IndexError), at 5 its deformable layers' offsets do not broadcast against the 4 maps it "
+                "makes (TypeError)")
         c = g.hidden_dim
         self.num_queries = g.num_queries
         self.max_text_len = g.max_text_len
@@ -366,7 +375,7 @@ class MQGroundingDINO(nn.Module):
                 nn.Conv2d(in_ch[i], c, 1) if i < 3 else nn.Conv2d(in_ch[i], c, 3, stride=2, padding=1),
                 GroupNorm(min(32, c), c),  # flax's eps 1e-6, as the JAX package
             )
-            for i in range(4)
+            for i in range(g.num_feature_levels)
         )
         self.bert = QVBertModel(cfg, vision_dim=c)
         self.feat_map = nn.Linear(cfg.MODEL.LANGUAGE_BACKBONE.HIDDEN_SIZE, c)
@@ -379,8 +388,9 @@ class MQGroundingDINO(nn.Module):
 
     def encode_image(self, images: torch.Tensor, deterministic: bool = True,
                      generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
-        """Swin stages 1..3 + input_proj on (B, 3, H, W) -> 4 levels
-        (B, C, H_l, W_l) at strides 8, 16, 32, 64."""
+        """Swin stages 1..3 + input_proj on (B, 3, H, W) -> num_feature_levels
+        levels (B, C, H_l, W_l) at strides 8, 16, 32 (and 64: a stride-2
+        conv over the last stage)."""
         feats = self.backbone[0](cl(images.to(self.dtype)), training_draws(deterministic, generator))[1:4]
         return [proj(cl(f)) for proj, f in zip(self.input_proj, feats + feats[-1:])]
 

@@ -41,6 +41,40 @@ class GroupNorm(nn.GroupNorm):
         return cl(y.to(x.dtype))
 
 
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with fixed statistics (the JAX package's `FrozenBatchNorm`;
+    reference layers/batch_norm.py FrozenBatchNorm2d): the affine map
+    x * s + (bias - mean * s), s = scale * rsqrt(var + 1e-5), over NCHW.
+    As in JAX, the four vectors are parameters, not buffers: a training step
+    that differentiates them moves the statistics too, as JAX's does."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.mean = nn.Parameter(torch.zeros(features))
+        self.var = nn.Parameter(torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = self.scale * torch.rsqrt(self.var + 1e-5)
+        shift = self.bias - self.mean * inv
+        return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation (reference layers/se.py; the JAX package's
+    `SELayer`): x * sigmoid(Dense_1(relu(Dense_0(mean over H, W)))) on NCHW."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.Dense_0 = nn.Linear(channels, channels // reduction)
+        self.Dense_1 = nn.Linear(channels // reduction, channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(x.mean(dim=(2, 3))))))
+        return x * s[:, :, None, None]
+
+
 class Scale(nn.Module):
     """Learnable scalar multiplier (reference layers/scale.py)."""
 

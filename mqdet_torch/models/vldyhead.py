@@ -84,23 +84,74 @@ class ModulatedDeformConv(nn.Module):
 class DeformConvGN(nn.Module):
     """Conv3x3Norm with a modulated deformable conv + GroupNorm. `radius`
     and `offset_compat` are the JAX module's (`TPU.DEFORM_RADIUS`,
-    `TPU.DEFORM_OFFSET_COMPAT`)."""
+    `TPU.DEFORM_OFFSET_COMPAT`).
+
+    `x` may be a list of per-level maps, with lists of offsets and masks;
+    then, as in JAX, where the band route runs (MQDET_DEFORM_IMPL unset,
+    `pallas` or `pallas_interpret`, C % 128 == 0: K1 on the card, its plain
+    version on the CPU), the levels of at most `merge_max_positions` output
+    positions go through ONE call: each zero-padded onto a common canvas,
+    its offsets edge-padded (the padded positions reuse a real row's
+    offsets, so a block's shifts stay tight) and its mask zero-padded,
+    concatenated on the batch axis, and each output cropped back before the
+    GroupNorm. Batch items are independent in the conv, so the merge changes
+    no value. The JAX module's default, 0, merges nothing, and no config key
+    sets it (measured slower on the TPU); the attribute is set on the
+    module."""
 
     def __init__(self, cin: int, cout: int, stride: int, groups: int, radius: int = 2,
-                 offset_compat: str = "strided"):
+                 offset_compat: str = "strided", merge_max_positions: int = 0):
         super().__init__()
         self.stride = stride
         self.radius = radius
         self.offset_compat = offset_compat
+        self.merge_max_positions = merge_max_positions
         self.conv = ModulatedDeformConv(cin, cout, stride)
         self.bn = GroupNorm(groups, cout)
 
-    def forward(self, x, offset, mask):
+    def _prep(self, x, offset, mask):
         ho, wo = -(-x.shape[2] // self.stride), -(-x.shape[3] // self.stride)
         if offset.shape[1:3] != (ho, wo):
             prep = reinterpret_offsets_strided if self.offset_compat == "strided" else resize_offsets
             offset, mask = prep(offset, mask, ho, wo)
-        return self.bn(self.conv(x, offset, mask, self.radius))
+        return offset, mask
+
+    def forward(self, x, offset, mask):
+        if isinstance(x, torch.Tensor):
+            return self.bn(self.conv(x, *self._prep(x, offset, mask), self.radius))
+        prepped = [(xi, *self._prep(xi, oi, mi)) for xi, oi, mi in zip(x, offset, mask)]
+        impl = os.environ.get("MQDET_DEFORM_IMPL", "pallas")
+        band = impl in ("pallas", "pallas_interpret") and x[0].shape[1] % 128 == 0
+        merged = [i for i, (_, oi, _) in enumerate(prepped) if oi.shape[1] * oi.shape[2] <= self.merge_max_positions]
+        outs = [None] * len(prepped)
+        if band and len(merged) > 1:
+            x_c, off_c, mask_c = merge_onto_canvas([prepped[i] for i in merged], self.stride)
+            y = self.conv(x_c, off_c, mask_c, self.radius)
+            for part, i in zip(y.split([prepped[i][0].shape[0] for i in merged]), merged):
+                _, oi, _ = prepped[i]
+                outs[i] = part[:, :, :oi.shape[1], :oi.shape[2]]
+        for i, (xi, oi, mi) in enumerate(prepped):
+            if outs[i] is None:
+                outs[i] = self.conv(xi, oi, mi, self.radius)
+        return [self.bn(y) for y in outs]
+
+
+def merge_onto_canvas(levels, stride: int):
+    """[(x (B, C, H, W), offset (B, Ho, Wo, 18), mask (B, Ho, Wo, 9))] ->
+    one (x, offset, mask) on the levels' common canvas, concatenated on the
+    batch axis: x zero-padded at the bottom / right to the largest H and W,
+    the offsets edge-padded and the masks zero-padded to the canvas's output
+    grid (DeformConvGN's merged call; level i's output is rows i B..(i+1) B,
+    cropped to its Ho x Wo)."""
+    ch, cw = max(x.shape[2] for x, _, _ in levels), max(x.shape[3] for x, _, _ in levels)
+    cho, cwo = -(-ch // stride), -(-cw // stride)
+    xs, offs, masks = [], [], []
+    for x, off, mask in levels:
+        dh, dw = cho - off.shape[1], cwo - off.shape[2]
+        xs.append(F.pad(x, (0, cw - x.shape[3], 0, ch - x.shape[2])))
+        offs.append(F.pad(off.permute(0, 3, 1, 2), (0, dw, 0, dh), mode="replicate").permute(0, 2, 3, 1))
+        masks.append(F.pad(mask, (0, 0, 0, dw, 0, dh)))
+    return cl(torch.cat(xs)), torch.cat(offs).contiguous(), torch.cat(masks).contiguous()
 
 
 class PlainConvGN(nn.Module):
@@ -154,14 +205,24 @@ class DyConv(nn.Module):
                 om = self.offset(f).permute(0, 2, 3, 1)  # (B, H, W, 27)
                 offsets[i] = om[..., :18].contiguous()
                 masks[i] = torch.sigmoid(om[..., 18:27]).contiguous()
+        # one call per conv on the level lists, as in JAX (DeformConvGN may
+        # merge the small levels): mid at L, lo over L-1 and hi over L+1, each
+        # with L's offsets
+        if self.use_deform:
+            mid = conv_mid(feats, offsets, masks)
+            lo = conv_lo(feats[:-1], offsets[1:], masks[1:])
+            hi = conv_hi(feats[1:], offsets[:-1], masks[:-1])
+        else:
+            mid = [conv_mid(f, None, None) for f in feats]
+            lo = [conv_lo(f, None, None) for f in feats[:-1]]
+            hi = [conv_hi(f, None, None) for f in feats[1:]]
         outs = []
         for level, feature in enumerate(feats):
-            temp = [conv_mid(feature, offsets[level], masks[level])]
+            temp = [mid[level]]
             if level > 0:
-                temp.append(conv_lo(feats[level - 1], offsets[level], masks[level]))
+                temp.append(lo[level - 1])
             if level < n - 1:
-                hi = conv_hi(feats[level + 1], offsets[level], masks[level])
-                temp.append(upsample_bilinear(hi, feature.shape[2], feature.shape[3]))
+                temp.append(upsample_bilinear(hi[level], feature.shape[2], feature.shape[3]))
             acc = None
             for f in temp:
                 if self.AttnConv is not None:

@@ -336,7 +336,7 @@ class MSDeformAttnFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ins = ctx.saved_tensors
-        with torch.profiler.record_function("msda_backward"):  # the span chip_smoke's phase 9 reads
+        with torch.profiler.record_function("msda_backward"):  # a profiler span: the backward's device time
             grads = ms_deform_attn_vjp(ins[0], ctx.spatial_shapes, ins[1], ins[2], g, ctx.needs_input_grad[:3])
         grads = [gr.to(t.dtype) if gr is not None else None for gr, t in zip(grads, ins)]
         return (*grads, None, None)

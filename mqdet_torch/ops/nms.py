@@ -7,7 +7,8 @@ Batched over a leading dim. Candidates are sorted by score (ties to the lower
 index, as `lax.top_k` breaks them); the strict lower-triangular relation
 M[i, j] = (j outranks i) & same label & IoU > t is built in row blocks; then
 keep <- valid & ~any(M & keep) is iterated to its fixpoint, which is the
-greedy keep set (entries of rank r are final after r + 1 steps).
+greedy keep set (entries of rank r are final after r + 1 steps). Both the
+MQ-GLIP and the legacy heads' post-processors call it.
 
 `soft_nms` is the JAX package's Gaussian soft-NMS (`mqdet_tpu/ops/nms.py::
 soft_nms`), batched; as in JAX, no model calls it (the test-time

@@ -10,7 +10,8 @@ adaptive sampling count would differ): coordinates scaled by
 `sampling_ratio` grid of bilinear samples per output cell, averaged, and 0
 for a sample outside [-1, H] x [-1, W]. Features are one image's map as
 (H, W, C); pass `f[0].permute(1, 2, 0)` of an NCHW map (contiguous under
-channels_last). Inputs and outputs are float32.
+channels_last). Inputs and outputs are float32. `roi_pool` is the JAX
+module's ROIPool (max pooling), which no model calls.
 """
 from __future__ import annotations
 
@@ -93,3 +94,44 @@ def all_level_roi_align(features: Sequence[torch.Tensor], rois: torch.Tensor,
     """CustomPooler (poolers.py:133-168): every ROI from every level.
     Returns (L, R, P, P, C)."""
     return torch.stack([roi_align(f, rois, sc, output_size) for f, sc in zip(features, spatial_scales)])
+
+
+def roi_pool(features: torch.Tensor, rois: torch.Tensor, spatial_scale: float,
+             output_size: int = 7) -> torch.Tensor:
+    """ROIPool, max pooling (the JAX package's `roi_pool`; reference
+    csrc/cuda/ROIPool_cuda.cu): features (H, W, C), rois (R, 4) xyxy ->
+    (R, P, P, C). ROI coordinates are scaled and rounded, the ROI is at
+    least 1 x 1, and a pixel at c belongs to bin floor((c - start) * P /
+    size) where that is in [0, P); each bin takes the max over its pixels,
+    an empty bin gives 0. The bin is computed in integers (start and size
+    are integers), so it is exact on every device; JAX divides by the fp32
+    bin size, which puts a pixel on a bin edge (an integer quotient) on
+    either side as fp32 rounds it. Unused by MQ-Det's configs, as in JAX."""
+    h, w, c = features.shape
+    p = output_size
+    x1 = torch.round(rois[:, 0] * spatial_scale)
+    y1 = torch.round(rois[:, 1] * spatial_scale)
+    x2 = torch.round(rois[:, 2] * spatial_scale)
+    y2 = torch.round(rois[:, 3] * spatial_scale)
+    roi_w = torch.clamp(x2 - x1 + 1.0, min=1.0).long()
+    roi_h = torch.clamp(y2 - y1 + 1.0, min=1.0).long()
+    ys = torch.arange(h, device=features.device)
+    xs = torch.arange(w, device=features.device)
+
+    def bins(coords, start, size):  # (R, L): the bin of each pixel row / col, -1 outside
+        rel = coords[None, :] - start.long()[:, None]
+        idx = torch.div(rel * p, size[:, None], rounding_mode="floor")
+        return torch.where((rel >= 0) & (idx < p), idx, torch.full_like(idx, -1))
+
+    ybin, xbin = bins(ys, y1, roi_h), bins(xs, x1, roi_w)
+    neg = torch.full((), float("-inf"), device=features.device)
+    feats = features.float()[None]
+    rows = []
+    for py in range(p):  # one masked max over the map per bin, as in JAX
+        cols = []
+        for px in range(p):
+            m = (ybin == py)[:, :, None] & (xbin == px)[:, None, :]  # (R, H, W)
+            cols.append(torch.where(m[..., None], feats, neg).amax(dim=(1, 2)))
+        rows.append(torch.stack(cols, 1))
+    out = torch.stack(rows, 1)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

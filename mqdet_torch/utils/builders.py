@@ -253,9 +253,10 @@ def init_params(model: torch.nn.Module, seed: int = 0, scale: float = 0.02, keys
     """Fill every parameter by the rule of the JAX package's
     `init_params_fast`: ones for norm scales, the fusion layer-scale gammas
     and the `Scale` / `log_scale` scalars (flax leaves named *scale,
-    *gamma_v, *gamma_l) and BatchNorm running variances, zeros for biases
-    (an attention's `in_proj_bias` holds three flax biases) and running
-    means, else numpy normals * `scale` from `seed`, drawn in state_dict
+    *gamma_v, *gamma_l) and BatchNorm running variances (and
+    FrozenBatchNorm's `var`: keys ending in var), zeros for biases (an
+    attention's `in_proj_bias` holds three flax biases) and means (keys
+    ending in mean), else numpy normals * `scale` from `seed`, drawn in state_dict
     order. `keys`: fill only these state_dict entries (drawn in the same
     order), leave the others as they are."""
     from mqdet_torch.models.fusion import BatchNorm
@@ -268,9 +269,9 @@ def init_params(model: torch.nn.Module, seed: int = 0, scale: float = 0.02, keys
     for key, t in model.state_dict().items():
         if keys is not None and key not in keys:
             continue
-        if key in ones or key.endswith(("gamma_v", "gamma_l", "scale", "running_var")):
+        if key in ones or key.endswith(("gamma_v", "gamma_l", "scale", "var")):
             t.fill_(1.0)
-        elif key.endswith((".bias", "in_proj_bias", "running_mean")):
+        elif key.endswith((".bias", "in_proj_bias", "mean")):
             t.zero_()
         else:
             t.copy_(torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(np.float32) * scale))

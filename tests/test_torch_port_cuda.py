@@ -1193,3 +1193,107 @@ def test_switch_model_on_the_card_against_the_cpu(dev, switch):
     for g, p, r in zip(got, plain, ref):
         err, drift = ((g - r).norm() / r.norm()).item(), ((p - r).norm() / r.norm()).item()
         assert err <= max(2 * drift, 1e-2), (err, drift)
+
+
+# ---- the legacy family's slice: new shapes and switches -----------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", [False, True])
+def test_msda_kernels_at_three_levels(dev, monkeypatch, gather):
+    """GDINO at 3 feature levels: encoder queries on K5's clipped mode
+    (unset) or the exact mode (`gather`), and decoder queries (Q 900) on the
+    exact mode, with a 3-level table, against the plain versions in fp32."""
+    shapes = GDINO_800[:3]
+    if gather:
+        monkeypatch.setenv("MQDET_MSDA_IMPL", "gather")
+    else:
+        monkeypatch.delenv("MQDET_MSDA_IMPL", raising=False)
+    value, loc, attn = _msda(dev, 2, shapes, None, -0.2, 1.2, seed=3)
+    counts = (tms.launch_count, tms.clip_launch_count)
+    got = tms.ms_deform_attn(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert (tms.launch_count, tms.clip_launch_count) == ((counts[0] + 1, counts[1]) if gather
+                                                         else (counts[0], counts[1] + 1))
+    plain = tms.ms_deform_attn_plain if gather else tms.ms_deform_attn_clipped_plain
+    assert _close(got, plain(value.float(), shapes, loc, attn))
+    value, loc, attn = _msda(dev, 2, shapes, 900, -0.5, 1.5, seed=4)
+    got = tms.ms_deform_attn(value, shapes, loc, attn)
+    assert _close(got, tms.ms_deform_attn_plain(value.float(), shapes, loc, attn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_dcn_band_on_the_merged_canvas(dev, monkeypatch, stride):
+    """DeformConvGN with merge_max_positions 600 over GLIP's two smallest
+    800x1344 levels (stride 1: 13x21, 7x11; stride 2: 25x42, 13x21), offsets
+    x3: one `dcn_band` launch for both, each output within the bound of the
+    per-level launches' (two launches)."""
+    from mqdet_torch.models.vldyhead import DeformConvGN
+
+    monkeypatch.delenv("MQDET_DEFORM_IMPL", raising=False)
+    g = torch.Generator(device=dev).manual_seed(stride)
+    mod = DeformConvGN(256, 256, stride, 16, merge_max_positions=600).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        mod.conv.weight.copy_(torch.randn(256, 256, 3, 3, generator=g, device=dev) * 0.02)
+    levels = [(13, 21), (7, 11)] if stride == 1 else [(25, 42), (13, 21)]
+    xs = [torch.randn(2, 256, h, w, generator=g, device=dev).bfloat16().contiguous(memory_format=torch.channels_last)
+          for h, w in levels]
+    outs = [(-(-h // stride), -(-w // stride)) for h, w in levels]
+    offs = [(torch.randn(2, h, w, 18, generator=g, device=dev) * 3).bfloat16() for h, w in outs]
+    masks = [torch.rand(2, h, w, 9, generator=g, device=dev).bfloat16() for h, w in outs]
+    with torch.no_grad():
+        n0 = tdc.band_launch_count
+        merged = mod(xs, offs, masks)
+        torch.cuda.synchronize()
+        assert tdc.band_launch_count == n0 + 1
+        mod.merge_max_positions = 0
+        one = mod(xs, offs, masks)
+        torch.cuda.synchronize()
+        assert tdc.band_launch_count == n0 + 3
+    for a, b in zip(merged, one):
+        assert tuple(a.shape) == tuple(b.shape) and _close(a, b.float())
+
+
+@pytest.mark.cuda
+def test_fusion_impl_xla_launches_no_bi_attention(dev, monkeypatch):
+    """MQDET_FUSION_IMPL=xla: the bi-attention runs its plain version on
+    the card, no launch; the default launches the kernel; the two agree by
+    the kernel bound."""
+    from mqdet_torch.models.fusion import BiMultiHeadAttention
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    attn = BiMultiHeadAttention(256, 768, 2048, 8).to(dev, torch.bfloat16).eval()
+    v = [torch.randn(2, n, 256, generator=g, device=dev).bfloat16() for n in (1600, 400)]
+    lang = torch.randn(2, 256, 768, generator=g, device=dev).bfloat16()
+    mask = torch.ones(2, 256, device=dev, dtype=torch.int64)
+    mask[1, 100:] = 0
+    with torch.no_grad():
+        monkeypatch.delenv("MQDET_FUSION_IMPL", raising=False)
+        n0 = tba.launch_count
+        kv, kl = attn(v, lang, mask)
+        torch.cuda.synchronize()
+        assert tba.launch_count == n0 + 1
+        monkeypatch.setenv("MQDET_FUSION_IMPL", "xla")
+        pv, pl = attn(v, lang, mask)
+        torch.cuda.synchronize()
+        assert tba.launch_count == n0 + 1
+    for a, b in zip(kv + [kl], pv + [pl]):
+        assert _close(a, b.float())
+
+
+@pytest.mark.cuda
+def test_pools_on_the_card_match_the_cpu(dev):
+    from mqdet_torch.ops.deform_pool import deform_psroi_pool
+    from mqdet_torch.ops.roi_align import roi_pool
+
+    g = torch.Generator().manual_seed(0)
+    feats = torch.randn(2, 30, 40, 36, generator=g)
+    rois = torch.tensor([[0, 10.3, 20.5, 300.1, 180.7], [1, -40.0, -12.0, 90.0, 70.0], [1, 33.0, 44.0, 37.0, 50.0]])
+    trans = torch.randn(3, 2, 2, 3, 3, generator=g)
+    kw = dict(spatial_scale=1.0 / 8, output_dim=4, pooled_size=5, group_size=3, part_size=3, sample_per_part=3)
+    ref = deform_psroi_pool(feats, rois, trans, **kw)
+    got = deform_psroi_pool(feats.to(dev), rois.to(dev), trans.to(dev), **kw).cpu()
+    assert torch.allclose(got, ref, atol=1e-5)
+    ref = roi_pool(feats[0], rois[:, 1:], 1.0 / 8, 7)
+    assert torch.allclose(roi_pool(feats[0].to(dev), rois[:, 1:].to(dev), 1.0 / 8, 7).cpu(), ref, atol=1e-6)

@@ -444,13 +444,23 @@ def test_online_update_matches_jax(request, jax_fns, data, family):
 
 @pytest.mark.parametrize("levels", [3, 5])
 def test_unported_options_raise(levels):
-    """The options the port still refuses name their ROADMAP item: GDINO at
-    other than 4 feature levels (JAX builds min(levels, 4) projections;
-    Queue A 5.4). TEST.USE_MULTISCALE and GLIPKNOW.KNOWLEDGE_FILE, refused
-    before, are ported (`test_torch_port_tta.py`, `test_torch_port_knowledge.py`)."""
+    """GDINO at other than 4 feature levels: at 3, which JAX builds
+    (min(levels, 4) projections), the port's forward equals JAX's; at 5,
+    where JAX fails, the port raises an error that says so.
+    TEST.USE_MULTISCALE and GLIPKNOW.KNOWLEDGE_FILE, refused before, are
+    ported (`test_torch_port_tta.py`, `test_torch_port_knowledge.py`)."""
     from mqdet_torch.utils.builders import build_model, tiny_gdino_config
 
     cfg = tiny_gdino_config()
     cfg.GROUNDINGDINO.num_feature_levels = levels
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 5.4"):
-        build_model(cfg)
+    if levels == 5:
+        with pytest.raises(ValueError, match="num_feature_levels 5: 3 or 4. The JAX package builds no other"):
+            build_model(cfg)
+        return
+    from test_torch_port_remainders import assert_forward_matches, gdino_forward_both, gdino_pair
+
+    def edit(c):
+        c.GROUNDINGDINO.num_feature_levels = levels
+
+    jmodel, params, tmodel, _, tcfg = gdino_pair(edit)
+    assert_forward_matches(*gdino_forward_both(jmodel, params, tmodel, tcfg))
