@@ -12,7 +12,8 @@ CLI, data parallelism, MQ-Det's model switches, test-time augmentation,
 knowledge prompts, the CLIP / RNN towers and Swin v2 / vl, GDINO at 3
 feature levels, DyConv's merged canvas, MQDET_FUSION_IMPL, the demo, the
 legacy detector family (ResNet / EfficientNet / BiFPN with the FCOS /
-RetinaNet / ATSS heads) and pooling. Phases, each printing lines:
+RetinaNet / ATSS heads), pooling, and the image-batched protocol with the
+flop accounting. Phases, each printing lines:
 
   1. the card (`nvidia-smi` name and power limit) and the kernels' build from
      `mqdet_torch/csrc/` with nvcc for sm_90a (one nvcc per source, in
@@ -314,7 +315,41 @@ RetinaNet / ATSS heads) and pooling. Phases, each printing lines:
      finite, the body, FPN and head moved, post-processed detections at
      pre-NMS threshold 0 at least one an image, finite and inside the
      image); no hand-written kernel launched anywhere in it;
-     16.7 `deform_psroi_pool` and `roi_pool` on the card against the CPU.
+     16.7 `deform_psroi_pool` and `roi_pool` on the card against the CPU;
+ 17. the image-batched LVIS protocol (`make_batched_protocol_fn`), per
+     model right after its phase 16 parts, at full width and 800x1344: B 4
+     seeded images of distinct content and true sizes x 8 groups x CP 4
+     (the head at batch 16). 17.1 each kernel at the batched shapes, on the
+     model's own activations (one group's first launch at each shape, as
+     phase 15), held to its plain version in fp32 by phase 2's rule on
+     batch items 0 and last (the plain versions cannot hold the whole
+     batch): K1 at every level and stride, K3, K5 and the exact MSDA at
+     head batch 16, K1 and K3 also at 32 (B 8); their ms and bounds join
+     the kernel JSON line. 17.2 one warm-up and 3 timed calls (ms a call by
+     CUDA events and the host clock, img/s, peak memory), launches gated
+     on every call at the per-image protocol's (MQ-GLIP-T 624 `dcn_band` +
+     48 `bi_attention`; MQ-GroundingDINO-T 48 `ms_deform_attn_clip` + 48
+     `ms_deform_attn` + 48 `bi_attention`); every entry i * CP + c against
+     `make_protocol_fn` on image i by phase 16.4's rule (the sorted top 300
+     scores within 2e-2 * the largest, of the valid slots and of all slots:
+     random-init MQ-GroundingDINO-T has no score over its box threshold),
+     the bitwise-equal entries counted.
+     17.3 (MQ-GLIP-T) `make_predict_fn` at batch 4, image i against chunk
+     i, launches gated, each image within the same rule of its batched
+     entry. 17.4 `utils/stats.flops_with_kernels` on one per-image and one
+     batched call: the operator counter, the kernels' registry by family
+     (gated: equal to the sum of each launch's own formula, and the
+     batched call's B times the per-image call's, exactly), TFLOP/s at the
+     p50 and the share of 989 TFLOP/s (printed, not gated).
+
+The CPU runs of the training reference steps of phases 16.2, 8, 9 and
+16.5 need only the seed and the configs: a worker process of this script
+(`--cpu-references DIR SEED THREADS`, `CpuReferences`) makes them while the
+card runs phases 1-7 and 15-17, at this process's thread count (the CPU's
+sums depend on it), stopped while this process makes the CPU references of
+phases 3, 15 and 16.2's forward; each phase waits for its own and holds the
+worker's weights to its own by their digest. The run prints the seconds of
+each part of it and how long each phase waited for the worker.
 
 The training reference steps (phases 8, 13 and 14's S1) also take ROADMAP
 Queue C 4's second gate (`fp32_verdict`): the step in fp32 on the card's
@@ -340,20 +375,24 @@ The line before the last is a JSON object with one entry per kernel (its
 launches summed over the counted paths: the protocols, phase 3's card runs,
 the sweep path, phase 7's evaluation and update, phases 8 and 9's timed
 training steps, phase 10's CLI runs, phases 11 and 12's paths, phase
-13's, summed over its ranks, phase 14's, phase 15's and phase 16's); the last
+13's, summed over its ranks, phase 14's, phase 15's, phase 16's and phase
+17's batched, per-image, flop-counted and predict calls); the last
 line is {"ok": true, "device": {...}}. Any failure exits non-zero without
 those lines.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import copy
 import json
 import math
 import os
 import re
+import signal
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -1477,8 +1516,54 @@ def reference_batch(cfg, seed, hw=(256, 256)):
     return batch
 
 
+REFERENCE_SCALES = (1.0, 1.0 + 1e-3, 1.0 - 1e-3)  # the reference steps' image scalings (phase 8's rule)
+
+
+def reference_step(torch, cfg, seed, edit=None):
+    """step(model, dev, scale=1.0) -> (loss, {trainable name: fp32 gradient
+    on the CPU}): one training step of phase 8's reference at 256x256, batch
+    2, text dropout 0, on the images scaled by `scale` (`phase_train_reference`)."""
+    import numpy as np
+
+    from mqdet_torch.core.config import trainable_patterns
+    from mqdet_torch.engine.train import batch_to_device, init_train_state, make_train_step
+
+    c = cfg.clone()
+    c.VISION_QUERY.TEXT_DROPOUT = 0.0
+    batch = reference_batch(c, seed, (256, 256))
+    if edit is not None:
+        edit(batch)
+    mlm = None
+    if c.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS:  # one random_word mask for every run: the CPU's and the card's
+        rng, shape = np.random.default_rng(seed + 5), batch["input_ids"].shape  # generators draw apart
+        mlm = (rng.random(shape, np.float32), rng.random(shape, np.float32),
+               rng.integers(0, c.MODEL.LANGUAGE_BACKBONE.VOCAB_SIZE, shape))
+
+    def step(model, dev, scale=1.0):
+        state, tx = init_train_state(model, c, trainable_patterns(c))
+        run = make_train_step(model, tx, c)
+        inputs = dict(batch, images=(batch["images"] * np.float32(scale)).astype(np.float32))
+        kw = {} if mlm is None else {"mlm_draws": tuple(torch.from_numpy(d).to(dev) for d in mlm)}
+        _, metrics = run(state, batch_to_device(inputs, dev), torch.Generator(device=dev).manual_seed(seed), **kw)
+        params = dict(model.named_parameters())
+        return float(metrics["loss_total"]), {n: params[n].grad.float().cpu() for n in state.trainable}
+
+    return step
+
+
+def train_reference_cpu(torch, cfg, model_cpu, seed, edit=None):
+    """The CPU runs of `phase_train_reference`: (the fp32 steps, the bf16
+    steps, each {scale: (loss, gradients)} over REFERENCE_SCALES, seconds)."""
+    step = reference_step(torch, cfg, seed, edit)
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    ref32 = {s: step(dropout_off(copy.deepcopy(model_cpu)), cpu, s) for s in REFERENCE_SCALES}
+    run16 = {s: step(dropout_off(copy.deepcopy(model_cpu).to(torch.bfloat16)), cpu, s) for s in REFERENCE_SCALES}
+    return ref32, run16, time.perf_counter() - t0
+
+
 def phase_train_reference(torch, cfg, model_cpu, seed, bounds=None, phase="phase 8", label="MQ-GLIP-T", edit=None,
-                          card=True):
+                          card=True, cpu=None):
     """One training step at 256x256, full width, batch 2, dropout off: the
     card (bf16, kernels) against the same step on the CPU in fp32 (plain
     versions), same weights and batch, by relative L2 on the loss and on
@@ -1503,41 +1588,17 @@ def phase_train_reference(torch, cfg, model_cpu, seed, bounds=None, phase="phase
     the CPU's, 9.1e-3 without it) against the CPU's fp32 step, on every
     tensor whose bound here is 1 or more and every 0-d or 1-element tensor.
     With `card` False only the CPU runs are made, for
-    `bounds` (`--cards`: phase 8 itself gates the card step). Returns one
-    card step's launch counts."""
-    import numpy as np
-
-    from mqdet_torch.core.config import trainable_patterns
-    from mqdet_torch.engine.train import batch_to_device, init_train_state, make_train_step
+    `bounds` (`--cards`: phase 8 itself gates the card step). `cpu`: the
+    CPU runs (`train_reference_cpu`) where the caller has them, made by the
+    worker process (`CpuReferences`), else made here. Returns one card
+    step's launch counts."""
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.ops.kernels import plain_versions
 
     hw = (256, 256)
-    c = cfg.clone()
-    c.VISION_QUERY.TEXT_DROPOUT = 0.0
-    batch = reference_batch(c, seed, hw)
-    if edit is not None:
-        edit(batch)
-    mlm = None
-    if c.MODEL.DYHEAD.FUSE_CONFIG.MLM_LOSS:  # one random_word mask for every run: the CPU's and the card's
-        rng, shape = np.random.default_rng(seed + 5), batch["input_ids"].shape  # generators draw apart
-        mlm = (rng.random(shape, np.float32), rng.random(shape, np.float32),
-               rng.integers(0, c.MODEL.LANGUAGE_BACKBONE.VOCAB_SIZE, shape))
-
-    def step(model, dev, scale=1.0):
-        state, tx = init_train_state(model, c, trainable_patterns(c))
-        run = make_train_step(model, tx, c)
-        inputs = dict(batch, images=(batch["images"] * np.float32(scale)).astype(np.float32))
-        kw = {} if mlm is None else {"mlm_draws": tuple(torch.from_numpy(d).to(dev) for d in mlm)}
-        _, metrics = run(state, batch_to_device(inputs, dev), torch.Generator(device=dev).manual_seed(seed), **kw)
-        params = dict(model.named_parameters())
-        return float(metrics["loss_total"]), {n: params[n].grad.float().cpu() for n in state.trainable}
-
-    t0 = time.perf_counter()
-    scales = (1.0, 1.0 + 1e-3, 1.0 - 1e-3)
-    ref32 = {s: step(dropout_off(copy.deepcopy(model_cpu)), torch.device("cpu"), s) for s in scales}
-    run16 = {s: step(dropout_off(copy.deepcopy(model_cpu).to(torch.bfloat16)), torch.device("cpu"), s) for s in scales}
-    cpu_s = time.perf_counter() - t0
+    step = reference_step(torch, cfg, seed, edit)
+    ref32, run16, cpu_s = cpu if cpu is not None else train_reference_cpu(torch, cfg, model_cpu, seed, edit)
+    scales = tuple(ref32)
     if not card:
         bounds.update(reference_bounds(torch, ref32, run16, scales))
         say(f"{phase}: the reference step's CPU runs at {hw} for the bounds ({cpu_s!r} s): concatenated "
@@ -1742,7 +1803,7 @@ def phase_dcn_backward(torch, seed, smi):
     return times
 
 
-def phase_train(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None):
+def phase_train(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None, cpu=None):
     """Phase 8: MQ-GLIP-T modulated pre-training at full width on the card
     (`mq_glip_t_pretrain_config`) on phase 7's synthetic LVIS-shaped dataset and
     phase 7's extracted MQ-GLIP-T bank: the reference step, each DCN
@@ -1750,12 +1811,13 @@ def phase_train(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None):
     Returns the launch counts of the timed steps; `bounds`, a dict,
     receives the reference step's bounds. `model_cpu`: the model of
     init_params(seed) where the caller holds one (the train entry takes it
-    over), else drawn here."""
+    over), else drawn here. `cpu`: the reference step's CPU runs
+    (`train_reference_cpu`) where the caller has them."""
     from mqdet_torch.utils.builders import build_model, init_params, landscape, mq_glip_t_pretrain_config
 
     cfg = mq_glip_t_pretrain_config()
     model_cpu = init_params(build_model(cfg), seed=seed) if model_cpu is None else model_cpu
-    phase_train_reference(torch, cfg, model_cpu, seed, bounds)
+    phase_train_reference(torch, cfg, model_cpu, seed, bounds, cpu=cpu)
     bwd_ms = phase_dcn_backward(torch, seed, smi)
     torch.cuda.empty_cache()
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
@@ -1950,24 +2012,16 @@ def train_config_gdino():
     return cfg
 
 
-def phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds=None, phase="phase 9",
-                                label="MQ-GroundingDINO-T"):
-    """Phase 9's reference step: one MQ-GroundingDINO-T training step at
-    256x256, full width, batch 2 (40 labels, 8 gt boxes an image), dropout
-    off, the card (bf16, kernels) against the CPU in fp32 (plain versions,
-    under MQDET_MSDA_IMPL=pallas_interpret, so the encoder computes K5's
-    clipped function as the card's default route does), by phase 8's rule
-    (`reference_verdict`). The Hungarian assignment is an argmin: bf16 noise
-    can flip a near-tied pair, which moves the loss by order 1, not by a
-    drift. So the fp32 unscaled run's assignment is given to every other run
-    (`assignment=`, a keyword the training path never passes), and the card's
-    own matcher is run once to count the pairs it would have chosen
-    otherwise. Returns the launch counts of the fixed-assignment card step."""
+def gdino_reference_step(torch, cfg, seed):
+    """step(model, dev, scale=1.0, assignment=None) -> (loss, {trainable
+    name: fp32 gradient on the CPU}, the Hungarian assignment): one
+    MQ-GroundingDINO-T training step of phase 9's reference at 256x256,
+    batch 2 (40 labels, 8 gt boxes an image), text dropout 0, on the images
+    scaled by `scale`, on `assignment` where given."""
     import numpy as np
 
     from mqdet_torch.core.config import trainable_patterns
     from mqdet_torch.engine.train import batch_to_device, init_train_state, make_gdino_train_step
-    from mqdet_torch.ops import launch_counts
     from mqdet_torch.utils.builders import synthetic_caption_batch
 
     hw = (256, 256)
@@ -1996,17 +2050,48 @@ def phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds=None, phase=
         params = dict(model.named_parameters())
         return float(metrics["loss_total"]), {n: params[n].grad.float().cpu() for n in state.trainable}, run.assignment
 
+    return step
+
+
+def gdino_reference_cpu(torch, cfg, model_cpu, seed):
+    """The CPU runs of `phase_train_reference_gdino`, under
+    MQDET_MSDA_IMPL=pallas_interpret: (the fp32 steps, the bf16 steps, each
+    {scale: (loss, gradients)}, every run but the first on the first's
+    Hungarian assignment, that assignment, seconds)."""
+    step = gdino_reference_step(torch, cfg, seed)
     t0 = time.perf_counter()
-    scales = (1.0, 1.0 + 1e-3, 1.0 - 1e-3)
     cpu = torch.device("cpu")
     with switched("default", msda="pallas_interpret"):
         first = step(dropout_off(copy.deepcopy(model_cpu)), cpu)
         fixed = first[2]
         ref32 = {s: first[:2] if s == 1.0 else step(dropout_off(copy.deepcopy(model_cpu)), cpu, s, fixed)[:2]
-                 for s in scales}
+                 for s in REFERENCE_SCALES}
         run16 = {s: step(dropout_off(copy.deepcopy(model_cpu).to(torch.bfloat16)), cpu, s, fixed)[:2]
-                 for s in scales}
-    cpu_s = time.perf_counter() - t0
+                 for s in REFERENCE_SCALES}
+    return ref32, run16, fixed, time.perf_counter() - t0
+
+
+def phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds=None, phase="phase 9",
+                                label="MQ-GroundingDINO-T", cpu=None):
+    """Phase 9's reference step: one MQ-GroundingDINO-T training step at
+    256x256, full width, batch 2 (40 labels, 8 gt boxes an image), dropout
+    off, the card (bf16, kernels) against the CPU in fp32 (plain versions,
+    under MQDET_MSDA_IMPL=pallas_interpret, so the encoder computes K5's
+    clipped function as the card's default route does), by phase 8's rule
+    (`reference_verdict`). The Hungarian assignment is an argmin: bf16 noise
+    can flip a near-tied pair, which moves the loss by order 1, not by a
+    drift. So the fp32 unscaled run's assignment is given to every other run
+    (`assignment=`, a keyword the training path never passes), and the card's
+    own matcher is run once to count the pairs it would have chosen
+    otherwise. `cpu`: the CPU runs (`gdino_reference_cpu`) where the caller
+    has them, else made here. Returns the launch counts of the
+    fixed-assignment card step."""
+    from mqdet_torch.ops import launch_counts
+
+    hw = (256, 256)
+    step = gdino_reference_step(torch, cfg, seed)
+    ref32, run16, fixed, cpu_s = cpu if cpu is not None else gdino_reference_cpu(torch, cfg, model_cpu, seed)
+    scales = tuple(ref32)
     gpu = dropout_off(copy.deepcopy(model_cpu)).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
     with switched("default"):
         own = step(gpu, torch.device("cuda"))[2]
@@ -2098,7 +2183,7 @@ def phase_msda_backward(torch, seed, smi):
     return times
 
 
-def phase_train_gdino(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None):
+def phase_train_gdino(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None, cpu=None):
     """Phase 9: MQ-GroundingDINO-T modulated pre-training at full width on
     the card (`train_config_gdino`) on phase 7's dataset and phase 7's
     extracted MQ-GroundingDINO-T bank: the reference step, the MSDA
@@ -2106,12 +2191,14 @@ def phase_train_gdino(torch, seed, dataset, bank, smi, bounds=None, model_cpu=No
     launches a forward, no bi-attention kernel: the fusion's training
     composite). Returns the launch counts of the timed steps; `bounds`, a
     dict, receives the reference step's bounds. `model_cpu`: the model of init_params(seed) where the caller
-    holds one (the train entry takes it over), else drawn here."""
+    holds one (the train entry takes it over), else drawn here. `cpu`: the
+    reference step's CPU runs (`gdino_reference_cpu`) where the caller has
+    them."""
     from mqdet_torch.utils.builders import build_model, init_params, landscape
 
     cfg = train_config_gdino()
     model_cpu = init_params(build_model(cfg), seed=seed) if model_cpu is None else model_cpu
-    phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds)
+    phase_train_reference_gdino(torch, cfg, model_cpu, seed, bounds, cpu=cpu)
     phase_msda_backward(torch, seed, smi)
     g = cfg.GROUNDINGDINO
     return train_steps(torch, "phase 9", "MQ-GroundingDINO-T", cfg, model_cpu, landscape(dataset), bank,
@@ -3663,29 +3750,27 @@ TTA_CLASSES = 160  # one chunk group: 4 chunks of 40 at CP 4
 
 
 @contextlib.contextmanager
-def first_launches(keep):
-    """Inside the block, the first launch of each kernel at each input shape
-    is kept in `keep`, {(kernel, shapes...): (args, output)}: the ops
-    modules' launchers (`_launch_band`, the bi-attention `_launch`, the MSDA
+def launches_seen(seen):
+    """Inside the block, seen(kernel, args, kw, output) after every launch of
+    the band DCN, the bi-attention and the MSDA kernels: the ops modules'
+    launchers (`_launch_band`, the bi-attention `_launch`, the MSDA
     `_launch`) are wrapped, every launch still counted by its own counter."""
     from mqdet_torch.ops import bi_attention as ba
     from mqdet_torch.ops import deform_conv as dc
     from mqdet_torch.ops import ms_deform_attn as ms
 
-    def shape(t):
-        return tuple(t.shape)
+    def msda(v, shapes, loc, attn, clip=False):
+        return "ms_deform_attn_clip" if clip else "ms_deform_attn"
 
-    rules = ((dc, "_launch_band", lambda x, off, m, w, b, stride, *a: ("dcn_band", shape(x), stride)),
-             (ba, "_launch", lambda q, k, *a: ("bi_attention", shape(q), shape(k))),
-             (ms, "_launch", lambda v, shapes, loc, attn, clip=False: (
-                 "ms_deform_attn_clip" if clip else "ms_deform_attn", shape(v), shape(loc))))
+    rules = ((dc, "_launch_band", lambda *a, **kw: "dcn_band"), (ba, "_launch", lambda *a, **kw: "bi_attention"),
+             (ms, "_launch", msda))
     saved = []
-    for mod, attr, key_of in rules:
+    for mod, attr, name_of in rules:
         original = getattr(mod, attr)
 
-        def launcher(*args, _original=original, _key_of=key_of, **kw):
+        def launcher(*args, _original=original, _name_of=name_of, **kw):
             out = _original(*args, **kw)
-            keep.setdefault(_key_of(*args, **kw), (args, out))
+            seen(_name_of(*args, **kw), args, kw, out)
             return out
 
         saved.append((mod, attr, original))
@@ -3697,10 +3782,29 @@ def first_launches(keep):
             setattr(mod, attr, original)
 
 
-def kept_launch_check(torch, label, where, key, args, out, phase="phase 15", tag="TTA"):
+def first_launches(keep):
+    """Inside the block, the first launch of each kernel at each input shape
+    is kept in `keep`, {(kernel, shapes...): (args, output)} (`launches_seen`)."""
+    def shape(t):
+        return tuple(t.shape)
+
+    def seen(name, args, kw, out):
+        if name == "dcn_band":
+            key = (name, shape(args[0]), args[5])  # x, stride
+        else:  # bi-attention q, k; MSDA value, sampling locations
+            key = (name, shape(args[0]), shape(args[2] if name.startswith("ms_") else args[1]))
+        keep.setdefault(key, (args, out))
+
+    return launches_seen(seen)
+
+
+def kept_launch_check(torch, label, where, key, args, out, phase="phase 15", tag="TTA", items=None):
     """One kept launch (`first_launches`) against its plain version in fp32
-    on the card on the same inputs, by phase 2's rule. Returns (the kernel's
-    case record, the line)."""
+    on the card on the same inputs, by phase 2's rule; with `items` (batch
+    indices) on those items of the batch alone, the plain version run on
+    them (phase 17: the plain versions cannot hold a head batch of 16 or
+    32), its bf16 time taken on them too. Returns (the kernel's case record,
+    the line)."""
     from mqdet_torch.ops import bi_attention as ba
     from mqdet_torch.ops import deform_conv as dc
     from mqdet_torch.ops import ms_deform_attn as ms
@@ -3710,6 +3814,7 @@ def kept_launch_check(torch, label, where, key, args, out, phase="phase 15", tag
     if name == "dcn_band":
         x, off, m, w, b, stride, radius = args[:7]
         ins, outs, launcher = (x, off, m, w, b), (out,), dc._launch_band  # b may be None
+        per_item = (True, True, True, False, False)
 
         def plain(*a):
             return dc.modulated_deform_conv_clipped_plain(*a, stride=stride, radius=radius)
@@ -3718,16 +3823,18 @@ def kept_launch_check(torch, label, where, key, args, out, phase="phase 15", tag
         case = f"x{tuple(x.shape)} s{stride}"
     elif name == "bi_attention":
         q, k, vv, vl, bias_l, heads = args[:6]
-        ins, outs, launcher = (q, k, vv, vl), out, ba._launch
+        ins, outs, launcher = (q, k, vv, vl, bias_l), out, ba._launch
+        per_item = (True,) * 5
 
         def plain(*a):
-            return ba.bi_attention_plain(*a, bias_l, heads)
+            return ba.bi_attention_plain(*a, heads)
 
         bnd = bi_bound(q.shape[0], q.shape[1], k.shape[1], q.shape[2])
         case = f"q/vv {tuple(q.shape)} T {k.shape[1]} heads {heads}"
     else:
         value, shapes, loc, attn = args[:4]
         ins, outs, launcher = (value, loc, attn), (out,), ms._launch
+        per_item = (True,) * 3
         fn = ms.ms_deform_attn_clipped_plain if name == "ms_deform_attn_clip" else ms.ms_deform_attn_plain
 
         def plain(v, lo, at):
@@ -3736,19 +3843,25 @@ def kept_launch_check(torch, label, where, key, args, out, phase="phase 15", tag
         bnd = msda_bound(value.shape[0], value.shape[1], loc.shape[1], value.shape[2], value.shape[3], len(shapes),
                          loc.shape[4])
         case = f"Q {loc.shape[1]} levels {[tuple(s) for s in shapes]}"
+    ms_ = cuda_time_ms(lambda: launcher(*args))
+    if items is not None:
+        idx = torch.tensor(items, device=outs[0].device)
+        ins = tuple(a[idx] if a is not None and batched else a for a, batched in zip(ins, per_item))
+        outs = tuple(o[idx] for o in outs)
+        case += f", items {list(items)}"
     refs = plain(*(a.float() if a is not None else None for a in ins))
     errs = [max_err(o, r) for o, r in zip(outs, refs if isinstance(refs, tuple) else (refs,))]
     del refs
     ok = all(e <= ERR_BOUND * sc for e, sc in errs) and all(bool(torch.isfinite(o).all()) for o in outs)
     if not ok:
         fail(f"{phase} {label} {name} at {where} {case}: the kernel disagrees with its plain version")
-    ms_ = cuda_time_ms(lambda: launcher(*args))
     plain_ms = cuda_time_ms(lambda: plain(*ins), iters=3, warmup=1)
     err = max(e for e, _ in errs)
     record = {"case": f"{tag} {where} {case}", "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
               "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
     return record, (f"{name} {case}: max_abs_err {err!r} (bound {ERR_BOUND * max(sc for _, sc in errs)!r}), "
-                    f"kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms, bound {bnd[0]!r} ms; ok")
+                    f"kernel {ms_!r} ms, plain bf16 {plain_ms!r} ms{' on the items' if items else ''}, "
+                    f"bound {bnd[0]!r} ms; ok")
 
 
 def phase_tta_kernels(torch, label, model, cfg, make_batch, seed, kres):
@@ -4143,7 +4256,31 @@ def legacy_step(torch, model, cfg, batch, dev, compute_dtype, lr=LEGACY_LR):
     return float(loss), grads, {k: float(v) for k, v in losses.items()}
 
 
-def phase_legacy_train(torch, seed, smi):
+LEGACY_SCALES = (1.0, 1.0 + 1e-4, 1.0 - 1e-4)  # phase 16.5's reference steps' image scalings
+
+
+def legacy_reference_cpu(torch, arch, seed):
+    """The CPU runs of phase 16.5's reference step for head `arch` on
+    R-50-RETINANET (`phase_legacy_train`): (the fp32 steps, the bf16-autocast
+    steps, each {scale: (loss, gradients)} over LEGACY_SCALES, seconds)."""
+    import numpy as np
+
+    cfg = legacy_config("R-50-RETINANET", arch)
+    model = legacy_model(torch, cfg, seed, gain=0.5, perturb=False)
+    batch = legacy_batch(torch, (256, 256), seed + 1)
+    t0 = time.perf_counter()
+
+    def scaled(s):
+        return [batch[0] * np.float32(s)] + batch[1:]
+
+    ref32 = {s: legacy_step(torch, copy.deepcopy(model).train(), cfg, scaled(s), "cpu", None)[:2]
+             for s in LEGACY_SCALES}
+    run16 = {s: legacy_step(torch, copy.deepcopy(model).train(), cfg, scaled(s), "cpu", torch.bfloat16)[:2]
+             for s in LEGACY_SCALES}
+    return ref32, run16, time.perf_counter() - t0
+
+
+def phase_legacy_train(torch, seed, smi, cpu=None):
     """Phase 16.5's training: for each head of LEGACY_HEADS on
     R-50-RETINANET, the reference step at 256x256 by phase 8's rule (the
     card's step, fp32 parameters under bf16 autocast as TPU.COMPUTE_DTYPE
@@ -4159,27 +4296,19 @@ def phase_legacy_train(torch, seed, smi):
     memory; gates: every loss finite, tensors of the body, the FPN and the
     head moved, the post-processed detections of the last forward (at
     pre-NMS threshold 0) at least one an image, finite and inside the
-    image, no hand-written kernel launched."""
-    import numpy as np
-
+    image, no hand-written kernel launched. `cpu(arch)`: the reference
+    step's CPU runs (`legacy_reference_cpu`) where the caller has them, else
+    made here."""
     from mqdet_torch.engine.legacy_losses import build_legacy_machinery
     from mqdet_torch.ops import launch_counts
 
     dev = torch.device("cuda")
-    scales = (1.0, 1.0 + 1e-4, 1.0 - 1e-4)
     for arch in LEGACY_HEADS:
         cfg = legacy_config("R-50-RETINANET", arch)
         model = legacy_model(torch, cfg, seed, gain=0.5, perturb=False)
-        t0 = time.perf_counter()
         batch = legacy_batch(torch, (256, 256), seed + 1)
-
-        def scaled(s):
-            return [batch[0] * np.float32(s)] + batch[1:]
-
-        ref32 = {s: legacy_step(torch, copy.deepcopy(model).train(), cfg, scaled(s), "cpu", None)[:2] for s in scales}
-        run16 = {s: legacy_step(torch, copy.deepcopy(model).train(), cfg, scaled(s), "cpu", torch.bfloat16)[:2]
-                 for s in scales}
-        cpu_s = time.perf_counter() - t0
+        ref32, run16, cpu_s = cpu(arch) if cpu is not None else legacy_reference_cpu(torch, arch, seed)
+        scales = tuple(ref32)
         launch_counts(reset=True)
         cards = [legacy_step(torch, copy.deepcopy(model).to(dev).to(memory_format=torch.channels_last).train(),
                              cfg, batch, dev, torch.bfloat16)[:2] for _ in range(2)]
@@ -4379,7 +4508,20 @@ def phase_demo(torch, label, model, cfg, seed, want):
     return used
 
 
-def phase_gdino3(torch, donor, seed, kres):
+def gdino3_models(torch, donor, seed):
+    """Phase 16.2's configs and model: (MQ-GroundingDINO-T at 3 feature
+    levels, its training config, the model on the CPU, `init_like` the
+    4-level `donor`)."""
+    from mqdet_torch.utils.builders import build_model, mq_groundingdino_t_config
+
+    cfg = mq_groundingdino_t_config()
+    cfg.GROUNDINGDINO.num_feature_levels = 3
+    tcfg = train_config_gdino()
+    tcfg.GROUNDINGDINO.num_feature_levels = 3
+    return cfg, tcfg, init_like(build_model(cfg), donor, seed).eval()
+
+
+def phase_gdino3(torch, donor, seed, kres, refs):
     """Phase 16.2: MQ-GroundingDINO-T at GROUNDINGDINO.num_feature_levels 3,
     at the model's full depth, 6 encoder and 6 decoder layers (`init_like`
     the 4-level model: its weights, the MSDA projections and level_embed
@@ -4387,21 +4529,19 @@ def phase_gdino3(torch, donor, seed, kres):
     (CP 4) at 800x1344 with launches 6 clipped + 6 exact MSDA + 6
     bi-attention, each kernel's first launch at each shape held against its
     plain version in fp32 (phase 2's rule; the cases join `kres`, the kernel
-    line's); one training step by phase 9's rule. Returns {path: launch
-    counts}."""
+    line's); one training step by phase 9's rule, its CPU runs the worker's
+    (`refs`, `CpuReferences`). Returns {path: launch counts}."""
     from mqdet_torch.engine.predict import make_protocol_fn
     from mqdet_torch.ops import launch_counts
-    from mqdet_torch.utils.builders import build_model, mq_groundingdino_t_config, protocol_inputs, \
-        synthetic_caption_batch
+    from mqdet_torch.utils.builders import protocol_inputs, synthetic_caption_batch
 
     t0 = time.perf_counter()
-    cfg = mq_groundingdino_t_config()
-    g = cfg.GROUNDINGDINO
-    g.num_feature_levels = 3
-    model_cpu = init_like(build_model(cfg), donor, seed).eval()
-    model = copy.deepcopy(model_cpu).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
-    launches = {"GDINO 3 levels reference": phase_reference_gdino(
-        torch, cfg, model_cpu, model, seed, "MQ-GroundingDINO-T at 3 levels", "phase 16")}
+    with refs.paused():  # the reference forward's CPU runs
+        cfg, tcfg, model_cpu = gdino3_models(torch, donor, seed)
+        g = cfg.GROUNDINGDINO
+        model = copy.deepcopy(model_cpu).to("cuda", torch.bfloat16).to(memory_format=torch.channels_last)
+        launches = {"GDINO 3 levels reference": phase_reference_gdino(
+            torch, cfg, model_cpu, model, seed, "MQ-GroundingDINO-T at 3 levels", "phase 16")}
     hw = (800, 1344)
     image, text = protocol_inputs(cfg, synthetic_caption_batch, 1, 4, hw, seed)
     image, text = image.to("cuda"), [t.to("cuda") for t in text]
@@ -4436,10 +4576,9 @@ def phase_gdino3(torch, donor, seed, kres):
         f"the plain version in fp32 on the card (phase 2's rule): {'; '.join(lines)}")
     del model, protocol, keep
     torch.cuda.empty_cache()
-    tcfg = train_config_gdino()
-    tcfg.GROUNDINGDINO.num_feature_levels = 3
     launches["GDINO 3 levels reference step"] = phase_train_reference_gdino(
-        torch, tcfg, model_cpu, seed, phase="phase 16", label="MQ-GroundingDINO-T at 3 levels")
+        torch, tcfg, model_cpu, seed, phase="phase 16", label="MQ-GroundingDINO-T at 3 levels",
+        cpu=checked_weights(torch, "phase 16.2", refs.get("phase 16 GDINO-3"), model_cpu))
     say(f"phase 16: MQ-GroundingDINO-T at 3 levels done in {time.perf_counter() - t0!r} s")
     return launches
 
@@ -4473,6 +4612,346 @@ def phase_pools(torch, seed):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         fail("phase 16 pooling: card and CPU apart")
+
+
+P17_B, P17_B_WIDE, P17_CP, P17_GROUPS = 4, 8, 4, 8  # phase 17: images, the wider check's images, chunks, groups
+
+
+def batched_images(torch, seed, b, hw=(800, 1344)):
+    """(images (b, 3, H, W), true sizes (b, 2)): b seeded images of distinct
+    content, image i's true size (H - 80 i, W - 96 i) (a user's images are
+    resized into the bucket, and smaller ones zero-padded), zero outside it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 17)
+    images = rng.standard_normal((b, 3) + tuple(hw)).astype(np.float32)
+    sizes = np.array([(hw[0] - 80 * i, hw[1] - 96 * i) for i in range(b)], np.float32)
+    for i, (h, w) in enumerate(sizes.astype(int)):
+        images[i, :, h:] = 0.0
+        images[i, :, :, w:] = 0.0
+    return torch.from_numpy(images), torch.from_numpy(sizes)
+
+
+def launch_flops(acc):
+    """Inside the block, every launch of the band DCN, the bi-attention and
+    the MSDA kernels adds its own formula's flops (`dcn_flops`,
+    `bi_attention_flops`, `msda_flops`, at the launch's shapes) to
+    acc[family]: what the wrappers' reports must sum to (`launches_seen`)."""
+    from mqdet_torch.ops import bi_attention as ba
+    from mqdet_torch.ops import deform_conv as dc
+    from mqdet_torch.ops import ms_deform_attn as ms
+
+    def seen(name, args, kw, out):
+        if name == "dcn_band":
+            x, off, _, w = args[:4]
+            counts = {"dcn_pallas": dc.dcn_flops(off, x, w)}
+        elif name == "bi_attention":
+            q, k, dual = args[0], args[1], args[6]
+            counts = {"flash_bi_attention": ba.bi_attention_flops(q.shape, k.shape[1], dual)}
+        else:
+            value, shapes, loc = args[:3]
+            b, q, nh, _, p, _ = loc.shape
+            counts = ms.msda_flops(shapes, b, q, nh, p, value.shape[-1], name == "ms_deform_attn_clip")
+        for family, flops in counts.items():
+            acc[family] = acc.get(family, 0.0) + flops
+
+    return launches_seen(seen)
+
+
+def entry_verdict(torch, got, want) -> tuple:
+    """Phase 16.4's rule on one (group, image, chunk) entry, on the valid
+    scores and on all the slots' scores (random-init MQ-GroundingDINO-T has
+    no score over its box threshold, so the valid ones alone would compare
+    nothing): (the larger max |diff| / bound of the sorted top 300 of each,
+    the bound 2e-2 * their largest, that max |diff|, bitwise equal in every
+    field)."""
+    worst = (0.0, 0.0, 0.0)
+    for masked in (True, False):
+        top = [torch.sort(torch.where(d.valid, d.scores, 0.0) if masked else d.scores, -1,
+                          descending=True).values[..., :300] for d in (got, want)]
+        diff, scale = max_err(top[0], top[1])
+        ratio = diff / (ERR_BOUND * scale) if scale > 0 else (0.0 if diff == 0 else math.inf)
+        if ratio >= worst[0]:
+            worst = (ratio, ERR_BOUND * scale, diff)
+    same = all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("boxes", "scores", "labels", "valid"))
+    return worst + (same,)
+
+
+def phase_batched(torch, label, model, cfg, make_batch, slots, per_group, seed, kres, predict=False):
+    """Phase 17 for one model (module docstring): the image-batched LVIS
+    protocol (`make_batched_protocol_fn`) at 800x1344, B = P17_B seeded
+    images x 8 groups of CP 4 chunks, head batch 16. Returns the launch
+    counts of its counted calls (the batched and per-image protocols, the
+    flop-counted calls, `make_predict_fn`)."""
+    from mqdet_torch.core.detections import Detections
+    from mqdet_torch.engine.predict import make_batched_protocol_fn, make_predict_fn, make_protocol_fn
+    from mqdet_torch.ops import launch_counts
+    from mqdet_torch.utils import stats
+    from mqdet_torch.utils.builders import protocol_inputs
+
+    dev = torch.device("cuda")
+    hw = (800, 1344)
+    b, cp, groups = P17_B, P17_CP, P17_GROUPS
+    _, text = protocol_inputs(cfg, make_batch, groups, cp, hw, seed)
+    text = [t.to(dev) for t in text[:5]]  # input_ids, attention_mask, queries, query_mask, agg_map (G, CP, ...)
+    wide_images, wide_sizes = batched_images(torch, seed, P17_B_WIDE, hw)
+    images, sizes = wide_images[:b].to(dev), wide_sizes[:b].to(dev)
+    want_call = {k: v * groups for k, v in per_group.items()}
+    total = {k: 0 for k in per_group}
+
+    def counted(fn, want, what):
+        launch_counts(reset=True)
+        out = fn()
+        torch.cuda.synchronize()
+        used = launch_counts()
+        if want is not None and used != want:
+            fail(f"phase 17 {label} {what}: launches {used} != predicted {want}")
+        for k, v in used.items():
+            total[k] += v
+        return out
+
+    # 17.1: each kernel at the batched shapes, on the model's activations, items 0 and last
+    t0 = time.perf_counter()
+    lines = []
+    for n_img, kernels_ in ((b, ("dcn_band", "bi_attention", "ms_deform_attn_clip", "ms_deform_attn")),
+                            (P17_B_WIDE, ("dcn_band", "bi_attention"))):
+        keep = {}
+        one_group = [t[:1] for t in text]
+        with first_launches(keep):
+            make_batched_protocol_fn(model, hw, cfg, n_img)(wide_images[:n_img].to(dev), wide_sizes[:n_img].to(dev),
+                                                            *one_group)
+        with torch.no_grad():
+            for key, (args, out) in sorted(keep.items(), key=lambda kv: str(kv[0])):
+                if key[0] in kernels_:
+                    record, line = kept_launch_check(torch, label, f"B {n_img} x CP {cp}", key, args, out,
+                                                     phase="phase 17", tag="batched", items=(0, n_img * cp - 1))
+                    kres[key[0]].append(record)
+                    lines.append(line)
+        del keep
+        torch.cuda.empty_cache()
+    say(f"phase 17: {label} kernels at the batched protocol's shapes (head batch {b * cp} and {P17_B_WIDE * cp}), "
+        f"one chunk group's first launch at each shape, items 0 and last against the plain version in fp32 on the "
+        f"card (phase 2's rule, {ERR_BOUND} * max|ref|): {'; '.join(lines)} ({time.perf_counter() - t0!r} s)")
+
+    # 17.2: the batched protocol, launches gated per call; then each image alone through the per-image protocol
+    protocol = make_batched_protocol_fn(model, hw, cfg, b)
+    torch.cuda.reset_peak_memory_stats()
+    counted(lambda: protocol(images, sizes, *text), want_call, "batched protocol, warm-up")
+    wall, events = [], []
+    for i in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        dets = counted(lambda: protocol(images, sizes, *text), want_call, f"batched protocol, timed call {i}")
+        end.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1000.0)
+        events.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shapes_ok = tuple(dets.boxes.shape) == (groups, b * cp, slots, 4) and tuple(dets.valid.shape) == (
+        groups, b * cp, slots)
+    finite = bool(torch.isfinite(dets.boxes).all() and torch.isfinite(dets.scores).all())
+    if not (shapes_ok and finite):
+        fail(f"phase 17 {label}: batched output malformed (shapes {shapes_ok}, finite {finite})")
+    p50 = statistics.median(wall)
+    say(f"phase 17: {label} batched protocol, B {b} images x {groups} groups x CP {cp} (head batch {b * cp}) at "
+        f"{hw}: {p50!r} ms a call p50 of 3 (host clock {[round(t, 3) for t in wall]}; CUDA events "
+        f"{[round(t, 3) for t in events]}), {b * 1000.0 / p50!r} img/s, peak memory {peak!r} GiB; launches a call "
+        f"{ {k: v for k, v in want_call.items() if v} } (= the per-image protocol's), gated on every call")
+
+    single = make_protocol_fn(model, hw, cfg)
+    worst, equal, valid, single_ms, per_image = (0.0, 0.0, 0.0), 0, 0, [], {}
+    for i in range(b):
+        sz = sizes[i].expand(groups, cp, 2).contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = counted(lambda: single(images[i:i + 1], *text, sz), want_call, f"per-image protocol, image {i}")
+        single_ms.append((time.perf_counter() - t0) * 1000.0)
+        per_image[i] = one
+        for g in range(groups):
+            for c in range(cp):
+                got = Detections(**{f: getattr(dets, f)[g, i * cp + c] for f in ("boxes", "scores", "labels", "valid")})
+                ref = Detections(**{f: getattr(one, f)[g, c] for f in ("boxes", "scores", "labels", "valid")})
+                ratio, bnd, diff, same = entry_verdict(torch, got, ref)
+                equal += same
+                valid += int(ref.valid.sum())
+                if ratio > 1.0:
+                    fail(f"phase 17 {label}: entry (group {g}, image {i}, chunk {c}) apart from the per-image "
+                         f"protocol: top-300 scores max |diff| {diff!r} > {bnd!r}")
+                worst = max(worst, (ratio, diff, bnd))
+    say(f"phase 17: {label} every entry (group, image i, chunk c) of the batched call against the per-image "
+        f"protocol on image i (phase 16.4's rule: the sorted top 300 scores, of the valid slots and of all, within "
+        f"{ERR_BOUND} * the largest): {groups * b * cp} entries ok ({valid} valid slots in the per-image runs), "
+        f"worst max |diff| / bound {worst[0]!r} ({worst[1]!r} against {worst[2]!r}), {equal} bitwise equal; the "
+        f"per-image calls {[round(t, 3) for t in single_ms]} ms (host clock)")
+
+    if predict:  # 17.3: the one-call predict at batch 4, image i against chunk i of group 0
+        fn = make_predict_fn(model, hw, cfg)
+        prompts = [t[0] for t in text]  # (CP = 4, ...): prompt i for image i
+        out = counted(lambda: fn(images, *prompts, sizes), per_group, "make_predict_fn at batch 4")
+        worst_p = 0.0
+        for i in range(b):
+            got = Detections(**{f: getattr(out, f)[i] for f in ("boxes", "scores", "labels", "valid")})
+            ref = Detections(**{f: getattr(dets, f)[0, i * cp + i] for f in ("boxes", "scores", "labels", "valid")})
+            ratio, bnd, diff, _ = entry_verdict(torch, got, ref)
+            if ratio > 1.0:
+                fail(f"phase 17 {label}: make_predict_fn image {i} apart from the batched entry: {diff!r} > {bnd!r}")
+            worst_p = max(worst_p, ratio)
+        say(f"phase 17: {label} make_predict_fn at batch {b} (image i against chunk i): launches "
+            f"{ {k: v for k, v in per_group.items() if v} } (gated), each image within phase 16.4's rule of the "
+            f"batched call's entry (worst diff / bound {worst_p!r})")
+
+    # 17.4: flops of one per-image call and one batched call: the operator counter plus the kernels' registry
+    readings = {}
+    for what, fn, n_img, ms_ in (
+            ("per-image", lambda: single(images[:1], *text, sizes[0].expand(groups, cp, 2).contiguous()), 1,
+             statistics.median(single_ms)),
+            ("batched", lambda: protocol(images, sizes, *text), b, p50)):
+        per_launch = {}
+        with launch_flops(per_launch):
+            flops = counted(lambda: stats.flops_with_kernels(fn), want_call, f"{what} call under flops_of")
+        total_f, ops, registry = flops
+        if registry != per_launch:
+            fail(f"phase 17 {label} {what}: the registry {registry} != the launches' formulas {per_launch}")
+        readings[what] = registry
+        tflops = total_f / (ms_ / 1000.0) / 1e12
+        say(f"phase 17: {label} {what} call ({n_img} image(s)): flops_of {total_f!r} = the operator counter "
+            f"{ops!r} + the kernels' registry {registry} (each entry = its launches x the per-launch formula, "
+            f"gated); {tflops!r} TFLOP/s at the p50 {ms_!r} ms, {tflops * 1e12 / PEAK_BF16!r} of {PEAK_BF16 / 1e12} "
+            f"TFLOP/s")
+    one, many = readings["per-image"], readings["batched"]
+    if set(one) != set(many) or any(many[k] != b * one[k] for k in one):
+        fail(f"phase 17 {label}: the batched registry {many} is not {b} x the per-image one {one}")
+    say(f"phase 17: {label} the batched call's registry is {b} x the per-image call's, entry by entry (exact); "
+        f"launches counted in phase 17 { {k: v for k, v in total.items() if v} }")
+    del protocol, single, dets, per_image
+    torch.cuda.empty_cache()
+    return total
+
+
+CPU_JOBS = ("phase 16 GDINO-3", "phase 8", "phase 9") + tuple(f"phase 16 {arch}" for arch in LEGACY_HEADS)  # by need
+
+
+def cpu_reference_job(torch, name, seed):
+    """One CPU_JOBS entry, from the seed and the configs alone: the CPU runs
+    of phase 8's, 9's or 16.2's reference step (with the weights' `digest`)
+    or of phase 16.5's reference step for one head."""
+    from mqdet_torch.utils.builders import build_model, init_params, mq_glip_t_pretrain_config, \
+        mq_groundingdino_t_config
+
+    if name == "phase 16 GDINO-3":
+        _, cfg, model = gdino3_models(torch, init_params(build_model(mq_groundingdino_t_config()), seed=seed), seed)
+        runs = gdino_reference_cpu(torch, cfg, model, seed)
+    elif name.startswith("phase 16 "):
+        return legacy_reference_cpu(torch, name.split()[-1], seed)
+    else:
+        cfg = mq_glip_t_pretrain_config() if name == "phase 8" else train_config_gdino()
+        model = init_params(build_model(cfg), seed=seed)
+        runs = (train_reference_cpu if name == "phase 8" else gdino_reference_cpu)(torch, cfg, model, seed)
+    return runs, digest(dict(model.named_parameters()))
+
+
+def cpu_reference_worker(out_dir: str, seed: int, threads: int) -> int:
+    """The worker process (`CpuReferences`): every CPU_JOBS entry in order,
+    each saved to out_dir/<job>.pt when done."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(threads)
+    for name in CPU_JOBS:
+        t0 = time.perf_counter()
+        result = cpu_reference_job(torch, name, seed)
+        path = os.path.join(out_dir, name.replace(" ", "_") + ".pt")
+        torch.save(result, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        say(f"cpu reference worker: {name} done in {time.perf_counter() - t0!r} s")
+    return 0
+
+
+class PhaseClock:
+    """Seconds by part of the run: `lap(name)` books the time since the last lap."""
+
+    def __init__(self):
+        self.last, self.laps = time.perf_counter(), {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name] = self.laps.get(name, 0.0) + now - self.last
+        self.last = now
+
+    def line(self) -> str:
+        return "; ".join(f"{k} {v!r}" for k, v in self.laps.items())
+
+
+class CpuReferences:
+    """The training reference steps' CPU runs (CPU_JOBS: phases 16.2, 8, 9
+    and 16.5), which need only the seed and the configs, made by a worker process
+    of this script (`--cpu-references`) while the card runs the earlier
+    phases; `get(job)` waits for one and loads it. The worker takes as many
+    threads as this process (`os.cpu_count()`): the CPU's sums, and so the
+    gates' readings, depend on the thread count (phase 16.2's reference step
+    read 0.96 of its bound at 8 threads, 1.88 at 4), so each run stays the
+    one it was in this process. `paused()` stops it while this process
+    makes CPU references of its own (two sets of threads on the cores slowed
+    both), so it runs while this one drives the card. The worker is killed
+    at exit."""
+
+    def __init__(self, torch, seed: int, out_dir: str):
+        self.torch, self.dir = torch, out_dir
+        self.threads = os.cpu_count() or 1
+        self.log = open(os.path.join(out_dir, "cpu_references.log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-references", out_dir, str(seed), str(self.threads)],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=REPO, env=dict(os.environ, OMP_WAIT_POLICY="PASSIVE"))
+        self.waited = {}
+        atexit.register(self.stop)
+
+    @contextlib.contextmanager
+    def paused(self):
+        """The worker stopped (SIGSTOP) for the block, continued after it."""
+        running = self.proc.poll() is None
+        if running:
+            os.kill(self.proc.pid, signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            if running and self.proc.poll() is None:
+                os.kill(self.proc.pid, signal.SIGCONT)
+
+    def get(self, name: str):
+        path = os.path.join(self.dir, name.replace(" ", "_") + ".pt")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None:
+                self.log.flush()
+                with open(self.log.name) as f:
+                    tail = f.read()[-4000:]
+                fail(f"the CPU reference worker exited {self.proc.returncode} before {name}:\n{tail}")
+            time.sleep(0.5)
+        self.waited[name] = time.perf_counter() - t0
+        return self.torch.load(path, weights_only=False)
+
+    def summary(self) -> str:
+        with open(self.log.name) as f:
+            done = [line.strip() for line in f if line.startswith("cpu reference worker")]
+        return (f"the CPU reference worker ({self.threads} threads): {'; '.join(done)}; the phases waited for it "
+                f"{ {k: round(v, 3) for k, v in self.waited.items()} } s")
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+def checked_weights(torch, name, result, model_cpu):
+    """`result` of a phase 8 / 9 job without its weights' `digest`, after
+    holding it to `model_cpu`'s: the worker drew the same weights."""
+    runs, weights = result
+    if weights != digest(dict(model_cpu.named_parameters())):
+        fail(f"{name}: the CPU reference worker's weights differ from this process's")
+    return runs
 
 
 def multi_card(torch, cards, seed) -> int:
@@ -4552,6 +5031,8 @@ def multi_card(torch, cards, seed) -> int:
 def main() -> int:
     if sys.argv[1:2] == ["--rank-worker"]:  # one of phase 13's rank processes
         return rank_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--cpu-references"]:  # the CPU reference worker (`CpuReferences`)
+        return cpu_reference_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runs", type=int, default=2, help="timed protocol runs per model")
@@ -4570,6 +5051,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.cards:
         return multi_card(torch, args.cards, args.seed)
+    tmp = tempfile.TemporaryDirectory()  # phase 7's synthetic dataset and the CPU references; removed at exit
+    refs = CpuReferences(torch, args.seed, tmp.name)  # phases 8, 9 and 16.5's CPU runs, made meanwhile
+    clock = PhaseClock()
 
     from mqdet_torch.ops import kernels
     from mqdet_torch.tools import card
@@ -4587,20 +5071,21 @@ def main() -> int:
         f"{len(kernels.sources())} kernel sources built from mqdet_torch/csrc for sm_90a in "
         f"{build_s!r} s ({os.path.basename(kernels.library_path())})")
 
-    tmp = tempfile.TemporaryDirectory()  # phase 7's synthetic dataset; removed at exit
     kres, sweep_launches = phase_kernels(torch, args.seed)
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
     torch.set_num_threads(os.cpu_count() or 1)
     launches = {"perf_dcn_sweep": sweep_launches}
+    clock.lap("1-2 (build, kernels)")
 
     # ---- MQ-GLIP-T -------------------------------------------------------
     cfg = mq_glip_t_config()
     cfg.MODEL.ATSS.DETECTIONS_PER_IMG = 300
     model_cpu = init_params(build_model(cfg), seed=args.seed).eval()
     model = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
-    launches.update(phase_reference_glip(torch, cfg, model_cpu, model, args.seed))
-    phase_reference_extract(torch, "MQ-GLIP-T", cfg, model_cpu, model, args.seed, (True, False))
+    with refs.paused():  # the CPU references of phase 3
+        launches.update(phase_reference_glip(torch, cfg, model_cpu, model, args.seed))
+        phase_reference_extract(torch, "MQ-GLIP-T", cfg, model_cpu, model, args.seed, (True, False))
     glip_cpu = model_cpu  # phase 15's towers share its weights; phases 8 and 13 train copies of it
     del model_cpu
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
@@ -4627,31 +5112,35 @@ def main() -> int:
     launches.update(phase_vision_query(torch, "MQ-GLIP-T", cfg, model, args.seed,
                                        predicted(dcn_band=dcn, bi_attention=fuse), tmp.name, 300, glip_vq))
     del tower, parts
-    t15 = time.perf_counter()  # phase 15 for MQ-GLIP-T: the TTA buckets, TTA, knowledge, towers and Swin versions
+    clock.lap("GLIP-T 3-7")
+    # phase 15 for MQ-GLIP-T: the TTA buckets, TTA, knowledge (the towers and Swin versions after phase 17)
     per_group = predicted(dcn_band=stages * (3 * levels - 2), bi_attention=stages)
     phase_tta_kernels(torch, "MQ-GLIP-T", model, cfg, synthetic_batch, args.seed, kres)
     launches.update(phase_tta(torch, "MQ-GLIP-T", cfg, model, glip_vq, per_group))
     launches.update(phase_knowledge(torch, cfg, model, glip_vq, tmp.name, per_group))
-    phase15_s = time.perf_counter() - t15
-    t16 = time.perf_counter()  # phase 16 on MQ-GLIP-T: the merged canvas, MQDET_FUSION_IMPL, the demo
+    clock.lap("GLIP-T 15")
     launches["MQ-GLIP-T merged canvas"] = phase_merged_canvas(torch, model, cfg, args.seed)
     launches["MQ-GLIP-T MQDET_FUSION_IMPL=xla group"] = phase_fusion_impl(torch, model, cfg, args.seed)
     launches["MQ-GLIP-T demo"] = phase_demo(torch, "MQ-GLIP-T", model, cfg, args.seed, per_group)
-    phase16_s = time.perf_counter() - t16
-    t15 = time.perf_counter()
+    clock.lap("GLIP-T 16")
+    launches["MQ-GLIP-T batched protocol"] = phase_batched(torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300,
+                                                           per_group, args.seed, kres, predict=True)
+    clock.lap("GLIP-T 17")
     del model  # nothing of MQ-GLIP-T may stay on the card
     torch.cuda.empty_cache()
-    launches.update(phase_towers(torch, cfg, glip_cpu, args.seed, per_group))
+    with refs.paused():  # the towers' CPU references
+        launches.update(phase_towers(torch, cfg, glip_cpu, args.seed, per_group))
     torch.cuda.empty_cache()
-    phase15_s += time.perf_counter() - t15
+    clock.lap("GLIP-T 15")
 
     # ---- MQ-GroundingDINO-T ----------------------------------------------
     cfg = mq_groundingdino_t_config()
     g = cfg.GROUNDINGDINO
     model_cpu = init_params(build_model(cfg), seed=args.seed).eval()
     model = copy.deepcopy(model_cpu).to(dev, torch.bfloat16).to(memory_format=torch.channels_last)
-    launches["MQ-GroundingDINO-T reference"] = phase_reference_gdino(torch, cfg, model_cpu, model, args.seed)
-    phase_reference_extract(torch, "MQ-GroundingDINO-T", cfg, model_cpu, model, args.seed, (True,))
+    with refs.paused():
+        launches["MQ-GroundingDINO-T reference"] = phase_reference_gdino(torch, cfg, model_cpu, model, args.seed)
+        phase_reference_extract(torch, "MQ-GroundingDINO-T", cfg, model_cpu, model, args.seed, (True,))
     gdino_cpu = model_cpu  # phases 9 and 13 train copies of it (the training config builds the same tensors)
     del model_cpu
     enc, dec, fuse = groups * g.enc_layers, groups * g.dec_layers, groups * g.enc_layers
@@ -4677,30 +5166,38 @@ def main() -> int:
         predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention=fuse), tmp.name, g.num_queries,
         gdino_vq))
     del tr, parts
-    t15 = time.perf_counter()  # phase 15 for MQ-GroundingDINO-T: the TTA buckets and TTA
+    clock.lap("GDINO-T 3-7")
+    gdino_group = predicted(ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers, bi_attention=g.enc_layers)
     phase_tta_kernels(torch, "MQ-GroundingDINO-T", model, cfg, synthetic_caption_batch, args.seed, kres)
-    launches.update(phase_tta(torch, "MQ-GroundingDINO-T", cfg, model, gdino_vq, predicted(
-        ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers, bi_attention=g.enc_layers)))
-    phase15_s += time.perf_counter() - t15
-    t16 = time.perf_counter()  # phase 16 on MQ-GroundingDINO-T: the demo, then the model at 3 levels
-    launches["MQ-GroundingDINO-T demo"] = phase_demo(torch, "MQ-GroundingDINO-T", model, cfg, args.seed, predicted(
-        ms_deform_attn_clip=g.enc_layers, ms_deform_attn=g.dec_layers, bi_attention=g.enc_layers))
+    launches.update(phase_tta(torch, "MQ-GroundingDINO-T", cfg, model, gdino_vq, gdino_group))
+    clock.lap("GDINO-T 15")
+    launches["MQ-GroundingDINO-T demo"] = phase_demo(torch, "MQ-GroundingDINO-T", model, cfg, args.seed, gdino_group)
+    clock.lap("GDINO-T 16")
+    launches["MQ-GroundingDINO-T batched protocol"] = phase_batched(
+        torch, "MQ-GroundingDINO-T", model, cfg, synthetic_caption_batch, g.num_queries, gdino_group, args.seed, kres)
+    clock.lap("GDINO-T 17")
     del model
     torch.cuda.empty_cache()
-    launches.update(phase_gdino3(torch, gdino_cpu, args.seed, kres))
+    launches.update(phase_gdino3(torch, gdino_cpu, args.seed, kres, refs))  # phase 16: the model at 3 levels
     torch.cuda.empty_cache()
-    phase16_s += time.perf_counter() - t16
+    clock.lap("GDINO-T 16")
 
-    say(f"phases 1-7, 15 and 16 (its model paths) done {time.perf_counter() - t_start!r} s after the start "
-        f"(phase 15 {phase15_s!r} s, phase 16 {phase16_s!r} s)")
+    say(f"phases 1-7 and 15-17 (its model paths) done {time.perf_counter() - t_start!r} s after the start")
 
     # ---- phases 8 and 9: modulated pre-training -------------------------
     glip_bounds, gdino_bounds = {}, {}  # the reference steps' bounds, for phase 13
+    cpu = checked_weights(torch, "phase 8", refs.get("phase 8"), glip_cpu)
+    clock.lap("waiting for phase 8's CPU runs")
     launches["MQ-GLIP-T training"] = phase_train(torch, args.seed, glip_vq["dataset"], glip_vq["bank"], smi,
-                                                 glip_bounds, copy.deepcopy(glip_cpu))
+                                                 glip_bounds, copy.deepcopy(glip_cpu), cpu=cpu)
+    clock.lap("8")
+    cpu = checked_weights(torch, "phase 9", refs.get("phase 9"), gdino_cpu)
+    clock.lap("waiting for phase 9's CPU runs")
     launches["MQ-GroundingDINO-T training"] = phase_train_gdino(torch, args.seed, gdino_vq["dataset"],
                                                                 gdino_vq["bank"], smi, gdino_bounds,
-                                                                copy.deepcopy(gdino_cpu))
+                                                                copy.deepcopy(gdino_cpu), cpu=cpu)
+    del cpu
+    clock.lap("9")
     say(f"phases 1-9 done {time.perf_counter() - t_start!r} s after the start")
 
     # ---- phase 10: the evaluation CLI ------------------------------------
@@ -4718,6 +5215,7 @@ def main() -> int:
                               predicted(ms_deform_attn_clip=enc, ms_deform_attn=dec, bi_attention=fuse), None,
                               cli_root, smi, configs))
     torch.cuda.empty_cache()
+    clock.lap("10")
 
     say(f"phases 1-10 done {time.perf_counter() - t_start!r} s after the start")
 
@@ -4729,23 +5227,28 @@ def main() -> int:
     launches["MQ-GLIP-L finetune"] = phase_finetune(torch, args.seed, glip_l, l_root, smi)
     del glip_l
     torch.cuda.empty_cache()
+    clock.lap("11-12")
 
     # ---- phase 13: data parallel on the one card ------------------------
     launches.update(phase_data_parallel(torch, args.seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_bounds,
                                         glip_cpu, gdino_cpu))
     del glip_cpu, gdino_cpu
+    clock.lap("13")
     say(f"phases 1-13 done {time.perf_counter() - t_start!r} s after the start")
 
     # ---- phase 14: MQ-Det's model switches ------------------------------
     launches.update(phase_switches(torch, args.seed, args.runs, smi, glip_vq))
+    clock.lap("14")
     say(f"phases 1-14 done {time.perf_counter() - t_start!r} s after the start")
 
     # ---- phase 16: the legacy detector family, pooling ------------------
-    t16 = time.perf_counter()
     phase_legacy_reference(torch, args.seed)
-    phase_legacy_train(torch, args.seed, smi)
+    phase_legacy_train(torch, args.seed, smi, cpu=lambda arch: refs.get(f"phase 16 {arch}"))
     phase_pools(torch, args.seed)
-    say(f"phase 16: the legacy family and pooling {time.perf_counter() - t16!r} s")
+    clock.lap("16 (legacy, pooling)")
+    say(refs.summary())
+    refs.stop()
+    say(f"seconds by phase: {clock.line()}")
 
     say(f"wall time {time.perf_counter() - t_start!r} s (build included)")
     entries = []

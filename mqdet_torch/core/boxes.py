@@ -25,6 +25,15 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / (box_area(a)[..., :, None] + box_area(b)[..., None, :] - inter)
 
 
+def box_iou_aligned(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Element-wise IoU of aligned (..., 4) boxes."""
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt + TO_REMOVE).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (box_area(a) + box_area(b) - inter)
+
+
 def encode(gt_boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     """BoxCoder.encode: xyxy boxes -> (dx, dy, dw, dh) targets against anchors."""
     wx, wy, ww, wh = BOX_CODER_WEIGHTS
@@ -46,6 +55,11 @@ def encode(gt_boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
 def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
     cx, cy, w, h = boxes.unbind(-1)
     return torch.stack([cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], -1)
+
+
+def xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1], -1)
 
 
 def giou(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:

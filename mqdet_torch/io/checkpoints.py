@@ -96,6 +96,35 @@ class Checkpointer:
         return {}
 
 
+def save_params_npz(path: str, model: torch.nn.Module) -> None:
+    """Write `model`'s weights as the JAX package's `save_params_npz` writes
+    a flax variable tree: one fp32 array per flax leaf, keys the flax paths
+    joined by '/' under `params/` (the `batch_stats/...` leaves under their
+    own collection), each the rule table's transform of the port's tensor
+    (`io/from_jax.py`: HWIO convs, (in, out) dense kernels, 0-d scalars, a
+    GroundingDINO in-projection split into its q / k / v leaves). JAX's
+    `load_params_npz` reads it into the model's variable tree, and
+    `load_params_npz` below back into the port."""
+    import numpy as np
+
+    from mqdet_torch.io.from_jax import IN_PROJ, reference_rules, rule_table
+
+    first = reference_rules(model)  # the port's leaf of each key where several flax leaves share it
+    state = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+    flat, written = {}, set()
+    for name, (ref, tf) in rule_table(model).items():
+        ref = ref[0] if isinstance(ref, tuple) else ref
+        if ref not in state or not (ref.endswith(IN_PROJ) or first[ref][0] == name):
+            continue
+        key = name if name.startswith("batch_stats/") else f"params/{name}"
+        flat[key] = np.asarray(tf(state[ref]), np.float32)
+        written.add(ref)
+    missing = sorted(set(state) - written)
+    if missing:
+        raise KeyError(f"{len(missing)} model keys have no flax leaf: {missing[:10]}")
+    np.savez_compressed(path, **flat)
+
+
 def load_params_npz(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load a JAX package `save_params_npz` file (its flax tree flattened,
     paths joined by '/') into `model` through the weight bridge

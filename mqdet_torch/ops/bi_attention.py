@@ -39,6 +39,9 @@ state (`merge_l_partials`), writing out_l on the last level. The plain
 models of those decompositions, for the tests and `chip_smoke.py` only:
 `bi_attention_tiled_plain`, `bi_attention_levels_tiled_plain`,
 `combine_l_partials` and `merge_l_partials`.
+
+Flops. Every call reports `bi_attention_flops` under the JAX package's family
+name `flash_bi_attention` (`utils/flop_count.py`), on every route.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from mqdet_torch.ops import kernels
+from mqdet_torch.utils import flop_count
 
 # wrapper launches since the last reset: one per call of the single-score
 # pair, of the dual-score kernel, and per level of the levels form
@@ -382,14 +386,28 @@ def flash_bi_attention(q, k, vv, vl, bias_l, num_heads, dual_scores=None):
         dual = os.environ.get("MQDET_FLASH_SCORES", "single") == "dual"
     else:
         dual = bool(dual_scores)
-    if kernels.runs_plain(q):
-        plain = bi_attention_dual_plain if dual else bi_attention_plain
-        return plain(q, k, vv, vl, bias_l, num_heads)
-    return _launch(q, k, vv, vl, bias_l, num_heads, dual)
+    with flop_count.kernel(flash_bi_attention=bi_attention_flops(q.shape, k.shape[1], dual)):
+        if kernels.runs_plain(q):
+            plain = bi_attention_dual_plain if dual else bi_attention_plain
+            return plain(q, k, vv, vl, bias_l, num_heads)
+        return _launch(q, k, vv, vl, bias_l, num_heads, dual)
 
 
 def flash_bi_attention_levels(qs, k, vvs, vl, bias_l, num_heads):
     """See module docstring: one call of the two kernels per level on the card."""
-    if kernels.runs_plain(k):
-        return bi_attention_levels_plain(qs, k, vvs, vl, bias_l, num_heads)
-    return _launch_levels(qs, k, vvs, vl, bias_l, num_heads)
+    b, t, e = k.shape
+    n_total = sum(q.shape[1] for q in qs)
+    with flop_count.kernel(flash_bi_attention=bi_attention_flops((b, n_total, e), t, False)):
+        if kernels.runs_plain(k):
+            return bi_attention_levels_plain(qs, k, vvs, vl, bias_l, num_heads)
+        return _launch_levels(qs, k, vvs, vl, bias_l, num_heads)
+
+
+def bi_attention_flops(q_shape, t: int, dual: bool) -> float:
+    """The JAX package's analytic count (`bi_attention_pallas.py:291-297,
+    334-346`) for queries of shape (B, N, E) (N summed over the levels of the
+    streamed form) against T tokens: one (N, T) score product serving both
+    softmax directions and the two value products, 2 B N T E each; 8 under
+    the dual-score formulation, whose scores are computed twice."""
+    b, n, e = q_shape
+    return (8.0 if dual else 6.0) * b * n * t * e

@@ -30,6 +30,11 @@ JAX's hat-function conventions at integer sample coordinates and the clip's
 half gradient at exactly +-radius); the exact route takes PyTorch autograd of
 `modulated_deform_conv_plain`, the exact composite's own. The launchers refuse
 a call that needs a gradient: their output would have no `grad_fn`.
+
+Flops. Every call of a public function reports `dcn_flops` under the JAX
+package's family name `dcn_pallas` (`utils/flop_count.py`), on every route and
+through `DeformConvFunction`'s forward: the exact and the gather routes too,
+whose JAX counterparts are composites the compiler counts.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from mqdet_torch.ops import kernels
+from mqdet_torch.utils import flop_count
 
 launch_count = 0          # exact kernel launches ("dcn") since the caller last reset it
 clip_launch_count = 0     # its clipped mode ("dcn_gather_clip")
@@ -241,8 +247,26 @@ def _launch(x, offset, mask, weight, bias, stride, radius) -> torch.Tensor:
     return out
 
 
+def dcn_flops(offset: torch.Tensor, x: torch.Tensor, weight: torch.Tensor) -> float:
+    """The JAX package's analytic count (`deform_conv_pallas.py:636-645`): per
+    output position, 9 taps of a 4-corner bilinear blend and the modulation
+    (15 flops a channel), then the (9C, Cout) product."""
+    b, ho, wo = offset.shape[0], offset.shape[1], offset.shape[2]
+    c, cout = x.shape[-1], weight.shape[-1]
+    return b * ho * wo * 9 * c * (2.0 * cout + 15.0)
+
+
 def _on_device(x, plain, launch):
     return plain() if kernels.runs_plain(x) else launch()
+
+
+def _reported(run):
+    """`run` reporting its call's flops (`dcn_flops`, as `dcn_pallas`)."""
+    def reported(x, offset, mask, weight, bias):
+        with flop_count.kernel(dcn_pallas=dcn_flops(offset, x, weight)):
+            return run(x, offset, mask, weight, bias)
+
+    return reported
 
 
 def modulated_deform_conv(
@@ -261,7 +285,7 @@ def modulated_deform_conv(
             lambda: _launch(x, offset, mask, weight, bias, stride, None),
         )
 
-    return _differentiable(run, x, offset, mask, weight, bias, stride, None)
+    return _differentiable(_reported(run), x, offset, mask, weight, bias, stride, None)
 
 
 def modulated_deform_conv_window(x, offset, mask, weight, bias=None, stride=1, radius=3, block_rows=8):
@@ -274,7 +298,7 @@ def modulated_deform_conv_window(x, offset, mask, weight, bias=None, stride=1, r
             lambda: _launch(x, offset, mask, weight, bias, stride, radius),
         )
 
-    return _differentiable(run, x, offset, mask, weight, bias, stride, radius)
+    return _differentiable(_reported(run), x, offset, mask, weight, bias, stride, radius)
 
 
 def modulated_deform_conv_pallas_gather(x, offset, mask, weight, bias=None, stride=1, radius=2, block_rows=16):
@@ -422,7 +446,7 @@ def modulated_deform_conv_pallas(
             return _x_tiled(x, offset, mask, weight, bias, stride, radius, block_rows, version, int(x_tiles))
         return _band(x, offset, mask, weight, bias, stride, radius, block_rows, version)
 
-    return _differentiable(run, x, offset, mask, weight, bias, stride, radius)
+    return _differentiable(_reported(run), x, offset, mask, weight, bias, stride, radius)
 
 
 class DeformConvFunction(torch.autograd.Function):

@@ -47,6 +47,15 @@ JAX's backward differentiates `ms_deform_attn_sample`, not the clipped
 form, so a sample clamped to its window still passes its location the
 gradient of where it would have sampled. The launchers refuse a call that
 needs a gradient: their output would have no `grad_fn`.
+
+Flops (`utils/flop_count.py`; `msda_flops`). A clipped call reports the JAX
+package's count under its family name `msda_pallas`: 10 flops a channel a
+sample point (a 4-corner blend and the weighted sum) over the (lq, lv) pairs
+JAX's encoder kernel takes, summed over its level groups. The pairs JAX leaves
+to its gather composite (the EXACT ones of `clip_pairs`), which the port's
+kernel computes too, and every pair of an exact call, report the same
+per-point count under `msda_exact`. Every route reports, the
+`MSDeformAttnFunction` forward included.
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ import numpy as np
 import torch
 
 from mqdet_torch.ops import kernels
+from mqdet_torch.utils import flop_count
 
 launch_count = 0       # exact kernel launches since the caller last reset it
 clip_launch_count = 0  # launches of its clipped mode ("ms_deform_attn_clip")
@@ -163,6 +173,25 @@ def clips(value: torch.Tensor, spatial_shapes, sampling_locations: torch.Tensor)
     impl = os.environ.get("MQDET_MSDA_IMPL", "pallas")
     on_accel = value.device.type != "cpu" or impl == "pallas_interpret"
     return impl.startswith("pallas") and on_accel and is_encoder(value, spatial_shapes, sampling_locations)
+
+
+def msda_flops(spatial_shapes, b: int, q: int, nh: int, p: int, hd: int, clip: bool) -> Dict[str, float]:
+    """{"msda_pallas": the JAX encoder kernel's count, "msda_exact": the rest}
+    of one call (module docstring). A clipped call's queries are the pyramid's
+    pixels: JAX's kernel reports b Hq Wq nh n_pairs P hd 10 for each query
+    level lq with n_pairs > 0 non-EXACT pairs (`msda_pallas.py:442-448`)."""
+    shapes = [(int(h), int(w)) for h, w in spatial_shapes]
+    if not clip:
+        return {"msda_exact": b * q * nh * len(shapes) * p * hd * 10.0}
+    pairs = clip_pairs(shapes)
+    kernel_part, exact_part = 0.0, 0.0
+    for lq, (hq, wq) in enumerate(shapes):
+        n_pairs = sum(pairs[lq, lv][0] != EXACT for lv in range(len(shapes)))
+        if n_pairs:
+            kernel_part += b * hq * wq * nh * n_pairs * p * hd * 10.0
+        if n_pairs < len(shapes):
+            exact_part += b * hq * wq * nh * (len(shapes) - n_pairs) * p * hd * 10.0
+    return {name: n for name, n in (("msda_pallas", kernel_part), ("msda_exact", exact_part)) if n}
 
 
 def window_bounds(spatial_shapes, device) -> torch.Tensor:
@@ -369,10 +398,12 @@ def ms_deform_attn(
     shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
 
     def run(value, loc, attn):
-        if plain_route:
-            plain = ms_deform_attn_clipped_plain if clip else ms_deform_attn_plain
-            return plain(value, shapes, loc, attn)
-        return _launch(value, shapes, loc, attn, clip)
+        b, q, nh, _, p, _ = loc.shape
+        with flop_count.kernel(**msda_flops(shapes, b, q, nh, p, value.shape[-1], clip)):
+            if plain_route:
+                plain = ms_deform_attn_clipped_plain if clip else ms_deform_attn_plain
+                return plain(value, shapes, loc, attn)
+            return _launch(value, shapes, loc, attn, clip)
 
     if kernels.needs_grad(value, sampling_locations, attention_weights):
         return MSDeformAttnFunction.apply(value, sampling_locations, attention_weights, run, shapes)

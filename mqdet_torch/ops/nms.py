@@ -10,6 +10,7 @@ keep <- valid & ~any(M & keep) is iterated to its fixpoint, which is the
 greedy keep set (entries of rank r are final after r + 1 steps). Both the
 MQ-GLIP and the legacy heads' post-processors call it.
 
+`nms` is the single-class form (every box under one label).
 `soft_nms` is the JAX package's Gaussian soft-NMS (`mqdet_tpu/ops/nms.py::
 soft_nms`), batched; as in JAX, no model calls it (the test-time
 augmentation's merge, `engine/box_aug.py`, has its own numpy one).
@@ -75,6 +76,13 @@ def class_aware_nms(
         keep_idx = torch.cat([keep_idx, keep_idx.new_zeros(b, pad)], 1)
         keep_valid = torch.cat([keep_valid, keep_valid.new_zeros(b, pad)], 1)
     return keep_idx, keep_valid
+
+
+def nms(boxes, scores, valid, iou_threshold: float, max_outputs: int):
+    """Plain single-class NMS (csrc/cuda/nms.cu semantics): `class_aware_nms`
+    with every box under one label."""
+    labels = torch.zeros(boxes.shape[:-1], dtype=torch.int32, device=boxes.device)
+    return class_aware_nms(boxes, scores, labels, valid, iou_threshold, max_outputs)
 
 
 def soft_nms(

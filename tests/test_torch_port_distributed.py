@@ -16,7 +16,9 @@ within 1e-5 of their largest value, against JAX's step on the global batch
 of 2 sharded over a 2-device mesh and against the port's own one-process
 step on it; the masters of the two ranks bitwise equal; run_inference's AP
 within 1e-6 of JAX's and its detections within JAX's run_inference
-tolerances (scores 1e-5, boxes 1e-4), and equal to the one-process port's.
+tolerances (scores 1e-5, boxes 1e-4), and equal to the one-process port's;
+`make_predict_fn` on each rank's half of a batch of 4, all-gathered, within
+the same tolerances of one process's call at batch 4.
 Dropout and drop path are at 0 (`no_dropout`); where the step draws text
 dropout, JAX's loss takes the same (B, L) uniforms.
 """
@@ -282,9 +284,27 @@ def _case_four(spec, rank):
     return {"grads": grads, "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
+PREDICT_KEYS = ("images", "input_ids", "attention_mask", "queries", "query_mask", "agg_map", "image_sizes")
+DET_FIELDS = ("boxes", "scores", "labels", "valid")
+
+
+def _case_predict(spec, rank):
+    """(k) make_predict_fn on the rank's 2 images of a batch of 4, the
+    detections all-gathered (the counterpart of the JAX package's
+    chunk-parallel mesh test, tests/test_multidevice.py:166)."""
+    from mqdet_torch.engine.predict import make_predict_fn
+    from mqdet_torch.parallel import comm
+
+    cfg, model = load_model(spec["eval_cfg"], spec["eval_model"])
+    batch = rows(dict(np.load(spec["predict_batch"])), rank, b=2)
+    det = make_predict_fn(model, tuple(cfg.TPU.IMAGE_BUCKETS[0]), cfg)(
+        *(torch.from_numpy(batch[k]) for k in PREDICT_KEYS))
+    return comm.all_gather({f: getattr(det, f) for f in DET_FIELDS})
+
+
 CASES = {"glip": _case_glip, "gate": _case_gate, "nan": _case_nan, "batch": _case_batch, "gdino": _case_gdino,
          "inference": _case_inference, "bank": _case_bank, "uneven": _case_uneven, "resume": _case_resume,
-         "four": _case_four}
+         "four": _case_four, "predict": _case_predict}
 FOUR = 4  # the ranks of the "four" spawn
 
 
@@ -392,6 +412,17 @@ def gdino_one(gpair):
     return model, state, metrics, step.assignment
 
 
+def predict_batch(cfg):
+    """make_predict_fn's inputs for 4 images (NCHW) and 4 distinct prompts;
+    two images smaller than the bucket."""
+    hw = tuple(cfg.TPU.IMAGE_BUCKETS[0])
+    b = tb.synthetic_batch(cfg, 4, hw, num_labels=3, k_shot=2, seed=8)
+    out = {k: b[k] for k in PREDICT_KEYS if k != "images"}
+    out["images"] = np.ascontiguousarray(b["images"].transpose(0, 3, 1, 2))
+    out["image_sizes"] = np.array([hw, hw, (hw[0] - 6, hw[1] - 10), (hw[0] - 12, hw[1] - 4)], np.float32)
+    return out
+
+
 BANK_STORES = [[(3, 4), (5, 2), (9, 1)], [(3, 3), (7, 2), (9, 4)]]  # (label, rows) per rank
 BANK_CAPACITY = 5
 
@@ -436,6 +467,9 @@ def ranks(tmp_path_factory, glip_pair, gdino_one, gpair, eval_pair):
 
     ds = CocoDetectionDataset(*spec["eval_data"])
     spec["eval_freq"] = json.dumps({ds.cat_id_to_contiguous[c["id"]]: c["frequency"] for c in ds.categories})
+
+    np.savez(root / "predict_batch.npz", **predict_batch(tcfg))
+    spec["predict_batch"] = str(root / "predict_batch.npz")
 
     coco_root = root / "coco"
     coco_root.mkdir()
@@ -794,6 +828,28 @@ def test_run_inference_on_two_ranks_matches_one_process_and_jax(ranks, eval_pair
             def key(r):
                 return (r[1], -r[0], tuple(np.asarray(r[2]).tolist()))
             assert sorted(map(key, state["dets"][cat])) == sorted(map(key, recs)), cat
+
+
+def test_predict_on_two_ranks_matches_one_process_at_batch_four(ranks, eval_pair):
+    """(k) Two ranks each run make_predict_fn on half of a batch of 4 and
+    all-gather the detections: every field equal to one process's call at
+    batch 4, validity and labels exactly, scores within 1e-5, valid boxes
+    1e-4 (the JAX package shards the same batch over a device mesh,
+    tests/test_multidevice.py:166; the port shards it over processes)."""
+    from mqdet_torch.engine.predict import make_predict_fn
+
+    *_, tmodel, _, tcfg = eval_pair
+    batch = predict_batch(tcfg)
+    one = make_predict_fn(tmodel, tuple(tcfg.TPU.IMAGE_BUCKETS[0]), tcfg)(
+        *(torch.from_numpy(batch[k]) for k in PREDICT_KEYS))
+    v = one.valid.numpy()
+    assert v.any(axis=-1).all(), "an image without a detection compares nothing"
+    for o in ranks():
+        got = {f: torch.cat([part[f] for part in o["predict"]]) for f in DET_FIELDS}
+        np.testing.assert_array_equal(got["valid"].numpy(), v)
+        np.testing.assert_array_equal(got["labels"].numpy(), one.labels.numpy())
+        np.testing.assert_allclose(got["scores"].numpy(), one.scores.numpy(), atol=1e-5)
+        np.testing.assert_allclose(got["boxes"].numpy()[v], one.boxes.numpy()[v], atol=1e-4)
 
 
 def _jax_allgather_merge(stores, rank, capacity, channels, num_scales):
