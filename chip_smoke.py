@@ -12,8 +12,8 @@ CLI, data parallelism, MQ-Det's model switches, test-time augmentation,
 knowledge prompts, the CLIP / RNN towers and Swin v2 / vl, GDINO at 3
 feature levels, DyConv's merged canvas, MQDET_FUSION_IMPL, the demo, the
 legacy detector family (ResNet / EfficientNet / BiFPN with the FCOS /
-RetinaNet / ATSS heads), pooling, and the image-batched protocol with the
-flop accounting. Phases, each printing lines:
+RetinaNet / ATSS heads), pooling, the image-batched protocol with the
+flop accounting, and the measurement tools. Phases, each printing lines:
 
   1. the card (`nvidia-smi` name and power limit) and the kernels' build from
      `mqdet_torch/csrc/` with nvcc for sm_90a (one nvcc per source, in
@@ -104,12 +104,14 @@ flop accounting. Phases, each printing lines:
      dual (48; its fusion takes one flattened tensor, so stream does not
      apply);
   5. per model, its default protocol run once more under torch.profiler
-     (the switches' runs are not profiled: their kernels' times are phase
-     2's): device busy time, idle share, kernel time by family and the time
-     and launches of each hand-written kernel;
+     (`mqdet_torch.tools.perf_trace`; the switches' runs are not profiled:
+     their kernels' times are phase 2's): device busy time, idle share,
+     kernel time by family and the time and launches of each hand-written
+     kernel;
   6. per model, last of its protocol runs (default switches), one protocol
      run with a device synchronise at the boundaries of its main modules
-     (forward hooks): host-clock ms per module;
+     (forward hooks, `mqdet_torch.tools.perf_bisect.split_by_module`):
+     host-clock ms per module;
   7. per model, after its phase 6, the vision-query path as a user runs it,
      at full width, with the settings of
      configs/vision_query_5shot/lvis_minival.yaml and the detection and
@@ -229,7 +231,9 @@ flop accounting. Phases, each printing lines:
      summed gradients (each and concatenated) within the larger of phase
      8's (9's) reference bounds (twice the largest of three CPU bf16
      drifts, at 256x256) and twice the card's own bf16 noise at these
-     shapes (the one process on the images scaled by 1 +- 1e-3), the
+     shapes (the elementwise largest over 4 runs of the one process on the
+     images scaled by 1 +- 1e-3 and 1 +- 2e-3; the worst reading under the
+     first 2 runs' noise printed beside it), the
      masters' update from the initial masters (concatenated) within twice
      that noise of the one process's (floor 1e-2; a step that moved nothing
      is 1 from it), the masters bitwise equal across the ranks, the frozen
@@ -239,7 +243,8 @@ flop accounting. Phases, each printing lines:
      dict equal to phase 7's, launches 624 `dcn_band` and 48
      `bi_attention` an image a rank; extraction over the same images: rank
      0's saved bank equal to `QueryBank.merge` of the ranks' stores in rank
-     order, no other rank saving. Then one rank over NCCL, a world of one:
+     order, no other rank saving. Then one rank over NCCL, a world of one
+     (rank 0's process after the gloo group, on the models it built):
      one GLIP step against the one process's first by the same rule (the
      step is not bitwise repeatable on the card: its backward's atomic
      adds sum in varying order). Each
@@ -249,12 +254,13 @@ flop accounting. Phases, each printing lines:
      weights (`init_like`): S1 (`switch_config`: NO_CAT off,
      ADD_ADAPT_LAYER, SHARE_KV, AUGMENT_IMAGE_WITH_QUERY, NEW_MASK_TOKEN,
      ADD_VISION_LAYER, QUERY_FUSION, LEARNABLE_BANK filled from phase 7's
-     bank, ADD_LINEAR_LAYER, MLM_LOSS), MHA-S, SCAN, FILM and S8
+     bank, ADD_LINEAR_LAYER, MLM_LOSS), MHA-S, SCAN, FILM, S8
      (EARLY_FUSE_ON, USE_FUSED_FEATURES_DOT_PRODUCT, USE_DFCONV,
-     USE_DYFUSE, USE_DYRELU off), each a whole model checked at 256x256 by
+     USE_DYFUSE, USE_DYRELU off) and the default model under
+     MODEL.FPN.USE_GN and USE_RELU, each a whole model checked at 256x256 by
      phase 3's rule (logits, boxes, S1's `mlm_logits`; launches 78
-     `dcn_band`, 0 under S8, and 6 `bi_attention` under S1 alone; two
-     card forwards each, both gated);
+     `dcn_band`, 0 under S8, and 6 `bi_attention` under S1 and the FPN
+     switches alone; two card forwards each, both gated);
      CONDITION_GATE off, NONLINEAR_GATE off and FIX_ATTN_GATE 0.25 on the
      full-width language tower alone; phase 4's protocol (without phase
      5) under S1 (the learnable bank's indices), MHA-S and FILM, launches
@@ -340,10 +346,23 @@ flop accounting. Phases, each printing lines:
      batched call: the operator counter, the kernels' registry by family
      (gated: equal to the sum of each launch's own formula, and the
      batched call's B times the per-image call's, exactly), TFLOP/s at the
-     p50 and the share of 989 TFLOP/s (printed, not gated).
+     p50 and the share of 989 TFLOP/s (printed, not gated);
+ 18. the measurement tools of `mqdet_torch/tools/` through their
+     functions, at reduced repetitions, each JSON line printed (`phase_tools`,
+     MQ-GLIP-T right after its phase 17, on phase 4's model;
+     `phase_tools_train` after phase 8, on phase 8's model): perf_trace
+     (phase 5's report; its families sum to its device total), perf_bisect,
+     perf_bisect2, perf_head_once (launches 78 `dcn_band` + 6 `bi_attention`
+     a group), perf_postproc, perf_fusion (one `bi_attention` a stage under
+     `pallas`, none under `xla`), perf_protocol_sweep at CP 8 and 16
+     (launches 78 + 6 a group; every entry within phase 16.4's rule of phase
+     4's entry for its chunk), perf_bucket_churn (one timed run a pixel
+     count) and perf_train_step at batch 4 (2 timed steps, 78 `dcn_band`
+     a step); every number finite and every time above 0.
 
 The CPU runs of the training reference steps of phases 16.2, 8, 9 and
-16.5 need only the seed and the configs: a worker process of this script
+16.5 need only the seed and the configs (phase 14's S1 step phase 7's bank
+too, saved for it): a worker process of this script
 (`--cpu-references DIR SEED THREADS`, `CpuReferences`) makes them while the
 card runs phases 1-7 and 15-17, at this process's thread count (the CPU's
 sums depend on it), stopped while this process makes the CPU references of
@@ -433,24 +452,14 @@ DEFORM_ROUTES = {None: "dcn_band", "window": "dcn_gather_clip", "gather": "dcn"}
 SWEEP_VERSIONS, SWEEP_BLOCK_ROWS = (2, 1, 3, 5, 6), (8, 16)  # version 2 first: the sweep's reference
 
 
-@contextlib.contextmanager
 def switched(name: str, deform=None, msda=None):
     """Sets the fusion switches of SWITCHES[name], MQDET_DEFORM_IMPL and
-    MQDET_MSDA_IMPL (None: unset) for the block."""
-    keys = ("MQDET_FLASH_LEVELS", "MQDET_FLASH_SCORES", "MQDET_FUSION_IMPL", "MQDET_DEFORM_IMPL", "MQDET_MSDA_IMPL")
-    old = {k: os.environ.pop(k, None) for k in keys}
-    os.environ.update(SWITCHES[name])
-    if deform is not None:
-        os.environ["MQDET_DEFORM_IMPL"] = deform
-    if msda is not None:
-        os.environ["MQDET_MSDA_IMPL"] = msda
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            os.environ.pop(k, None)
-            if v is not None:
-                os.environ[k] = v
+    MQDET_MSDA_IMPL (None: unset) for the block, the others of those keys
+    unset."""
+    from mqdet_torch.tools import env
+
+    keys = ("MQDET_FLASH_LEVELS", "MQDET_FLASH_SCORES", "MQDET_FUSION_IMPL")
+    return env(**{**dict.fromkeys(keys), **SWITCHES[name]}, MQDET_DEFORM_IMPL=deform, MQDET_MSDA_IMPL=msda)
 
 
 def fail(msg: str) -> None:
@@ -1136,103 +1145,39 @@ def phase_reference_extract(torch, label, cfg, model_cpu, model_gpu, seed, selec
     del model16
 
 
-FAMILIES = (
-    ("dcn kernels", ("dcn_gather_kernel", "dcn_band_kernel")),
-    ("bi-attention kernels", ("bi_attn_wgmma_kernel", "bi_attn_combine_kernel")),
-    ("msda kernels", ("msda_forward_kernel", "msda_band_kernel")),
-    ("convolutions", ("conv", "fprop", "implicit")),
-    ("matmuls", ("gemm", "nvjet", "cutlass", "xmma")),
-    ("copies", ("copy",)),
-    ("norms", ("norm", "Moments")),
-)
-
-
-def union_us(spans) -> float:
-    """Length of the union of (start, end) intervals."""
-    spans = sorted(spans)
-    if not spans:
-        return 0.0
-    total, (cur_s, cur_e) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return total + cur_e - cur_s
-
-
 def phase_profile(torch, label, protocol, image, text):
-    """One protocol run under torch.profiler: the device's busy time (union
-    of kernel intervals), its share of the window from the first kernel's
-    start to the last one's end, and kernel time by family. The profiler
-    slows the host, so the idle share is an upper bound. It records the
-    CUDA activity alone: the CPU ops' events, which nothing here reads, cost
-    ~20 s of host time a profile."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Phase 5: one protocol run under torch.profiler through
+    `mqdet_torch.tools.perf_trace` (the CUDA activity alone: the CPU ops'
+    events, which nothing here reads, cost ~20 s of host time a profile):
+    the device's busy time (union of kernel intervals), its share of the
+    window from the first kernel's start to the last one's end, and kernel
+    time by class (`perf_trace.CLASSES`). The profiler slows the host, so
+    the idle share is an upper bound. Returns the trace's report."""
+    from mqdet_torch.tools import perf_trace
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        protocol(image, *text)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    rep = perf_trace.report(perf_trace.trace(lambda: protocol(image, *text), 1), 1)
+    if not rep["kernels"]:
         say(f"phase 5: {label}: the profiler recorded no device kernels; breakdown not measured")
-        return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy = union_us(spans)
-    window = spans[-1][1] - spans[0][0]
-    fam = {}
-    for e in kernels:
-        key = next((f for f, pats in FAMILIES if any(p in e.name for p in pats)), "other")
-        fam[key] = fam.get(key, 0.0) + e.time_range.end - e.time_range.start
-    parts = ", ".join(f"{k} {v / 1000.0:.1f}" for k, v in sorted(fam.items(), key=lambda kv: -kv[1]))
-    say(f"phase 5: {label} profiled protocol: device busy {busy / 1000.0!r} ms in a "
-        f"{window / 1000.0!r} ms window (idle share {1.0 - busy / window!r}, profiler on); "
-        f"{len(kernels)} kernels; kernel ms by family: {parts}")
-    own = []
-    for pat in (p for f, pats in FAMILIES[:3] for p in pats):
-        us = [e.time_range.end - e.time_range.start for e in kernels if pat in e.name]
-        if us:
-            own.append(f"{pat} {sum(us) / 1000.0!r} ms in {len(us)} launches ({sum(us) / len(us) / 1000.0!r} each)")
+        return rep
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in rep["classes"].items())
+    say(f"phase 5: {label} profiled protocol: device busy {rep['busy_ms']!r} ms in a {rep['window_ms']!r} ms "
+        f"window (idle share {rep['idle_share']!r}, profiler on); {rep['kernels']} kernels; kernel ms by family: "
+        f"{parts}")
+    own = [f"{pat} {ms!r} ms in {n} launches ({ms / n!r} each)" for pat, (ms, n) in rep["own"].items()]
     say(f"phase 5: {label} hand-written kernels: {'; '.join(own)}")
+    return rep
 
 
 def phase_split(torch, label, protocol, image, text, parts):
-    """One protocol run with a device synchronise before and after each
-    module of `parts` ({name: [modules]}, none inside another): host-clock ms
-    per name, and the rest (glue, heads and postprocess outside those
-    modules). The synchronisations stop the host running ahead of the
-    device, so the total exceeds the p50: the split says where the time
-    goes, not how long the protocol takes."""
-    spent = {name: 0.0 for name in parts}
-    calls = {name: 0 for name in parts}
-    start = {}
+    """Phase 6: one protocol run with a device synchronise before and after
+    each module of `parts` ({name: [modules]}, none inside another),
+    `mqdet_torch.tools.perf_bisect.split_by_module`: host-clock ms per name,
+    and the rest (glue, heads and postprocess outside those modules). The
+    total exceeds the p50: the split says where the time goes, not how long
+    the protocol takes."""
+    from mqdet_torch.tools.perf_bisect import split_by_module
 
-    def pre(mod, args):
-        torch.cuda.synchronize()
-        start[id(mod)] = time.perf_counter()
-
-    def post(name):
-        def hook(mod, args, out):
-            torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - start[id(mod)]
-            calls[name] += 1
-        return hook
-
-    handles = []
-    for name, mods in parts.items():
-        for m in mods:
-            handles += [m.register_forward_pre_hook(pre), m.register_forward_hook(post(name))]
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        protocol(image, *text)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    finally:
-        for h in handles:
-            h.remove()
+    total, spent, calls = split_by_module(protocol, (image, *text), parts)
     if not all(calls.values()):
         fail(f"{label}: split hooks on modules the protocol never called: {calls}")
     split = ", ".join(f"{k} {v * 1000.0!r} ({calls[k]} calls)" for k, v in spent.items())
@@ -1248,12 +1193,13 @@ def predicted(**counts) -> dict:
 
 
 def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed, parts=None,
-                   switch="default", deform=None, profile=True, phase="phase 4"):
+                   switch="default", deform=None, profile=True, phase="phase 4", keep=None):
     """Phase 4 and (with `profile`) 5 for one model under the fusion
     switches SWITCHES[switch] and MQDET_DEFORM_IMPL `deform` (None: unset),
     and phase 6 where `parts` is given; returns the launch counts of the
     counted protocol run (a name of `mqdet_torch.ops.COUNTERS` each).
-    `phase` names the lines."""
+    `phase` names the lines; `keep`, a dict, receives the counted run's
+    detections ("dets") and phase 5's trace report ("trace")."""
     from mqdet_torch.engine.predict import make_protocol_fn
     from mqdet_torch.ops import launch_counts
     from mqdet_torch.utils.builders import protocol_inputs
@@ -1303,8 +1249,12 @@ def phase_protocol(torch, label, model, cfg, make_batch, slots, want, runs, seed
             say(f"{phase}: {label} protocol p50 {p50 * 1000.0!r} ms over {runs} runs "
                 f"(min {min(times) * 1000.0!r}, max {max(times) * 1000.0!r}); {1.0 / p50!r} img/s; "
                 f"peak memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+        if keep is not None:
+            keep["dets"] = dets
         if profile:
-            phase_profile(torch, label, protocol, image, text)
+            rep = phase_profile(torch, label, protocol, image, text)
+            if keep is not None:
+                keep["trace"] = rep
         if parts is not None:
             phase_split(torch, label, protocol, image, text, parts)
     return launches
@@ -1803,7 +1753,7 @@ def phase_dcn_backward(torch, seed, smi):
     return times
 
 
-def phase_train(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None, cpu=None):
+def phase_train(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None, cpu=None, keep=None):
     """Phase 8: MQ-GLIP-T modulated pre-training at full width on the card
     (`mq_glip_t_pretrain_config`) on phase 7's synthetic LVIS-shaped dataset and
     phase 7's extracted MQ-GLIP-T bank: the reference step, each DCN
@@ -1812,7 +1762,8 @@ def phase_train(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None, cp
     receives the reference step's bounds. `model_cpu`: the model of
     init_params(seed) where the caller holds one (the train entry takes it
     over), else drawn here. `cpu`: the reference step's CPU runs
-    (`train_reference_cpu`) where the caller has them."""
+    (`train_reference_cpu`) where the caller has them. `keep`, a dict,
+    receives the trained model on the card and its config."""
     from mqdet_torch.utils.builders import build_model, init_params, landscape, mq_glip_t_pretrain_config
 
     cfg = mq_glip_t_pretrain_config()
@@ -1825,11 +1776,11 @@ def phase_train(torch, seed, dataset, bank, smi, bounds=None, model_cpu=None, cp
                        predicted(dcn_band=stages * (3 * levels - 2)),  # 78 a forward; no bi-attention kernel
                        portrait=landscape(dataset, portrait=True),
                        profiled=("dcn_backward", "`DeformConvFunction`", ("dcn_band_kernel",),
-                                 f"level-0 backward alone (CUDA events) {bwd_ms}"))
+                                 f"level-0 backward alone (CUDA events) {bwd_ms}"), keep=keep)
 
 
 def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, portrait=None, out=None,
-                profiled=None):
+                profiled=None, keep=None):
     """The timed part of a training phase, through the port's train entry
     (`tools.train.build_training`: model, selector, loader, state, step,
     checkpointer): two warm-up steps, 4 timed steps (launches gated at
@@ -1845,7 +1796,8 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, po
     a checkpoint save and restore; then the gates (losses finite, frozen
     bitwise, every trainable tensor and its EMA, where MODEL_EMA keeps one,
     moved). Returns the launch counts of the timed steps; `out`, a dict,
-    receives the median ms per step and the peak memory in GiB."""
+    receives the median ms per step and the peak memory in GiB; `keep`, a
+    dict, the model ("model", on the card) and `cfg` ("cfg")."""
     import numpy as np
 
     from mqdet_torch.data.tokenizer import WordPieceTokenizer
@@ -1909,6 +1861,8 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, po
     if profiled is not None:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+
+        from mqdet_torch.tools.perf_trace import union_us
 
         span, function, fwd_kernels, note = profiled
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1987,6 +1941,8 @@ def train_steps(torch, phase, label, cfg, model_cpu, ds, bank, smi, per_step, po
     import shutil
 
     shutil.rmtree(out_dir, ignore_errors=True)
+    if keep is not None:
+        keep.update(model=model, cfg=cfg)
     del model, state, step, loader, ckpt, frozen, start
     torch.cuda.empty_cache()
     return used
@@ -2927,7 +2883,10 @@ def rank_part_eval(torch, spec, dev, rank, world):
 def rank_worker(spec_path: str) -> int:
     """One rank of phase 13 (run as `chip_smoke.py --rank-worker SPEC`, with
     torchrun's variables in the environment): joins the group over the
-    spec's backend, runs its parts, saves what they return."""
+    spec's backend, runs its parts, saves what they return. Where the spec
+    has `then` (a spec's changes), rank 0 then joins a world of one over
+    that spec's backend on its port and runs its parts too, on the models
+    it holds."""
     import torch
 
     with open(spec_path) as f:
@@ -2935,6 +2894,16 @@ def rank_worker(spec_path: str) -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    rank = rank_parts(torch, spec)
+    if spec.get("then") and rank == 0:
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_PORT=str(spec["then"]["port"]))
+        rank_parts(torch, dict(spec, **spec["then"]))
+    return 0
+
+
+def rank_parts(torch, spec) -> int:
+    """`rank_worker`'s group: init, the spec's parts, the result saved,
+    the group destroyed; returns the rank."""
     from mqdet_torch.parallel import comm
 
     dev = comm.init_distributed("cuda", spec["backend"], timeout_s=DP_GLOO_TIMEOUT_S)
@@ -2952,7 +2921,16 @@ def rank_worker(spec_path: str) -> int:
         torch.cuda.empty_cache()
     torch.save(out, os.path.join(spec["dir"], f"{spec['tag']}_rank{rank}.pt"))
     torch.distributed.destroy_process_group()
-    return 0
+    return rank
+
+
+def free_port() -> int:
+    """A free TCP port on localhost."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def spawn_ranks(torch, spec, world, root):
@@ -2961,17 +2939,13 @@ def spawn_ranks(torch, spec, world, root):
     gloo, and LOCAL_RANK r, a card a rank, over NCCL, which refuses two
     ranks on one device), each within DP_RANK_TIMEOUT_S; one failing ends
     the others and the run. Returns their results in rank order."""
-    import socket
     import subprocess
 
     spec = dict(spec, dir=root)
     path = os.path.join(root, f"{spec['tag']}_spec.json")
     with open(path, "w") as f:
         json.dump(spec, f)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world))
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE=str(world))
     logs = [open(os.path.join(root, f"{spec['tag']}_rank{r}.log"), "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker", path],
                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r if spec["backend"] == "nccl" else 0)),
@@ -3032,7 +3006,7 @@ def dp_verdict(torch, label, ref, got, root, tag, name, bounds, smi):
     twice the largest of three CPU bf16 drifts at 256x256; E2E_FLOOR where
     `bounds` has none, as for the update) and twice the card's own bf16
     noise at these shapes (`ref["noise"]`: the one process on the images
-    scaled by 1 +- 1e-3; GDINO's two-stage top-900 selection may flip
+    scaled by each of NOISE_SCALES; GDINO's two-stage top-900 selection may flip
     under bf16 rounding at 800x1344, a noise the 256x256 bound does not
     see); the ranks' masters bitwise equal; the frozen parameters unchanged
     on every rank. A step that moved no master is 1 from the one process's
@@ -3048,8 +3022,9 @@ def dp_verdict(torch, label, ref, got, root, tag, name, bounds, smi):
         mine = torch.load(os.path.join(root, f"{tag}_{name}_rank0_step{it}.pt"), weights_only=False)
         loss = got[0][name]["metrics"][it]["loss_total"]
         dist = step_distances(torch, mine, want, loss, want["loss"])
-        noise = ref["noise"][it]
+        noise, noise2 = ref["noise"][it], ref["noise2"][it]
         rows = [(k, d, max(bounds.get(k, E2E_FLOOR), 2 * noise[k])) for k, d in dist.items()]
+        w2 = max(d / max(bounds.get(k, E2E_FLOOR), 2 * noise2[k]) for k, d in dist.items())
         used.update({k: max(b, used.get(k, 0.0)) for k, _, b in rows})
         out = [r for r in rows if not (math.isfinite(r[1]) and r[1] <= r[2])]
         bad += [(it + 1, *r) for r in out]
@@ -3065,7 +3040,8 @@ def dp_verdict(torch, label, ref, got, root, tag, name, bounds, smi):
         lines.append(f"step {it + 1}: loss {loss!r} vs {want['loss']!r}; gradients concatenated "
                      f"{dist['concatenated']!r} (the card's noise {noise['concatenated']!r}); the masters' update "
                      f"concatenated {up[1]!r} (the card's noise {noise['update']!r}, bound {up[2]!r}); worst err / "
-                     f"bound {w[1] / w[2]!r} at {w[0]} ({w[1]!r} / {w[2]!r}); {len(out)} of {len(rows)} outside; "
+                     f"bound {w[1] / w[2]!r} at {w[0]} ({w[1]!r} / {w[2]!r}; with the noise of the first 2 of the "
+                     f"{len(NOISE_SCALES)} runs alone {w2!r}); {len(out)} of {len(rows)} outside; "
                      f"{by_noise} bounds set by the card's noise; {loose} bounds at 1 or more (they pass a zero "
                      f"gradient); the most distant tensor's update (ungated) "
                      f"{per_master[0]} {per_master[1]!r}; masters bitwise equal across the ranks: {same}, bitwise "
@@ -3108,8 +3084,9 @@ def step_distances(torch, mine, want, loss, want_loss) -> dict:
     return out
 
 
-NOISE_SCALES = (1.0 + 1e-3, 1.0 - 1e-3)  # phase 13's perturbed runs of the one process
-CARDS_NOISE_SCALES = NOISE_SCALES + (1.0 + 2e-3, 1.0 - 2e-3)  # `--cards`: 4 runs, a 2-run estimate read low
+# the one process's perturbed runs (phase 13, `--cards`): a 2-run estimate of the card's noise read low, on
+# `--cards` and on one card (a 0-d gate at 1.134 of its bound), so 4 runs
+NOISE_SCALES = (1.0 + 1e-3, 1.0 - 1e-3, 1.0 + 2e-3, 1.0 - 2e-3)
 
 
 def dp_reference(torch, cfg, model_cpu, batches, dev, root, tag, scales=NOISE_SCALES):
@@ -3119,15 +3096,18 @@ def dp_reference(torch, cfg, model_cpu, batches, dev, root, tag, scales=NOISE_SC
     measured here: the same steps on the images scaled by each of `scales`,
     each step's distances (`step_distances`, the masters' update from `init`
     among them) from the unscaled run's, the elementwise largest kept per
-    step (`noise`)."""
+    step (`noise`; `noise2`: over the first two scales alone, which
+    `dp_verdict` reads beside it)."""
     import numpy as np
 
     rec = dp_train(torch, cfg, model_cpu, batches, dev, save=os.path.join(root, f"{tag}_one_step"), timing=True)
     init = torch.load(os.path.join(root, f"{tag}_one_stepinit.pt"), weights_only=False)
     steps = [dict(torch.load(os.path.join(root, f"{tag}_one_step{it}.pt"), weights_only=False),
                   loss=rec["metrics"][it]["loss_total"], init=init) for it in range(len(batches))]
-    noise = [{} for _ in batches]
-    for scale in scales:
+    noise, noise2 = [{} for _ in batches], None
+    for n, scale in enumerate(scales):
+        if n == 2:
+            noise2 = [dict(d) for d in noise]
         scaled = [dict(b, images=(b["images"] * np.float32(scale)).astype(np.float32)) for b in batches]
         run = dp_train(torch, cfg, model_cpu, scaled, dev, assignment=rec["assignment"],
                        save=os.path.join(root, f"{tag}_noise_step"))
@@ -3135,7 +3115,8 @@ def dp_reference(torch, cfg, model_cpu, batches, dev, root, tag, scales=NOISE_SC
             mine = torch.load(os.path.join(root, f"{tag}_noise_step{it}.pt"), weights_only=False)
             d = step_distances(torch, mine, want, run["metrics"][it]["loss_total"], want["loss"])
             noise[it] = {k: max(v, noise[it].get(k, 0.0)) for k, v in d.items()}
-    return dict(rec, steps=steps, noise=noise, batch_rows=list(range(len(batches[0]["images"]))))
+    return dict(rec, steps=steps, noise=noise, noise2=noise2 or noise,
+                batch_rows=list(range(len(batches[0]["images"]))))
 
 
 def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_bounds, glip_model=None,
@@ -3153,7 +3134,8 @@ def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_
     extraction over the same images, rank 0's saved bank equal to phase 7's
     `QueryBank.merge` of the ranks' stores in JAX's order, no other rank
     saving. Then one rank over NCCL (a world of one, through
-    `init_distributed`): one GLIP step against the one process's first by
+    `init_distributed`, in rank 0's process once its gloo group is
+    destroyed: its models are built): one GLIP step against the one process's first by
     the same rule. Returns the launch counts, each path's summed over its
     ranks. `glip_model`, `gdino_model`: the models of init_params(seed)
     where the caller holds them (not changed), else drawn here."""
@@ -3195,7 +3177,10 @@ def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_
             "glip_batches": os.path.join(root, "glip_batches.pt"), "gdino_batches": os.path.join(root,
                                                                                               "gdino_batches.pt"),
             "gdino_assignment": os.path.join(root, "gdino_assignment.npy"),
-            "glip_bank": os.path.join(root, "glip_bank.npz"), "bank_path": os.path.join(root, "extracted.npz")}
+            "glip_bank": os.path.join(root, "glip_bank.npz"), "bank_path": os.path.join(root, "extracted.npz"),
+            # then NCCL at world 1 in rank 0's process, on the models it holds: one GLIP step
+            "then": {"backend": "nccl", "tag": "nccl", "parts": ["glip"], "steps": 1, "timing": False,
+                     "port": free_port()}}
     t0 = time.perf_counter()
     got = spawn_ranks(torch, spec, DP_RANKS, root)
     ranks_s = time.perf_counter() - t0
@@ -3279,15 +3264,15 @@ def phase_data_parallel(torch, seed, smi, glip_vq, gdino_vq, glip_bounds, gdino_
     if not same or len(saves[0]) != 1 or any(saves[1:]):
         fail("phase 13: the extracted bank is not the merge of the ranks' stores, or not rank 0 alone saved it")
 
-    # NCCL at world 1: one GLIP step through init_distributed, the one process's first under the same rule
-    t0 = time.perf_counter()
-    (one,) = spawn_ranks(torch, dict(spec, backend="nccl", tag="nccl", parts=["glip"], steps=1, timing=False), 1, root)
+    # NCCL at world 1 (rank 0's process after the gloo group): one GLIP step through init_distributed, the one
+    # process's first under the same rule
+    one = torch.load(os.path.join(root, "nccl_rank0.pt"), weights_only=False)
     if one["backend"] != "nccl" or one["world"] != 1:
         fail(f"phase 13: the NCCL rank reports backend {one['backend']}, world {one['world']}")
     dp_verdict(torch, "MQ-GLIP-T training through init_distributed('cuda', 'nccl')", glip_ref, [one], root, "nccl",
                "glip", glip_bounds, smi)
     say(f"phase 13: the NCCL rank: launches {({k: v for k, v in one['glip']['launches'].items() if v})} "
-        f"(predicted {({k: v for k, v in per_step.items() if v})}); {time.perf_counter() - t0!r} s")
+        f"(predicted {({k: v for k, v in per_step.items() if v})}); {one['seconds']['glip']!r} s")
     if one["glip"]["launches"] != per_step:
         fail("phase 13: the NCCL rank's launches differ from a step's")
 
@@ -3317,9 +3302,9 @@ GATE_SWITCHES = {"CONDITION_GATE off": ("CONDITION_GATE", False), "NONLINEAR_GAT
 def switch_config(cfg, name):
     """A copy of `cfg` under phase 14's switch set `name`: "S1" (every
     switch of S1_VISION_QUERY, ADD_LINEAR_LAYER and MLM_LOSS), a fuse type
-    ("MHA-S", "SCAN", "FILM"), or "S8" (EARLY_FUSE_ON,
+    ("MHA-S", "SCAN", "FILM"), "S8" (EARLY_FUSE_ON,
     USE_FUSED_FEATURES_DOT_PRODUCT, USE_DFCONV, USE_DYFUSE and USE_DYRELU
-    off)."""
+    off) or "FPN GN+ReLU" (MODEL.FPN.USE_GN and USE_RELU on)."""
     c = cfg.clone()
     dy = c.MODEL.DYHEAD
     fc = dy.FUSE_CONFIG
@@ -3330,6 +3315,8 @@ def switch_config(cfg, name):
     elif name == "S8":
         fc.EARLY_FUSE_ON = fc.USE_FUSED_FEATURES_DOT_PRODUCT = False
         dy.USE_DFCONV = dy.USE_DYFUSE = dy.USE_DYRELU = False
+    elif name == "FPN GN+ReLU":
+        c.MODEL.FPN.USE_GN = c.MODEL.FPN.USE_RELU = True
     else:
         fc.TYPE = name
     return c
@@ -3565,7 +3552,30 @@ def phase_switch_telemetry(torch, cfg, model_cpu, model_gpu, selector, dataset, 
     return {"phase 14 run_inference": used}
 
 
-def phase_switch_train(torch, seed, smi, dataset, bank, model_cpu):
+def s1_train_config(bank, seed):
+    """(phase 14's S1 training config: recipe vision_query_v5 on phase 8's,
+    `edit`: the reference step's batch with the learnable bank's indices of
+    `bank` as its queries)."""
+    from mqdet_torch.utils.builders import mq_glip_t_pretrain_config
+
+    cfg = switch_config(mq_glip_t_pretrain_config(), "S1")
+    cfg.SOLVER.TUNING_HIGHLEVEL_OVERRIDE = "vision_query_v5"
+
+    def edit(batch):
+        batch["queries"] = bank_indices(bank, batch["queries"].shape[:2], seed)
+
+    return cfg, edit
+
+
+def s1_selector(bank):
+    """Phase 14's selector over `bank`: 5 queries, 40 labels, indices into
+    the learnable bank."""
+    from mqdet_torch.mq.selector import QuerySelector
+
+    return QuerySelector(bank, num_query_per_class=5, max_labels=40, emit_indices=True)
+
+
+def phase_switch_train(torch, seed, smi, dataset, bank, model_cpu, cpu=None):
     """Phase 14: S1 training with recipe vision_query_v5 (phase 8's recipe
     otherwise) on phase 7's dataset (its landscape images) and bank, the
     learnable bank filled from it and the loader's selector emitting its
@@ -3580,7 +3590,8 @@ def phase_switch_train(torch, seed, smi, dataset, bank, model_cpu):
     `mlm_loss` and their backward at the step's shapes (B 2, T 256), CUDA
     events, over the step's time. `model_cpu`: the S1 model of the
     reference checks (the training settings change no parameter), on the
-    CPU in fp32. Returns the launches of the 3 steps."""
+    CPU in fp32. `cpu`: the reference step's CPU runs where the CPU
+    reference worker made them. Returns the launches of the 3 steps."""
     import numpy as np
 
     from mqdet_torch.core.config import frozen_patterns, trainable_patterns
@@ -3590,21 +3601,17 @@ def phase_switch_train(torch, seed, smi, dataset, bank, model_cpu):
     from mqdet_torch.engine.train import batch_to_device, init_train_state, make_train_step, step_generator
     from mqdet_torch.mq.selector import QuerySelector
     from mqdet_torch.ops import launch_counts
-    from mqdet_torch.utils.builders import landscape, mq_glip_t_pretrain_config
+    from mqdet_torch.utils.builders import landscape
 
-    cfg = switch_config(mq_glip_t_pretrain_config(), "S1")
-    cfg.SOLVER.TUNING_HIGHLEVEL_OVERRIDE = "vision_query_v5"
+    cfg, edit = s1_train_config(bank, seed)
     vq = cfg.VISION_QUERY
     selector = QuerySelector(bank, num_query_per_class=vq.NUM_QUERY_PER_CLASS, pure_text_rate=vq.PURE_TEXT_RATE,
                              random_kshot=vq.RANDOM_KSHOT, max_labels=vq.MAX_CLASSES_PER_PROMPT, emit_indices=True)
     stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
     per_step = predicted(dcn_band=stages * (3 * levels - 2))
 
-    def edit(batch):
-        batch["queries"] = bank_indices(bank, batch["queries"].shape[:2], seed)
-
     phase_train_reference(torch, cfg, model_cpu, seed, phase="phase 14", label="MQ-GLIP-T under S1, vision_query_v5",
-                          edit=edit)
+                          edit=edit, cpu=cpu)
     dev = torch.device("cuda")
     model = on_card(torch, model_cpu)
     loader = GroundingTrainLoader(landscape(dataset), cfg, WordPieceTokenizer(), selector)
@@ -3678,38 +3685,40 @@ def phase_switch_train(torch, seed, smi, dataset, bank, model_cpu):
     return used
 
 
-def phase_switches(torch, seed, runs, smi, glip_vq):
+def phase_switches(torch, seed, runs, smi, glip_vq, cpu=None):
     """Phase 14: MQ-Det's model switches on the card, MQ-GLIP-T at full
-    width, S1 and MHA-S from init_params(seed), SCAN, FILM, S8 and the gate
-    switches' language towers `init_like` the MHA-S model (their shared
-    weights copied, not drawn again). The reference checks (phase 3's rule) at
-    256x256 of S1 (`switch_config`; the learnable bank from phase 7's bank),
-    MHA-S, SCAN, FILM and S8, each a whole model, and of the three gate
+    width, S1 and MHA-S from init_params(seed), SCAN, FILM, S8, the FPN
+    under MODEL.FPN.USE_GN and USE_RELU and the gate switches' language
+    towers `init_like` the MHA-S model (their shared weights copied, not
+    drawn again). The reference checks (phase 3's rule) at 256x256 of S1
+    (`switch_config`; the learnable bank from phase 7's bank), MHA-S, SCAN,
+    FILM, S8 and "FPN GN+ReLU", each a whole model, and of the three gate
     switches on the language tower alone; the LVIS protocol (phase 4,
     without phase 5's profile) under S1, MHA-S and FILM, launches gated
     (624 `dcn_band` in all three; 48 `bi_attention` under S1, 0 under
     MHA-S and FILM); `run_inference` under RETURN_ATTN_GATE_VALUE
-    (`phase_switch_telemetry`); S1 training (`phase_switch_train`).
-    Returns the launch counts of its counted paths."""
-    from mqdet_torch.mq.selector import QuerySelector
+    (`phase_switch_telemetry`); S1 training (`phase_switch_train`; `cpu(S1
+    model)`: its reference step's CPU runs from the CPU reference worker,
+    else made here). Returns the launch counts of its counted paths."""
     from mqdet_torch.utils.builders import mq_glip_t_config, synthetic_batch
 
     t_phase = time.perf_counter()
     bank = glip_vq["bank"]
     base = mq_glip_t_config()
     base.MODEL.ATSS.DETECTIONS_PER_IMG = 300
-    selector = QuerySelector(bank, num_query_per_class=5, max_labels=40, emit_indices=True)
+    selector = s1_selector(bank)
     stages, levels = base.MODEL.DYHEAD.NUM_CONVS, len(base.MODEL.RPN.ANCHOR_STRIDE)
     dcn = stages * (3 * levels - 2)
     launches, keep, donor = {}, {}, None
-    for name in ("S1", "MHA-S", "SCAN", "FILM", "S8"):  # SCAN, FILM, S8 init_like MHA-S (S1's towers differ)
+    for name in ("S1", "MHA-S", "SCAN", "FILM", "S8", "FPN GN+ReLU"):  # the last four init_like MHA-S
         cfg = switch_config(base, name)
         t0 = time.perf_counter()
         model_cpu = switch_model(torch, cfg, seed, selector, donor)
         say(f"phase 14: MQ-GLIP-T under {name} built on the host in {time.perf_counter() - t0!r} s"
             f"{' (init_like the MHA-S model)' if donor is not None else ''}")
         model = on_card(torch, model_cpu)
-        want = predicted(dcn_band=0 if name == "S8" else dcn, bi_attention=stages if name == "S1" else 0)
+        want = predicted(dcn_band=0 if name == "S8" else dcn,
+                         bi_attention=stages if name in ("S1", "FPN GN+ReLU") else 0)
         launches[f"phase 14 {name} reference"] = phase_switch_reference(
             torch, name, cfg, model_cpu, model, seed, want, bank if name == "S1" else None)
         if name in ("S1", "MHA-S", "FILM"):
@@ -3738,7 +3747,8 @@ def phase_switches(torch, seed, runs, smi, glip_vq):
                                            predicted(dcn_band=groups * dcn, bi_attention=groups * stages)))
     del model
     torch.cuda.empty_cache()
-    launches["phase 14 S1 training"] = phase_switch_train(torch, seed, smi, ds, bank, model_cpu)
+    launches["phase 14 S1 training"] = phase_switch_train(torch, seed, smi, ds, bank, model_cpu,
+                                                          cpu(model_cpu) if cpu else None)
     say(f"phase 14: {time.perf_counter() - t_phase!r} s in all")
     return launches
 
@@ -4830,16 +4840,166 @@ def phase_batched(torch, label, model, cfg, make_batch, slots, per_group, seed, 
     return total
 
 
-CPU_JOBS = ("phase 16 GDINO-3", "phase 8", "phase 9") + tuple(f"phase 16 {arch}" for arch in LEGACY_HEADS)  # by need
+# ---- phase 18: the measurement tools ------------------------------------------
 
 
-def cpu_reference_job(torch, name, seed):
+def tool_numbers(x):
+    """The numbers of a tool's JSON record (nested dicts and lists), with
+    their keys."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            if isinstance(v, (dict, list)):
+                yield from ((f"{k}.{kk}", vv) for kk, vv in tool_numbers(v))
+            elif isinstance(v, (int, float)) and not isinstance(v, bool):
+                yield k, float(v)
+    elif isinstance(x, list):
+        for v in x:
+            yield from tool_numbers(v)
+
+
+def tool_gate(records) -> None:
+    """Phase 18's gate on every (tool, record): each number finite, each
+    time (a key holding `_ms` or ending in `_s`) above 0."""
+    for tool, rec in records:
+        for k, v in tool_numbers(rec):
+            if not math.isfinite(v) or (("_ms" in k or k.endswith("_s")) and v <= 0):
+                fail(f"phase 18 {tool}: {k} = {v!r} in {rec}")
+
+
+def phase_tools(torch, model, cfg, seed, ref, smi):
+    """Phase 18 (MQ-GLIP-T, right after its phase 17): every measurement tool
+    of `mqdet_torch/tools/` that evaluates, through its function, on phase
+    4's model at reduced repetitions, each JSON line printed: perf_trace's
+    lines from phase 5's report of the default protocol (`ref["trace"]`;
+    gated: the families' totals sum to `device_total_ms`); perf_bisect (1 +
+    3 calls a key), perf_bisect2, perf_head_once (1 + 4 runs; launches 78
+    `dcn_band` + 6 `bi_attention` a group), perf_postproc, perf_fusion (1 +
+    2 runs; one `bi_attention` a stage under `pallas`, none under `xla`),
+    perf_protocol_sweep at CP 8 and 16 (1 + 2 runs; launches 78 + 6 a
+    group, each entry (g, c) within phase 16.4's rule of phase 4's entry
+    (0, c % 4), `ref["dets"]`: the same image and chunks) and
+    perf_bucket_churn (one timed run a pixel count; the 800x1344 geometry's
+    first call is warm: phase 4 ran it). Every number finite, every time
+    above 0 (`tool_gate`). The launches are the tools' own, counted in no
+    path of the kernel line."""
+    from mqdet_torch.core.detections import Detections
+    from mqdet_torch.tools import (
+        perf_bisect, perf_bisect2, perf_bucket_churn, perf_fusion, perf_head_once, perf_postproc,
+        perf_protocol_sweep, perf_trace,
+    )
+    from mqdet_torch.utils.builders import protocol_inputs, synthetic_batch
+
+    t_phase = time.perf_counter()
+    dev, hw = torch.device("cuda"), (800, 1344)
+    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
+    group = {k: v for k, v in predicted(dcn_band=stages * (3 * levels - 2), bi_attention=stages).items() if v}
+    records, seconds = [], {}
+
+    def show(tool):
+        def emit(rec):
+            records.append((tool, rec))
+            say(f"phase 18: {tool} {json.dumps(rec)}")
+        return emit
+
+    def timed(tool, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[tool] = time.perf_counter() - t0
+        return out
+
+    rep = ref["trace"]
+    for line in perf_trace.lines(rep):
+        show("perf_trace")(line)
+    fam = sum(ms for _, ms, _, _ in rep["families"])
+    if not (rep["kernels"] and math.isclose(fam, rep["device_total_ms"], rel_tol=1e-9)):
+        fail(f"phase 18 perf_trace: the families sum to {fam!r} ms, device_total_ms {rep['device_total_ms']!r}")
+    image, text = protocol_inputs(cfg, synthetic_batch, 1, 4, hw, seed)
+    image, text = image.to(dev), [t.to(dev) for t in text]
+    timed("perf_bisect", lambda: perf_bisect.bisect(model, cfg, hw, image, text, 3, 1, emit=show("perf_bisect")))
+    timed("perf_bisect2", lambda: perf_bisect2.bisect2(model, cfg, hw, image, text, 3, emit=show("perf_bisect2")))
+    rec = timed("perf_head_once", lambda: perf_head_once.head_once(model, cfg, hw, image, text, 4, 1))
+    show("perf_head_once")(rec)
+    if rec["launches_per_group"] != group:
+        fail(f"phase 18 perf_head_once: launches {rec['launches_per_group']} != predicted {group}")
+    timed("perf_postproc", lambda: perf_postproc.postproc(dev, iters=3, warmup=1, emit=show("perf_postproc")))
+    fus = timed("perf_fusion", lambda: perf_fusion.fusion(dev, reps=2, warmup=1, emit=show("perf_fusion")))
+    if [r["launches_per_stage"] for r in fus] != [{"bi_attention": 1}, {}]:
+        fail(f"phase 18 perf_fusion: launches a stage {[r['launches_per_stage'] for r in fus]} != "
+             f"[{{'bi_attention': 1}}, {{}}]")
+    recs, dets = timed("perf_protocol_sweep", lambda: perf_protocol_sweep.sweep(
+        model, cfg, hw, (8, 16), runs=2, warmup=1, seed=seed, emit=show("perf_protocol_sweep")))
+    worst = (0.0, 0.0, 0.0)
+    fields = ("boxes", "scores", "labels", "valid")
+    for r in recs:
+        want = {k: v * r["groups"] for k, v in group.items()}
+        if r["launches"] != want:
+            fail(f"phase 18 perf_protocol_sweep CP {r['cp']}: launches {r['launches']} != predicted {want}")
+        d = dets[r["cp"]]
+        for g in range(r["groups"]):
+            for c in range(r["cp"]):
+                got = Detections(**{f: getattr(d, f)[g, c] for f in fields})
+                base = Detections(**{f: getattr(ref["dets"], f)[0, c % 4] for f in fields})
+                ratio, bnd, diff, _ = entry_verdict(torch, got, base)
+                if not (ratio <= 1.0 and bool(torch.isfinite(got.boxes).all())):
+                    fail(f"phase 18 perf_protocol_sweep CP {r['cp']}: entry ({g}, {c}) apart from phase 4's "
+                         f"(0, {c % 4}): top-300 scores max |diff| {diff!r} > {bnd!r}")
+                worst = max(worst, (ratio, diff, bnd))
+    say(f"phase 18: perf_protocol_sweep: every entry at CP 8 and 16 within phase 16.4's rule of phase 4's "
+        f"(worst max |diff| / bound {worst[0]!r}: {worst[1]!r} against {worst[2]!r})")
+    del dets
+    timed("perf_bucket_churn", lambda: perf_bucket_churn.churn(model, cfg, runs=1,
+                                                               emit=show("perf_bucket_churn")))
+    tool_gate(records)
+    say(f"phase 18: the evaluation tools on MQ-GLIP-T ({smi}): {len(records)} lines, every number finite and every "
+        f"time above 0; seconds by tool { {k: round(v, 3) for k, v in seconds.items()} }; "
+        f"{time.perf_counter() - t_phase!r} s in all")
+
+
+def phase_tools_train(torch, model, cfg, smi):
+    """Phase 18 (after phase 8): perf_train_step on phase 8's model (its
+    training config; TPU.REMAT as phase 8 built it) at batch 4, 1 warm-up and
+    2 timed steps: launches 78 `dcn_band` a step, every number finite, every
+    time above 0, the batch held (no out-of-memory record)."""
+    from mqdet_torch.tools import perf_train_step
+
+    t0 = time.perf_counter()
+    records = []
+    stages, levels = cfg.MODEL.DYHEAD.NUM_CONVS, len(cfg.MODEL.RPN.ANCHOR_STRIDE)
+    (rec,) = perf_train_step.train_points(model, cfg, [4], tuple(cfg.TPU.IMAGE_BUCKETS[0]), warm=1, timed=2,
+                                          emit=lambda r: records.append(("perf_train_step", r)))
+    say(f"phase 18: perf_train_step {json.dumps(rec)}")
+    if "error" in rec:
+        fail(f"phase 18 perf_train_step: batch 4 did not run: {rec['error']}")
+    if rec["launches_per_step"] != {"dcn_band": stages * (3 * levels - 2)}:
+        fail(f"phase 18 perf_train_step: launches a step {rec['launches_per_step']}")
+    tool_gate(records)
+    say(f"phase 18: perf_train_step on phase 8's model ({smi}): {time.perf_counter() - t0!r} s")
+
+
+CPU_JOBS = ("phase 16 GDINO-3", "phase 8", "phase 9") + tuple(f"phase 16 {arch}" for arch in LEGACY_HEADS) + (
+    "phase 14 S1",)  # by need
+S1_BANK = "glip_bank.npz"  # phase 7's MQ-GLIP-T bank, saved for the worker's phase 14 S1 job
+
+
+def cpu_reference_job(torch, name, seed, out_dir):
     """One CPU_JOBS entry, from the seed and the configs alone: the CPU runs
     of phase 8's, 9's or 16.2's reference step (with the weights' `digest`)
-    or of phase 16.5's reference step for one head."""
-    from mqdet_torch.utils.builders import build_model, init_params, mq_glip_t_pretrain_config, \
+    or of phase 16.5's reference step for one head; or, once phase 7's
+    MQ-GLIP-T bank is in out_dir/S1_BANK, of phase 14's S1 reference step
+    (with the S1 model's `digest`)."""
+    from mqdet_torch.utils.builders import build_model, init_params, mq_glip_t_config, mq_glip_t_pretrain_config, \
         mq_groundingdino_t_config
 
+    if name == "phase 14 S1":
+        from mqdet_torch.mq.bank import QueryBank
+
+        path = os.path.join(out_dir, S1_BANK)
+        while not os.path.exists(path):
+            time.sleep(0.5)
+        bank = QueryBank.load(path)
+        model = switch_model(torch, switch_config(mq_glip_t_config(), "S1"), seed, s1_selector(bank))
+        cfg, edit = s1_train_config(bank, seed)
+        return train_reference_cpu(torch, cfg, model, seed, edit), digest(dict(model.named_parameters()))
     if name == "phase 16 GDINO-3":
         _, cfg, model = gdino3_models(torch, init_params(build_model(mq_groundingdino_t_config()), seed=seed), seed)
         runs = gdino_reference_cpu(torch, cfg, model, seed)
@@ -4861,7 +5021,7 @@ def cpu_reference_worker(out_dir: str, seed: int, threads: int) -> int:
     torch.set_num_threads(threads)
     for name in CPU_JOBS:
         t0 = time.perf_counter()
-        result = cpu_reference_job(torch, name, seed)
+        result = cpu_reference_job(torch, name, seed, out_dir)
         path = os.path.join(out_dir, name.replace(" ", "_") + ".pt")
         torch.save(result, path + ".tmp")
         os.replace(path + ".tmp", path)
@@ -4886,9 +5046,10 @@ class PhaseClock:
 
 class CpuReferences:
     """The training reference steps' CPU runs (CPU_JOBS: phases 16.2, 8, 9
-    and 16.5), which need only the seed and the configs, made by a worker process
-    of this script (`--cpu-references`) while the card runs the earlier
-    phases; `get(job)` waits for one and loads it. The worker takes as many
+    and 16.5, which need only the seed and the configs, and phase 14's S1,
+    which waits for phase 7's bank in out_dir/S1_BANK), made by a worker
+    process of this script (`--cpu-references`) while the card runs the
+    earlier phases; `get(job)` waits for one and loads it. The worker takes as many
     threads as this process (`os.cpu_count()`): the CPU's sums, and so the
     gates' readings, depend on the thread count (phase 16.2's reference step
     read 0.96 of its bound at 8 threads, 1.88 at 4), so each run stays the
@@ -5001,7 +5162,7 @@ def multi_card(torch, cards, seed) -> int:
     torch.cuda.empty_cache()
     batches = loader_batches(glip_cfg, landscape(ds), bank, 2)
     torch.save(batches, os.path.join(root, "glip_batches.pt"))
-    ref = dp_reference(torch, glip_cfg, model_cpu, batches, dev, root, "one_glip", CARDS_NOISE_SCALES)
+    ref = dp_reference(torch, glip_cfg, model_cpu, batches, dev, root, "one_glip")
     torch.cuda.empty_cache()
     spec = {"seed": seed, "backend": "nccl", "tag": "cards", "parts": ["glip"], "timing": True,
             "glip_batches": os.path.join(root, "glip_batches.pt")}
@@ -5096,6 +5257,7 @@ def main() -> int:
              "VLFuse": list(tower[0::3]), "head BERT layers": list(tower[1::3]), "DyConv": list(tower[2::3])}
     # default last: its phase 6 (synchronised split) ends a model's runs, because
     # protocols timed right after it read 7-24% slower with the same device busy time
+    glip_ref = {}  # phase 4's default run's detections and phase 5's trace, for phase 18
     for switch, deform, want in (
         ("stream", None, predicted(dcn_band=dcn, bi_attention_levels=fuse * levels)),  # one launch per level
         ("dual", None, predicted(dcn_band=dcn, bi_attention_dual=fuse)),
@@ -5106,11 +5268,13 @@ def main() -> int:
         main_run = switch == "default" and deform is None  # phase 5 profiles the default runs alone
         launches[f"MQ-GLIP-T {switch}{' ' + deform if deform else ''}"] = phase_protocol(
             torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300, want, args.runs if main_run else 0, args.seed,
-            parts if main_run else None, switch, deform, profile=main_run,
+            parts if main_run else None, switch, deform, profile=main_run, keep=glip_ref if main_run else None,
         )
     glip_vq = {}  # phase 7's dataset and bank, for phase 8
     launches.update(phase_vision_query(torch, "MQ-GLIP-T", cfg, model, args.seed,
                                        predicted(dcn_band=dcn, bi_attention=fuse), tmp.name, 300, glip_vq))
+    glip_vq["bank"].save(os.path.join(tmp.name, "bank.tmp.npz"))  # for the worker's phase 14 S1 job
+    os.replace(os.path.join(tmp.name, "bank.tmp.npz"), os.path.join(tmp.name, S1_BANK))
     del tower, parts
     clock.lap("GLIP-T 3-7")
     # phase 15 for MQ-GLIP-T: the TTA buckets, TTA, knowledge (the towers and Swin versions after phase 17)
@@ -5126,7 +5290,9 @@ def main() -> int:
     launches["MQ-GLIP-T batched protocol"] = phase_batched(torch, "MQ-GLIP-T", model, cfg, synthetic_batch, 300,
                                                            per_group, args.seed, kres, predict=True)
     clock.lap("GLIP-T 17")
-    del model  # nothing of MQ-GLIP-T may stay on the card
+    phase_tools(torch, model, cfg, args.seed, glip_ref, smi)
+    clock.lap("GLIP-T 18")
+    del model, glip_ref  # nothing of MQ-GLIP-T may stay on the card
     torch.cuda.empty_cache()
     with refs.paused():  # the towers' CPU references
         launches.update(phase_towers(torch, cfg, glip_cpu, args.seed, per_group))
@@ -5188,9 +5354,14 @@ def main() -> int:
     glip_bounds, gdino_bounds = {}, {}  # the reference steps' bounds, for phase 13
     cpu = checked_weights(torch, "phase 8", refs.get("phase 8"), glip_cpu)
     clock.lap("waiting for phase 8's CPU runs")
+    trained = {}  # phase 8's model, for phase 18's training step
     launches["MQ-GLIP-T training"] = phase_train(torch, args.seed, glip_vq["dataset"], glip_vq["bank"], smi,
-                                                 glip_bounds, copy.deepcopy(glip_cpu), cpu=cpu)
+                                                 glip_bounds, copy.deepcopy(glip_cpu), cpu=cpu, keep=trained)
     clock.lap("8")
+    phase_tools_train(torch, trained["model"], trained["cfg"], smi)
+    del trained
+    torch.cuda.empty_cache()
+    clock.lap("18 (training step)")
     cpu = checked_weights(torch, "phase 9", refs.get("phase 9"), gdino_cpu)
     clock.lap("waiting for phase 9's CPU runs")
     launches["MQ-GroundingDINO-T training"] = phase_train_gdino(torch, args.seed, gdino_vq["dataset"],
@@ -5237,7 +5408,8 @@ def main() -> int:
     say(f"phases 1-13 done {time.perf_counter() - t_start!r} s after the start")
 
     # ---- phase 14: MQ-Det's model switches ------------------------------
-    launches.update(phase_switches(torch, args.seed, args.runs, smi, glip_vq))
+    launches.update(phase_switches(torch, args.seed, args.runs, smi, glip_vq,
+                                   cpu=lambda m: checked_weights(torch, "phase 14", refs.get("phase 14 S1"), m)))
     clock.lap("14")
     say(f"phases 1-14 done {time.perf_counter() - t_start!r} s after the start")
 

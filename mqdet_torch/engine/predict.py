@@ -57,23 +57,14 @@ def _make_gdino_split_fns(model, cfg):
     return encode_fn, head_fn
 
 
-def make_split_predict_fns(model, image_hw: Tuple[int, int], cfg):
-    """Returns (encode_fn, head_fn):
-      encode_fn(images (1, 3, H, W)) -> image features (list of NCHW maps:
-                5 FPN levels for MQ-GLIP, GROUNDINGDINO.num_feature_levels
-                for MQ-GroundingDINO)
-      head_fn(features, input_ids (CP, T), attention_mask (CP, T),
-              queries (CP, V, C), query_mask (CP, V, T), agg_map (CP, Cls, T),
-              image_sizes (CP, 2)) -> Detections with a leading CP dim
-    Dispatches on the model family. Inputs are moved to the model's device."""
-    if isinstance(model, MQGroundingDINO):
-        return _make_gdino_split_fns(model, cfg)
-    # MODEL.DYHEAD.SCORE_AGG: JAX stores it in PostprocessParams and reads it
-    # nowhere; its post-processor always takes the MEAN through the
-    # aggregation matrix, and so does this one, whatever the key says
-    dev = next(model.parameters()).device
+def glip_postprocess_setup(cfg, image_hw: Tuple[int, int], device):
+    """MQ-GLIP's ATSS decoding inputs at one bucket: (the anchors of each
+    level on `device`, PostprocessParams from cfg.MODEL.ATSS).
+    MODEL.DYHEAD.SCORE_AGG: JAX stores it in PostprocessParams and reads it
+    nowhere; its post-processor always takes the MEAN through the
+    aggregation matrix, and so does this one, whatever the key says."""
     anchors = [
-        torch.from_numpy(a).to(dev)
+        torch.from_numpy(a).to(device)
         for a in anchors_for_fpn(
             image_hw,
             strides=tuple(cfg.MODEL.RPN.ANCHOR_STRIDE),
@@ -87,6 +78,22 @@ def make_split_predict_fns(model, image_hw: Tuple[int, int], cfg):
         nms_thresh=cfg.MODEL.ATSS.NMS_TH,
         detections_per_img=cfg.MODEL.ATSS.DETECTIONS_PER_IMG,
     )
+    return anchors, p
+
+
+def make_split_predict_fns(model, image_hw: Tuple[int, int], cfg):
+    """Returns (encode_fn, head_fn):
+      encode_fn(images (1, 3, H, W)) -> image features (list of NCHW maps:
+                5 FPN levels for MQ-GLIP, GROUNDINGDINO.num_feature_levels
+                for MQ-GroundingDINO)
+      head_fn(features, input_ids (CP, T), attention_mask (CP, T),
+              queries (CP, V, C), query_mask (CP, V, T), agg_map (CP, Cls, T),
+              image_sizes (CP, 2)) -> Detections with a leading CP dim
+    Dispatches on the model family. Inputs are moved to the model's device."""
+    if isinstance(model, MQGroundingDINO):
+        return _make_gdino_split_fns(model, cfg)
+    dev = next(model.parameters()).device
+    anchors, p = glip_postprocess_setup(cfg, image_hw, dev)
     use_queries = cfg.VISION_QUERY.ENABLED
 
     @torch.inference_mode()

@@ -77,7 +77,8 @@ def port_rules(stages: int = 8, levels: int = 5, qv_layers: int = 12):
     JAX package's rule table: LEARNABLE_BANK, ADD_VISION_LAYER,
     NEW_MASK_TOKEN, ADD_LINEAR_LAYER, ADD_ADAPT_LAYER, the 0-d (CONDITION_GATE
     off) and linear (NONLINEAR_GATE off) attention gates, QUERY_FUSION's
-    block, and the MHA-S / SCAN / FILM fusions of each head stage."""
+    block, the MHA-S / SCAN / FILM fusions of each head stage, and the FPN's
+    GroupNorms under MODEL.FPN.USE_GN."""
     ob, lb = "language_backbone/bert", "language_backbone.body.model"
     r = [("qv_layer_learnable_bank", "qv_layer_learnable_bank", TI._ident),
          ("tunable_vision_linear", "tunable_vision_linear", TI._ident),
@@ -89,6 +90,9 @@ def port_rules(stages: int = 8, levels: int = 5, qv_layers: int = 12):
               (f"{p}/attn_gate/kernel", f"{q}.attn_gate.weight", TI._t_linear)]
         r += _ff_rules(f"{p}/adaptor", f"{q}.adaptor")
     r += _gcp_attn_rules("rpn/query_fuse_qv_layer", "rpn.head.query_fuse_qv_layer")
+    for lvl in (2, 3, 4):
+        for n in (f"fpn_inner{lvl}_gn", f"fpn_layer{lvl}_gn"):
+            r += _norm_rules(f"fpn/{n}", f"backbone.fpn.{n}")
     for i in range(stages):
         p, q = f"rpn/fuse_{i}", f"rpn.head.dyhead_tower.{3 * i}"
         t2i = f"{q}.t2i_attn"

@@ -74,7 +74,8 @@ class _Backbone(nn.Module):
             sw.DROP_PATH_RATE, sw.VERSION,
         )
         e = sw.EMBED_DIM
-        self.fpn = FPN([2 * e, 4 * e, 8 * e], cfg.MODEL.BACKBONE.OUT_CHANNELS)
+        self.fpn = FPN([2 * e, 4 * e, 8 * e], cfg.MODEL.BACKBONE.OUT_CHANNELS, bool(cfg.MODEL.FPN.USE_GN),
+                       bool(cfg.MODEL.FPN.USE_RELU))
 
 
 class _Tower(nn.Module):

@@ -50,13 +50,10 @@ def _level_candidates(bbox_reg, centerness, dot_logits, anchors, agg_map, sizes,
     return boxes, torch.sqrt(top_scores.clamp(min=0.0)), cls, valid
 
 
-def atss_postprocess(
-    head_out: dict,
-    anchors_levels: List[torch.Tensor],
-    agg_map: torch.Tensor,      # (B, C, T)
-    image_sizes: torch.Tensor,  # (B, 2) true (h, w)
-    p: PostprocessParams,
-) -> Detections:
+def atss_candidates(head_out: dict, anchors_levels: List[torch.Tensor], agg_map: torch.Tensor,
+                    image_sizes: torch.Tensor, p: PostprocessParams):
+    """Every level's top candidates, concatenated: (boxes (B, N, 4), scores
+    (B, N), labels (B, N), valid (B, N))."""
     b = head_out["bbox_reg"][0].shape[0]
     parts = [
         _level_candidates(
@@ -72,7 +69,12 @@ def atss_postprocess(
             head_out["bbox_reg"], head_out["centerness"], head_out["dot_product_logits"], anchors_levels
         )
     ]
-    boxes, scores, labels, valid = (torch.cat([x[i] for x in parts], 1) for i in range(4))
+    return tuple(torch.cat([x[i] for x in parts], 1) for i in range(4))
+
+
+def atss_select(boxes, scores, labels, valid, p: PostprocessParams) -> Detections:
+    """Class-aware NMS over the candidates and the cap at
+    DETECTIONS_PER_IMG."""
     keep_idx, keep_valid = class_aware_nms(
         boxes, torch.where(valid, scores, torch.full_like(scores, NEG_INF)), labels, valid,
         p.nms_thresh, p.detections_per_img,
@@ -83,3 +85,13 @@ def atss_postprocess(
         labels=torch.where(keep_valid, labels.gather(1, keep_idx), torch.zeros((), dtype=torch.int32, device=labels.device)),
         valid=keep_valid,
     )
+
+
+def atss_postprocess(
+    head_out: dict,
+    anchors_levels: List[torch.Tensor],
+    agg_map: torch.Tensor,      # (B, C, T)
+    image_sizes: torch.Tensor,  # (B, 2) true (h, w)
+    p: PostprocessParams,
+) -> Detections:
+    return atss_select(*atss_candidates(head_out, anchors_levels, agg_map, image_sizes, p), p)

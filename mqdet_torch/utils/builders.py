@@ -166,10 +166,13 @@ def synthetic_batch(
     num_labels: int = 40,
     k_shot: int = 5,
     seed: int = 0,
+    max_gt: int = 0,
 ) -> Dict[str, np.ndarray]:
     """Random but valid inputs, identical to the JAX package's
     `synthetic_batch` for the same arguments (images stay NHWC here; the
-    model takes NCHW)."""
+    model takes NCHW). `max_gt` > 0 adds a training batch's keys as JAX
+    draws them: that many boxes an image, their labels and token maps,
+    `pos_category_map` and `has_query`."""
     rng = np.random.default_rng(seed)
     t = cfg.MODEL.LANGUAGE_BACKBONE.MAX_QUERY_LEN
     v = num_labels * k_shot
@@ -184,7 +187,7 @@ def synthetic_batch(
         span = [min(2 * j + 1, t - 2), min(2 * j + 2, t - 2)]
         query_mask[:, j * k_shot : (j + 1) * k_shot, span] = 1
         agg_map[:, j, span] = 0.5
-    return {
+    out = {
         "images": rng.standard_normal((batch, h, w, 3)).astype(np.float32),
         "input_ids": input_ids,
         "attention_mask": attention_mask,
@@ -193,6 +196,16 @@ def synthetic_batch(
         "agg_map": agg_map,
         "image_sizes": np.tile(np.asarray([[h, w]], np.float32), (batch, 1)),
     }
+    if max_gt:
+        xy = rng.uniform(0, min(h, w) * 0.6, (batch, max_gt, 2))
+        wh = rng.uniform(16, min(h, w) * 0.4, (batch, max_gt, 2))
+        out["gt_boxes"] = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+        out["gt_labels"] = rng.integers(1, num_labels + 1, (batch, max_gt)).astype(np.int32)
+        out["gt_valid"] = np.ones((batch, max_gt), bool)
+        out["gt_token_map"] = agg_map[np.arange(batch)[:, None], out["gt_labels"] - 1]
+        out["pos_category_map"] = (agg_map > 0).astype(np.float32)
+        out["has_query"] = np.ones((batch, num_labels), np.int32)
+    return out
 
 
 def synthetic_caption_batch(

@@ -1,7 +1,8 @@
 """The port's remainders against the JAX package, on the CPU: GDINO at 3
 feature levels (evaluation and a training step) and GDINO's inert keys,
 MODEL.DYHEAD.SCORE_AGG, DyConv's merged canvas, MQDET_FUSION_IMPL, the
-deformable PSRoI and RoI pooling, and the demo predictor and CLI.
+deformable PSRoI and RoI pooling, the demo predictor and CLI, and
+MODEL.FPN.USE_GN / USE_RELU.
 
 Both sides in fp32 with the same weights (`params_from_jax`) and numpy
 inputs. Tolerances are those of the files whose fixtures are reused
@@ -280,6 +281,40 @@ def test_fusion_impl_switch_takes_the_plain_route(impl, monkeypatch):
     for g, w in zip(gv, wv):
         close(g.permute(0, 2, 3, 1), w)
     close(gl, wl)
+
+
+# ---- MODEL.FPN.USE_GN / USE_RELU ---------------------------------------------------
+
+
+@pytest.mark.parametrize("gn, relu", [(True, False), (False, True), (True, True)])
+def test_fpn_use_gn_and_use_relu_match_jax(gn, relu, monkeypatch):
+    """MQ-GLIP passes MODEL.FPN.USE_GN / USE_RELU to its FPN, which computes
+    JAX's function: GroupNorm(32) at flax's eps after each lateral and output
+    conv (no conv bias under it), then the ReLU. The FPN's levels and the
+    head's logits equal JAX's in fp32 (the GroupNorms' weights come through
+    the bridge; 32 channels, as GroupNorm(32) needs)."""
+    from test_torch_port_modules import jax_init_args, tiny_pair, to_nhwc
+
+    monkeypatch.setenv("MQDET_DEFORM_IMPL", "gather")
+
+    def mods(cfg):
+        cfg.MODEL.FPN.USE_GN, cfg.MODEL.FPN.USE_RELU = gn, relu
+        cfg.MODEL.BACKBONE.OUT_CHANNELS = cfg.MODEL.DYHEAD.CHANNELS = 32
+
+    jmodel, params, tmodel, jcfg, _ = tiny_pair(mods)
+    sd = tmodel.state_dict()
+    assert sum("_gn." in k for k in sd if k.startswith("backbone.fpn.")) == (12 if gn else 0)
+    assert ("backbone.fpn.fpn_inner2.bias" in sd) == (not gn)
+    _, args = jax_init_args(jcfg)
+    want = jax.jit(lambda p, *a: jmodel.apply(p, *a))(params, *args)
+    with torch.no_grad():
+        got = tmodel(nchw(args[0]), *(torch.from_numpy(np.array(a)) for a in args[1:]))
+    for w, g in zip(want["fpn_feats"], got["fpn_feats"]):
+        np.testing.assert_allclose(to_nhwc(g), np.asarray(w), atol=1e-4, rtol=1e-4)
+    if relu:
+        assert all(float(g.min()) >= 0.0 for g in got["fpn_feats"][:3])
+    for w, g in zip(want["dot_product_logits"], got["dot_product_logits"]):
+        close(g, w, atol=1e-3)
 
 
 # ---- the merged canvas ------------------------------------------------------------
