@@ -1,0 +1,10 @@
+"""glip_head_ms: device milliseconds a head group spent in the GLIP head (VLDyHead),
+between CUDA events that the harness's own module hooks record, with no
+synchronisation; the mean over the traced run's unprofiled window."""
+
+
+def read(record):
+    spans = record.get("layer_ms", {}).get("glip_head")
+    if not spans:
+        return None
+    return sum(spans) / len(spans)
