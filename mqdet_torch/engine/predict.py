@@ -28,6 +28,7 @@ from mqdet_torch.models.gdino import MQGroundingDINO, gdino_postprocess
 from mqdet_torch.models.layers import cl
 from mqdet_torch.models.postprocess import PostprocessParams, atss_postprocess
 from mqdet_torch.ops.anchors import anchors_for_fpn
+from mqdet_torch.utils.profiling import annotate
 
 
 def _make_gdino_split_fns(model, cfg):
@@ -40,7 +41,8 @@ def _make_gdino_split_fns(model, cfg):
 
     @torch.inference_mode()
     def encode_fn(images):
-        return model.encode_image(images.to(dev))
+        with annotate("encode"):
+            return model.encode_image(images.to(dev))
 
     @torch.inference_mode()
     def head_fn(srcs, input_ids, attention_mask, queries, query_mask, agg_map, image_sizes):
@@ -51,8 +53,9 @@ def _make_gdino_split_fns(model, cfg):
             queries.to(dev) if use_queries else None,
             query_mask.to(dev) if use_queries else None,
         )
-        return gdino_postprocess(out["pred_logits"], out["pred_boxes"], agg_map.to(dev),
-                                 image_sizes.to(dev), box_threshold)
+        with annotate("postprocess"):
+            return gdino_postprocess(out["pred_logits"], out["pred_boxes"], agg_map.to(dev),
+                                     image_sizes.to(dev), box_threshold)
 
     return encode_fn, head_fn
 
@@ -98,7 +101,8 @@ def make_split_predict_fns(model, image_hw: Tuple[int, int], cfg):
 
     @torch.inference_mode()
     def encode_fn(images):
-        return model.encode_image(images.to(dev))
+        with annotate("encode"):
+            return model.encode_image(images.to(dev))
 
     @torch.inference_mode()
     def head_fn(fpn_feats, input_ids, attention_mask, queries, query_mask, agg_map, image_sizes):
@@ -109,7 +113,8 @@ def make_split_predict_fns(model, image_hw: Tuple[int, int], cfg):
             queries.to(dev) if use_queries else None,
             query_mask.to(dev) if use_queries else None,
         )
-        return atss_postprocess(out, anchors, agg_map.to(dev), image_sizes.to(dev), p)
+        with annotate("postprocess"):
+            return atss_postprocess(out, anchors, agg_map.to(dev), image_sizes.to(dev), p)
 
     return encode_fn, head_fn
 
@@ -127,12 +132,14 @@ def make_protocol_fn(model, image_hw: Tuple[int, int], cfg):
 
     @torch.inference_mode()
     def protocol_fn(image, input_ids, attention_mask, queries, query_mask, agg_map, image_sizes):
-        feats = encode_fn(image)
-        return Detections.stack([
-            head_fn(feats, input_ids[g], attention_mask[g], queries[g], query_mask[g],
-                    agg_map[g], image_sizes[g])
-            for g in range(input_ids.shape[0])
-        ])
+        with annotate("protocol"):
+            feats = encode_fn(image)
+            dets = []
+            for g in range(input_ids.shape[0]):
+                with annotate("head_group", g=g):
+                    dets.append(head_fn(feats, input_ids[g], attention_mask[g], queries[g], query_mask[g],
+                                        agg_map[g], image_sizes[g]))
+            return Detections.stack(dets)
 
     return protocol_fn
 
@@ -188,16 +195,18 @@ def make_batched_protocol_fn(model, image_hw: Tuple[int, int], cfg, image_batch:
         if images.shape[0] != b:
             raise ValueError(f"built for {b} images, got {images.shape[0]}")
         cp = input_ids.shape[1]
-        feats = [cl(f.repeat_interleave(cp, dim=0)) for f in encode_fn(images)]
-        sizes = image_sizes.repeat_interleave(cp, dim=0)
 
         def tile(x):
             return None if x is None else x.repeat(b, *(1,) * (x.dim() - 1))
 
-        return Detections.stack([
-            head_fn(feats, tile(input_ids[g]), tile(attention_mask[g]), tile(queries[g]), tile(query_mask[g]),
-                    tile(agg_map[g]), sizes)
-            for g in range(input_ids.shape[0])
-        ])
+        with annotate("protocol"):
+            feats = [cl(f.repeat_interleave(cp, dim=0)) for f in encode_fn(images)]
+            sizes = image_sizes.repeat_interleave(cp, dim=0)
+            dets = []
+            for g in range(input_ids.shape[0]):
+                with annotate("head_group", g=g):
+                    dets.append(head_fn(feats, tile(input_ids[g]), tile(attention_mask[g]), tile(queries[g]),
+                                        tile(query_mask[g]), tile(agg_map[g]), sizes))
+            return Detections.stack(dets)
 
     return protocol_fn

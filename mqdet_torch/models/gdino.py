@@ -56,6 +56,7 @@ from mqdet_torch.models.fusion import BiAttentionBlock
 from mqdet_torch.models.layers import GroupNorm, LayerNorm, avg_pool_2x, cl, training_draws
 from mqdet_torch.models.swin import SwinTransformer
 from mqdet_torch.ops.ms_deform_attn import ms_deform_attn
+from mqdet_torch.utils.profiling import annotate
 
 SPECIAL_IDS = (101, 102, 1012, 1029)  # [CLS] [SEP] . ?
 SWIN_DROP_PATH = 0.2  # the JAX model builds its SwinTransformer with the class default (no config key)
@@ -424,9 +425,10 @@ class MQGroundingDINO(nn.Module):
             )
             queries = queries.to(dt)
         attn_matrix, position_ids = sub_sentence_masks(input_ids, self.special_ids)
-        lang = self.bert(input_ids, attention_mask, queries, query_mask, image_tokens,
-                         attention_matrix=attn_matrix, position_ids=position_ids)
-        text = self.feat_map(lang["last_hidden"])
+        with annotate("language_tower"):
+            lang = self.bert(input_ids, attention_mask, queries, query_mask, image_tokens,
+                             attention_matrix=attn_matrix, position_ids=position_ids)
+            text = self.feat_map(lang["last_hidden"])
         text_mask = attention_mask
 
         memory = torch.cat(flat, 1)
@@ -439,10 +441,12 @@ class MQGroundingDINO(nn.Module):
         enc_wh = level_wh(shapes, dev)
         pos_text = sine_embed_1d(position_ids.float(), c).to(dt)
 
-        for fusion, text_layer, layer in zip(tr.encoder.fusion_layers, tr.encoder.text_layers, tr.encoder.layers):
-            memory, text = fusion(memory, text, text_mask, draws)
-            text = text_layer(text, attn_matrix, pos_text)
-            memory = layer(memory, pos_embed, enc_ref, shapes, enc_wh)
+        with annotate("gdino_encoder"):
+            for fusion, text_layer, layer in zip(tr.encoder.fusion_layers, tr.encoder.text_layers,
+                                                 tr.encoder.layers):
+                memory, text = fusion(memory, text, text_mask, draws)
+                text = text_layer(text, attn_matrix, pos_text)
+                memory = layer(memory, pos_embed, enc_ref, shapes, enc_wh)
 
         # two-stage proposals: one box per pyramid cell; cells with any
         # coordinate outside (0.01, 0.99) are invalid, their memory zeroed
@@ -464,15 +468,16 @@ class MQGroundingDINO(nn.Module):
         reference = init_ref
         classes, coords = [], []
         dec = tr.decoder
-        for layer, bbox_embed in zip(dec.layers, self.bbox_embed):
-            ref_input = reference[:, :, None, :].expand(-1, -1, len(shapes), 4)
-            query_pos = dec.ref_point_head(gen_sineembed_for_position(reference).to(dt))
-            tgt = layer(tgt, query_pos, ref_input, memory, shapes, text, text_mask)
-            normed = dec.norm(tgt)
-            new_ref = torch.sigmoid(bbox_embed(normed).float() + inverse_sigmoid(reference))
-            classes.append(contrastive_embed(normed, text, text_mask, self.max_text_len))
-            coords.append(new_ref)
-            reference = new_ref.detach()  # as JAX (gdino.py:686): no gradient through the next layer's reference
+        with annotate("gdino_decoder"):
+            for layer, bbox_embed in zip(dec.layers, self.bbox_embed):
+                ref_input = reference[:, :, None, :].expand(-1, -1, len(shapes), 4)
+                query_pos = dec.ref_point_head(gen_sineembed_for_position(reference).to(dt))
+                tgt = layer(tgt, query_pos, ref_input, memory, shapes, text, text_mask)
+                normed = dec.norm(tgt)
+                new_ref = torch.sigmoid(bbox_embed(normed).float() + inverse_sigmoid(reference))
+                classes.append(contrastive_embed(normed, text, text_mask, self.max_text_len))
+                coords.append(new_ref)
+                reference = new_ref.detach()  # as JAX (gdino.py:686): no gradient through the next reference
 
         out = {
             "pred_logits": classes[-1],   # (B, Q, max_text_len)

@@ -54,6 +54,7 @@ from mqdet_torch.models.layers import avg_pool_2x, cl, training_draws
 from mqdet_torch.models.swin import SwinTransformer
 from mqdet_torch.models.text_towers import CLIPTextTransformer, RNNEncoder
 from mqdet_torch.models.vldyhead import VLDyHead
+from mqdet_torch.utils.profiling import annotate
 
 
 def flatten_fpn_features(feats: List[torch.Tensor]) -> torch.Tensor:
@@ -161,25 +162,27 @@ class MQGLIP(nn.Module):
             queries = self.qv_layer_learnable_bank[queries[..., 0].long(), queries[..., 1].long()]
         if queries is not None and self.tunable_vision_linear is not None:
             queries = queries + self.tunable_vision_linear[None, :queries.shape[1]].to(queries.dtype)
-        if isinstance(self.language_backbone, _Tower):
-            if queries is not None:  # no GCP pathway in these towers
-                raise ValueError("vision queries require the bert language backbone: set VISION_QUERY.ENABLED off")
-            lang = self.language_backbone(input_ids, attention_mask, training_draws(deterministic, generator))
-        else:
-            lang = self.language_backbone(
-                input_ids,
-                attention_mask,
-                queries=queries.to(self.dtype) if queries is not None else None,
-                query_mask=query_mask,
-                image_tokens=flatten_fpn_features(fpn_feats) if queries is not None else None,
+        if isinstance(self.language_backbone, _Tower) and queries is not None:  # no GCP pathway in these towers
+            raise ValueError("vision queries require the bert language backbone: set VISION_QUERY.ENABLED off")
+        with annotate("language_tower"):
+            if isinstance(self.language_backbone, _Tower):
+                lang = self.language_backbone(input_ids, attention_mask, training_draws(deterministic, generator))
+            else:
+                lang = self.language_backbone(
+                    input_ids,
+                    attention_mask,
+                    queries=queries.to(self.dtype) if queries is not None else None,
+                    query_mask=query_mask,
+                    image_tokens=flatten_fpn_features(fpn_feats) if queries is not None else None,
+                )
+        with annotate("glip_head"):
+            out = self.rpn.head(
+                fpn_feats, lang["hidden"], lang["masks"], training_draws(deterministic, generator),
+                embedding=lang["embedded"],
+                augmented_vision=lang.get("augmented_vision") if self.query_fusion else None,
+                query_mask=query_mask if self.query_fusion else None,
+                lang_aggregate=lang["aggregate"],
             )
-        out = self.rpn.head(
-            fpn_feats, lang["hidden"], lang["masks"], training_draws(deterministic, generator),
-            embedding=lang["embedded"],
-            augmented_vision=lang.get("augmented_vision") if self.query_fusion else None,
-            query_mask=query_mask if self.query_fusion else None,
-            lang_aggregate=lang["aggregate"],
-        )
         out["lang"] = lang
         return out
 

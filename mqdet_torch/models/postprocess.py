@@ -14,6 +14,7 @@ import torch
 from mqdet_torch.core import boxes as box_ops
 from mqdet_torch.core.detections import Detections
 from mqdet_torch.ops.nms import NEG_INF, class_aware_nms, topk_stable
+from mqdet_torch.utils.profiling import annotate
 
 
 class PostprocessParams(NamedTuple):
@@ -94,4 +95,6 @@ def atss_postprocess(
     image_sizes: torch.Tensor,  # (B, 2) true (h, w)
     p: PostprocessParams,
 ) -> Detections:
-    return atss_select(*atss_candidates(head_out, anchors_levels, agg_map, image_sizes, p), p)
+    with annotate("atss_candidates"):
+        candidates = atss_candidates(head_out, anchors_levels, agg_map, image_sizes, p)
+    return atss_select(*candidates, p)

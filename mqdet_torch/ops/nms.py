@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from mqdet_torch.core.boxes import box_iou
+from mqdet_torch.utils.profiling import annotate, count
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -40,7 +41,14 @@ def class_aware_nms(
     row_block: int = 1024,
 ):
     """Returns keep_idx (B, max_outputs) int64 indices into the input, score
-    ordered, and keep_valid (B, max_outputs) bool."""
+    ordered, and keep_valid (B, max_outputs) bool. Under the span `nms`, each
+    fixed-point round counts one `nms_rounds` and one `host_syncs` (its
+    `torch.equal` waits for the device)."""
+    with annotate("nms"):
+        return _class_aware_nms(boxes, scores, labels, valid, iou_threshold, max_outputs, row_block)
+
+
+def _class_aware_nms(boxes, scores, labels, valid, iou_threshold, max_outputs, row_block):
     b, n = scores.shape
     dev = scores.device
     masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
@@ -62,6 +70,8 @@ def class_aware_nms(
     keep = v_s
     for _ in range(n + 1):
         new = v_s & ~(m & keep[:, None, :]).any(-1)
+        count("nms_rounds")
+        count("host_syncs")
         if torch.equal(new, keep):
             break
         keep = new

@@ -229,9 +229,11 @@ def _helper_profiling(rng, tmp_path, monkeypatch):
     from mqdet_torch.utils import profiling as tp
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with tp.annotate("batched-region"):
+        with tp.annotate("batched-region") as off:  # the tracer off: not named
             torch.ones(4).sum()
-    assert any(e.name == "batched-region" for e in prof.events())
+        with tp.tracer(cuda=False), tp.annotate("batched-region"):
+            torch.ones(4).sum()
+    assert off is None and sum(e.name == "batched-region" for e in prof.events()) == 1
     with jp.annotate("batched-region"):
         pass
     det = _pair_dets(_dets(rng, (), 4))[1]
